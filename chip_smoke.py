@@ -10,17 +10,32 @@ non-zero exit code and no result line:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions and the matmul precision settings the sweep pins;
-2. build: ``nvcc`` builds the CUDA kernels from ``pymra_torch/ops/cuda``;
-3. kernels: each CUDA kernel against its plain PyTorch twin on the card at
-   every shipped width, escalation cases included, and both timed with
-   CUDA events at the main path's shapes;
+2. build: one ``nvcc`` per kernel source of ``pymra_torch/ops/cuda``, all
+   at once;
+3. kernels: each of the five CUDA kernels against its plain PyTorch twin
+   on the card at every shipped width, escalation and NaN cases included,
+   and kernel, twin and one PyTorch library call (a yardstick the port
+   never calls) timed with CUDA events at the main path's shapes, beside
+   the roofline bound of the same work;
+3b. backward: the autograd Functions of ``cholesky_jittered`` and
+   ``leaf_factor`` on the card against the same Functions on CPU copies
+   (the twins), at the main path's shapes with random cotangents;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
 5. the N=10^6 flagship (1000^2 grid, r=8, M=7): likelihood-only objective
    against its golden, ms per evaluation with and without the posterior,
    peak device memory;
-6. launch counters: phases 4-5 went through both kernels, and no plain twin
-   ran on a CUDA tensor.
+6. launch counters: phases 4-5 went through K1 and K2, and no plain twin
+   ran on a CUDA tensor;
+7. the gradient path at N=10^4: ``MRAModel.loglik_fn`` value and gradient
+   in ``l`` and ``sig`` against the float64 golden gradient, ms per
+   value-and-gradient evaluation;
+8. the gradient path at N=10^6: value and gradient finite and held to a
+   five-point difference of the card's own float32 loglik, ms per
+   value-and-gradient evaluation, its ratio to the forward, peak memory
+   with autograd, then a 3-step L-BFGS ``fit_mle``;
+9. launch counters over phases 7-8: all five kernels launched, no twin ran
+   on a CUDA tensor.
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -39,10 +54,31 @@ import numpy as np
 GOLDEN_N10K = 118683.56905857287
 GOLDEN_N1M = 27435488.53970907
 ANCHOR_RTOL = 2e-3
+#: float64 golden gradient of the N=10^4 tree at l=2, sig=1 (the JAX
+#: package, jitter 0: ``tools/golden_gradient_n10k.py``, whose objective
+#: reproduces GOLDEN_N10K to 2.5e-12)
+GOLDEN_GRAD_N10K = {"l": -37296.18276094866, "sig": 74598.06509430968}
+#: relative tolerance of each float32 partial against it: the float32
+#: path's jitter (1e-6) alone moves both by 5.6e-4 (the port in float64
+#: with that jitter), and float32 rounding, mostly in the leaf stage, by up
+#: to 6.5e-4 more on the CPU twins (1.2e-3 in all for sig); the bench's
+#: objective anchor uses the same 2e-3
+GRAD_RTOL = 2e-3
+#: N=10^6 gradient check: a five-point difference of the float32 loglik in
+#: log-parameter with step 0.1; on the CPU twins it lies within 2.4e-4 of
+#: the gradient at N=128^2 and 1e-4 at N=256^2, while dropping the leaf
+#: backward moves the gradient by a factor of 40 or more
+FD_STEP, FD_RTOL = 0.1, 2e-3
 #: kernel-versus-twin agreement: max|kernel - twin| <= ATOL + RTOL max|twin|
 #: per output (two float32 column loops rounding in different places; the
-#: CUDA kernel contracts multiply-subtract into FMA, the twin does not)
+#: CUDA kernel contracts multiply-subtract into FMA, the twin does not).
+#: The backward checks use it too, each member held to its own scale: an
+#: escalated member's jitter gradient is 1e4 times a healthy member's
 RTOL, ATOL = 1e-4, 1e-5
+#: the card's roofline (H100 SXM at 700 W): HBM bytes/s and float32 FLOP/s
+#: outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 CHOL_WIDTHS = (4, 8, 17, 28, 48, 49, 64)
 LEAF_WIDTHS = (17, 28, 48, 49, 64)
@@ -51,6 +87,10 @@ RAGGED_BATCH = 1000
 #: and N=10^6 (r=8, leaves P=64)
 CHOL_MAIN = ((64, 4), (4096, 8))
 LEAF_MAIN = ((256, 49), (16384, 64))
+#: (batch, P) of K3 and K4 in the leaf backward (the leaf shapes), and of
+#: K5 in K2's backward (the r x r interior blocks, Q = r)
+TRI_MAIN = LEAF_MAIN
+SOLVE_MAIN = CHOL_MAIN
 
 
 def fail(msg: str) -> None:
@@ -86,7 +126,7 @@ def time_ms(fn, reps: int = 10) -> float:
 def phase_device():
     import torch
 
-    from pymra_torch.tree.sweep import set_matmul_precision
+    from pymra_torch.ops.linalg import set_matmul_precision
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -123,8 +163,8 @@ def phase_build():
     print("== phase 2: build")
     t0 = time.perf_counter()
     build.load_library()
-    print(f"nvcc build + load: {time.perf_counter() - t0:.1f} s "
-          f"({' '.join(build.NVCC_FLAGS)})")
+    print(f"nvcc build + load, one nvcc per source in parallel: "
+          f"{time.perf_counter() - t0:.1f} s ({' '.join(build.NVCC_FLAGS)})")
     for line in build.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -182,13 +222,29 @@ def leaf_case(rng, b, p, escalate: bool):
     return c.astype(f32), k.astype(f32), a_oo.astype(f32)
 
 
-def compare(name, got, want, factor_idx):
-    """Max |kernel - twin| per output with the tolerance; NaN patterns and
-    the selected factors must be identical. Returns the max error."""
+def lower_case(rng, b, p):
+    """Well-conditioned lower factors: a small random strict lower part on
+    a diagonal in [1, 2]."""
+    low = np.tril(rng.standard_normal((b, p, p)), -1) * (0.5 / np.sqrt(p))
+    diag = rng.uniform(1.0, 2.0, (b, p))
+    return (low + diag[:, :, None] * np.eye(p)).astype(np.float32)
+
+
+def compare(name, got, want, factor_idx=frozenset(), per_member=False):
+    """|kernel - twin| of every output against ATOL + RTOL times a scale:
+    the output's max |twin|, or with ``per_member`` each member's own (the
+    max |twin| over all of that member's outputs, so that one large member
+    does not widen the others' tolerance). NaN patterns and the selected
+    factors must be identical. Returns the max error."""
     import torch
 
+    pairs = [(g.detach().cpu(), w.detach().cpu()) for g, w in zip(got, want)]
+    if per_member:
+        scale = torch.stack([
+            w.nan_to_num(0.0, 0.0, 0.0).abs().reshape(len(w), -1).amax(1)
+            for _, w in pairs]).amax(0)
     worst = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
+    for i, (g, w) in enumerate(pairs):
         if i in factor_idx:
             check(torch.equal(g, w), f"{name}: selected factors differ")
             continue
@@ -196,16 +252,80 @@ def compare(name, got, want, factor_idx):
         check(torch.equal(torch.isfinite(g), fin),
               f"{name}: output {i} non-finite pattern differs")
         if fin.any():
-            err = float((g[fin] - w[fin]).abs().max())
-            tol = ATOL + RTOL * float(w[fin].abs().max())
-            check(err <= tol, f"{name}: output {i} max|diff| {err:.3g} > "
-                              f"{tol:.3g}")
+            diff = (g - w).abs()
+            if per_member:
+                tol = ATOL + RTOL * scale.reshape(-1, *[1] * (w.dim() - 1))
+            else:
+                tol = torch.tensor(ATOL + RTOL * float(w[fin].abs().max()))
+            err = float(diff[fin].max())
+            bad = (fin & (diff > tol)).nonzero()
+            if len(bad):
+                at = tuple(bad[0].tolist())
+                limit = float(tol.expand_as(w)[at])
+                fail(f"{name}: output {i} max|diff| {err:.3g}; |diff| "
+                     f"{float(diff[at]):.3g} > {limit:.3g} at {at}")
             worst = max(worst, err)
     return worst
 
 
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time the card could take: the larger of bytes over the HBM
+    rate and float32 operations over the peak rate, with which bounds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attempts(f) -> float:
+    """Factorizations run, given each member's selected factor (1, 1e2 or
+    1e4 took 1, 2 or 3 attempts)."""
+    return float((1 + (f >= 1e2).int() + (f >= 1e4).int()).sum())
+
+
+def work(name, inputs, outputs) -> tuple[float, float]:
+    """(bytes, flops) one call needs on these inputs: each input read once,
+    each output written once (float32), and the factorizations this run's
+    escalation really took. Of a symmetric input (K1's C and A_oo, K2's
+    and K4's matrix) or a lower-triangular one (K3's and K5's L) only the
+    lower triangle, P(P+1)/2 entries of each matrix, has to be read;
+    outputs are written whole. Cholesky and a triangular inverse are P^3/3
+    flops each, a solve with Q columns P^2 Q."""
+    b, p = inputs[0].shape[0], inputs[0].shape[-1]
+    triangular = (0, 2) if name == "leaf_factor" else (0,)
+    nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
+        b * p * (p + 1) // 2 if i in triangular else t.numel()
+        for i, t in enumerate(inputs)))
+    if name == "cholesky_jittered":
+        flops = _attempts(outputs[2]) * p ** 3 / 3
+    elif name == "leaf_factor":
+        # prior log-determinant P^3/3, posterior factor + inverse 2 P^3/3
+        flops = (_attempts(outputs[3]) + 2 * _attempts(outputs[4])) \
+            * p ** 3 / 3
+    elif name == "solve_triangular_batched":
+        flops = b * p * p * inputs[1].shape[-1]
+    else:
+        flops = b * p ** 3 / 3
+    return nbytes, flops
+
+
+def timed(times, key, timer, run, plain, library, inputs):
+    """Time kernel, twin and library call at one main-path shape; record
+    them with the bound of the work; return the line's tail."""
+    out = run()
+    out = out if isinstance(out, tuple) else (out,)
+    ms, ms_ref = timer(run), timer(plain)
+    ms_lib = timer(library) if library is not None else None
+    b_ms, b_by = bound_ms(*work(key[0], inputs, list(out)))
+    times[key] = {"ms": ms, "plain_ms": ms_ref, "library_ms": ms_lib,
+                  "bound_ms": b_ms, "bound_by": b_by}
+    lib = f"{ms_lib:.4f} ms" if ms_lib is not None else "none"
+    return (f"; kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, library {lib}, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+
+
 def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
-                  leaf_main=LEAF_MAIN, timer=time_ms):
+                  leaf_main=LEAF_MAIN, tri_main=TRI_MAIN,
+                  solve_main=SOLVE_MAIN, timer=time_ms):
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -214,14 +334,18 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
           f"(tolerance max|diff| <= {ATOL} + {RTOL} max|twin|)")
     rng = np.random.default_rng(0)
     dev = torch.device(device)
-    err = {"cholesky_jittered": 0.0, "leaf_factor": 0.0}
+    err = dict.fromkeys(["cholesky_jittered", "leaf_factor", "cholesky",
+                         "triangular_inverse_lower",
+                         "solve_triangular_batched"], 0.0)
     times = {}
+
+    def dv(x):
+        return torch.as_tensor(x, device=dev)
 
     shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(chol_main)
     for b, p in shapes:
         m, jit = chol_case(rng, b, p)
-        mt = torch.as_tensor(m, device=dev)
-        jt = torch.as_tensor(jit, device=dev)
+        mt, jt = dv(m), dv(jit)
         got = tl.cholesky_jittered(mt, jt)
         want = tl.cholesky_jittered_ref(mt, jt)
         e = compare(f"cholesky_jittered {b}x{p}", got, want, factor_idx={2})
@@ -233,18 +357,20 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   f"{f[1:4]}, expected [100, 100, 10000]")
         line = f"cholesky_jittered B={b} P={p}: max|diff| {e:.3g}"
         if (b, p) in chol_main:
-            ms = timer(lambda: tl.cholesky_jittered(mt, jt))
-            ms_ref = timer(lambda: tl.cholesky_jittered_ref(mt, jt))
-            times[("cholesky_jittered", b, p)] = (ms, ms_ref)
-            line += f"; kernel {ms:.4f} ms, twin {ms_ref:.4f} ms"
+            eye = torch.eye(p, device=dev)
+            line += timed(
+                times, ("cholesky_jittered", b, p), timer,
+                lambda: tl.cholesky_jittered(mt, jt),
+                lambda: tl.cholesky_jittered_ref(mt, jt),
+                lambda: torch.linalg.cholesky_ex(mt + jt[:, None, None] * eye),
+                [mt, jt])
         print(line)
 
     shapes = [(ragged, p) for p in LEAF_WIDTHS] + list(leaf_main)
     for b, p in shapes:
         for escalate in (True, False):
             jitter = 1e-3 if escalate else 0.0
-            c, k, a = (torch.as_tensor(x, device=dev)
-                       for x in leaf_case(rng, b, p, escalate))
+            c, k, a = (dv(x) for x in leaf_case(rng, b, p, escalate))
             got = tl.leaf_factor(c, k, a, jitter)
             want = tl.leaf_factor_ref(c, k, a, jitter)
             e = compare(f"leaf_factor {b}x{p} jitter={jitter}", got, want,
@@ -268,12 +394,136 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
             line = (f"leaf_factor B={b} P={p} jitter={jitter}: "
                     f"max|diff| {e:.3g}")
             if escalate and (b, p) in leaf_main:
-                ms = timer(lambda: tl.leaf_factor(c, k, a, jitter))
-                ms_ref = timer(lambda: tl.leaf_factor_ref(c, k, a, jitter))
-                times[("leaf_factor", b, p)] = (ms, ms_ref)
-                line += f"; kernel {ms:.4f} ms, twin {ms_ref:.4f} ms"
+                line += timed(
+                    times, ("leaf_factor", b, p), timer,
+                    lambda: tl.leaf_factor(c, k, a, jitter),
+                    lambda: tl.leaf_factor_ref(c, k, a, jitter), None,
+                    [c, k, a])
+            print(line)
+
+    # K4: no jitter, so the indefinite, negative-pivot and -I members of
+    # chol_case come out NaN from their failing column on, in both
+    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(tri_main)
+    for b, p in shapes:
+        mt = dv(chol_case(rng, b, p)[0])
+        got = tl.cholesky(mt)
+        e = compare(f"cholesky {b}x{p}", (got,), (tl.cholesky_ref(mt),))
+        err["cholesky"] = max(err["cholesky"], e)
+        if p > 1 and b >= 4:
+            check(bool(torch.isfinite(got[0]).all())
+                  and bool(torch.isnan(got[3][:, 0]).all()),
+                  f"cholesky {b}x{p}: healthy member not finite or -I "
+                  "member's first column not NaN")
+        line = f"cholesky B={b} P={p}: max|diff| {e:.3g}"
+        if (b, p) in tri_main:
+            line += timed(times, ("cholesky", b, p), timer,
+                          lambda: tl.cholesky(mt),
+                          lambda: tl.cholesky_ref(mt),
+                          lambda: torch.linalg.cholesky_ex(mt), [mt])
+        print(line)
+
+    for b, p in shapes:
+        lt = dv(lower_case(rng, b, p))
+        got = tl.triangular_inverse_lower(lt)
+        e = compare(f"triangular_inverse_lower {b}x{p}", (got,),
+                    (tl.triangular_inverse_lower_ref(lt),))
+        err["triangular_inverse_lower"] = max(
+            err["triangular_inverse_lower"], e)
+        line = f"triangular_inverse_lower B={b} P={p}: max|diff| {e:.3g}"
+        if (b, p) in tri_main:
+            eye = torch.eye(p, device=dev).expand_as(lt)
+            line += timed(
+                times, ("triangular_inverse_lower", b, p), timer,
+                lambda: tl.triangular_inverse_lower(lt),
+                lambda: tl.triangular_inverse_lower_ref(lt),
+                lambda: torch.linalg.solve_triangular(lt, eye, upper=False),
+                [lt])
+        print(line)
+
+    # K5 with Q = P, both directions; the main path (the Cholesky
+    # pullback) solves with the transpose
+    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(solve_main)
+    for b, p in shapes:
+        lt = dv(lower_case(rng, b, p))
+        rhs = dv(rng.standard_normal((b, p, p)).astype(np.float32))
+        for transpose in (False, True):
+            got = tl.solve_triangular_batched(lt, rhs, transpose)
+            want = tl.solve_triangular_batched_ref(lt, rhs, transpose)
+            e = compare(f"solve_triangular_batched {b}x{p} T={transpose}",
+                        (got,), (want,))
+            err["solve_triangular_batched"] = max(
+                err["solve_triangular_batched"], e)
+            line = (f"solve_triangular_batched B={b} P=Q={p} "
+                    f"transpose={transpose}: max|diff| {e:.3g}")
+            if transpose and (b, p) in solve_main:
+                lt_t = lt.transpose(-1, -2)
+                line += timed(
+                    times, ("solve_triangular_batched", b, p), timer,
+                    lambda: tl.solve_triangular_batched(lt, rhs, True),
+                    lambda: tl.solve_triangular_batched_ref(lt, rhs, True),
+                    lambda: torch.linalg.solve_triangular(lt_t, rhs,
+                                                          upper=True),
+                    [lt, rhs])
             print(line)
     return err, times
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: backward passes on the card against the CPU twins
+# ---------------------------------------------------------------------------
+
+def _backward(fn, inputs, cotangents, device):
+    """Gradients of ``fn``'s outputs with the given cotangents, inputs and
+    cotangents copied to ``device`` (float32)."""
+    import torch
+
+    xs = [torch.tensor(x, device=device, requires_grad=True)
+          for x in inputs]
+    outs = fn(*xs)
+    return torch.autograd.grad(
+        outs, xs, [torch.tensor(c, device=device) for c in cotangents])
+
+
+def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN):
+    from pymra_torch.ops import linalg as tl
+
+    print("== phase 3b: backward on the card against CPU copies "
+          f"(tolerance |diff| <= {ATOL} + {RTOL} max|cpu| of each member)")
+    rng = np.random.default_rng(1)
+    err = {"cholesky_jittered": 0.0, "leaf_factor": 0.0}
+    f32 = np.float32
+
+    def chol(m, jit):
+        return tl.cholesky_jittered(m, jit)[:2]
+
+    for b, p in chol_main:
+        m, jit = chol_case(rng, b, p)
+        cot = [rng.standard_normal(m.shape).astype(f32),
+               rng.standard_normal(b).astype(f32)]
+        e = compare(f"cholesky_jittered backward {b}x{p}",
+                    _backward(chol, [m, jit], cot, device),
+                    _backward(chol, [m, jit], cot, "cpu"), per_member=True)
+        err["cholesky_jittered"] = max(err["cholesky_jittered"], e)
+        print(f"cholesky_jittered backward B={b} P={p}: max|diff| {e:.3g}")
+
+    for b, p in leaf_main:
+        c, k, a = leaf_case(rng, b, p, escalate=True)
+
+        def leaf(cc, aa, k=k):
+            import torch
+
+            return tl.leaf_factor(cc, torch.as_tensor(k, device=cc.device),
+                                  aa, 1e-3)[:3]
+
+        cot = [rng.standard_normal(c.shape).astype(f32),
+               rng.standard_normal(b).astype(f32),
+               rng.standard_normal(b).astype(f32)]
+        e = compare(f"leaf_factor backward {b}x{p}",
+                    _backward(leaf, [c, a], cot, device),
+                    _backward(leaf, [c, a], cot, "cpu"), per_member=True)
+        err["leaf_factor"] = max(err["leaf_factor"], e)
+        print(f"leaf_factor backward B={b} P={p}: max|diff| {e:.3g}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -373,16 +623,176 @@ def phase_n1m(device="cuda", timer=time_ms, side=1000, golden=GOLDEN_N1M,
     print(f"N={len(locs)} likelihood-only: {ms_lik:.3f} ms/eval; full "
           f"likelihood+posterior: {ms_full:.3f} ms/eval ({n_evals} evals, "
           f"l in [0.04, 0.06]); peak device memory {peak:.2f} GiB")
-    return ms_lik, ms_full, peak
+    return {"ms_lik": ms_lik, "model": model, "y": y}
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the gradient path
+# ---------------------------------------------------------------------------
+
+def exponential_builder(theta):
+    from pymra_torch import Kernel
+
+    return Kernel("exponential", l=theta["l"], sig=theta["sig"])
+
+
+def value_and_grad(f, l, sig):
+    """``f({l, sig})`` and its gradient, the parameters 0-dim float64 CPU
+    tensors (``loglik_fn`` copies a dict's tensors to the device)."""
+    import torch
+
+    theta = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+             for k, v in (("l", l), ("sig", sig))}
+    value = f(theta)
+    value.backward()
+    return float(value.detach()), {k: float(t.grad)
+                                   for k, t in theta.items()}
+
+
+def _grad_timer(f, ls, timer):
+    """ms per value-and-gradient evaluation over ``ls`` (one warm-up)."""
+    it = iter(ls)
+    return timer(lambda: value_and_grad(f, float(next(it)), 1.0),
+                 reps=len(ls) - 1)
+
+
+def phase_grad_n10k(device="cuda", timer=time_ms, n_evals=10,
+                    data="large", r=4, M=4, R=1e-4,
+                    golden=GOLDEN_GRAD_N10K):
+    import torch
+
+    from pymra_torch import MRAModel, PlanConfig, load_data
+
+    locs, y_obs = load_data(data)
+    tag = f"N={len(locs)}"
+    print(f"== phase 7: gradient path at {tag} (bundled {data}, r={r}, "
+          f"M={M}, exponential l=2 sig=1, R={R})")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y_dev = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    f = model.loglik_fn(y_dev, R, kernel_builder=exponential_builder)
+    value, grad = value_and_grad(f, 2.0, 1.0)
+    check(np.isfinite(value), f"{tag} loglik {value} not finite")
+    # parameters left on the host (a tuple is not moved to the device)
+    # meet the device's locations as 0-dim tensors and get the same
+    # gradient, summed on the device and sent back per covariance call
+    f_host = model.loglik_fn(y_dev, R, kernel_builder=lambda th: (
+        exponential_builder(dict(th))))
+    theta = tuple((k, torch.tensor(v, dtype=torch.float64,
+                                   requires_grad=True))
+                  for k, v in (("l", 2.0), ("sig", 1.0)))
+    f_host(theta).backward()
+    for k, t in theta:
+        check(t.grad is not None and abs(float(t.grad) - grad[k])
+              <= 1e-6 * abs(grad[k]), f"{tag} host parameter {k}: gradient "
+              f"{t.grad} differs from {grad[k]}")
+    for k in ("l", "sig"):
+        rel = abs(grad[k] - golden[k]) / abs(golden[k])
+        print(f"{tag} dloglik/d{k} {grad[k]!r} golden {golden[k]!r} rel "
+              f"err {rel:.3g} (limit {GRAD_RTOL})")
+        check(rel <= GRAD_RTOL,
+              f"{tag} dloglik/d{k} off its golden by {rel:.3g}")
+    ms = _grad_timer(f, np.linspace(1.5, 2.5, n_evals + 1), timer)
+    print(f"{tag} value and gradient: {ms:.3f} ms/eval ({n_evals} evals, "
+          "l in [1.5, 2.5])")
+    return ms
+
+
+def five_point(fn, h):
+    """Derivative at 0 of ``fn`` from its values at -2h, -h, h, 2h."""
+    return (8.0 * (fn(h) - fn(-h)) - (fn(2 * h) - fn(-2 * h))) / (12.0 * h)
+
+
+def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
+                   n_evals=5, fit_steps=3):
+    import torch
+
+    from pymra_torch import fit_mle
+
+    model, y = n1m["model"], n1m["y"]
+    n = model.dplan.n_locs
+    print(f"== phase 8: gradient path at N={n} (l=0.05, sig=1, R=1e-2)")
+    f = model.loglik_fn(y, 1e-2, kernel_builder=exponential_builder)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    value, grad = value_and_grad(f, 0.05, 1.0)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
+            else float("nan"))
+    check(np.isfinite(value) and all(np.isfinite(list(grad.values()))),
+          f"N={n} value {value} or gradient {grad} not finite")
+
+    def loglik(l, sig):
+        with torch.no_grad():
+            return float(f({"l": torch.tensor(l, dtype=torch.float64),
+                            "sig": torch.tensor(sig, dtype=torch.float64)}))
+
+    # derivatives in log-parameter: d/dlog l = l d/dl
+    fd = {"l": five_point(lambda t: loglik(0.05 * np.exp(t), 1.0), FD_STEP),
+          "sig": five_point(lambda t: loglik(0.05, np.exp(t)), FD_STEP)}
+    ad = {"l": 0.05 * grad["l"], "sig": 1.0 * grad["sig"]}
+    for k in ("l", "sig"):
+        rel = abs(ad[k] - fd[k]) / abs(fd[k])
+        print(f"N={n} dloglik/dlog {k}: autograd {ad[k]!r}, five-point "
+              f"difference (step {FD_STEP}) {fd[k]!r}, rel diff {rel:.3g} "
+              f"(limit {FD_RTOL})")
+        check(rel <= FD_RTOL, f"N={n} gradient in {k} off the difference "
+                              f"by {rel:.3g}")
+    ms = _grad_timer(f, np.linspace(0.04, 0.06, n_evals + 1), timer)
+    print(f"N={n} value and gradient: {ms:.3f} ms/eval ({n_evals} evals, "
+          f"l in [0.04, 0.06]); {ms / ms_forward:.2f}x the likelihood-only "
+          f"forward; peak device memory with autograd {peak:.2f} GiB")
+
+    res = fit_mle(f, {"l": 0.04, "sig": 1.0}, method="lbfgs",
+                  steps=fit_steps)
+    start = -res["history"][0]
+    print(f"N={n} fit_mle lbfgs {len(res['history'])} steps from l=0.04 "
+          f"sig=1: loglik {start!r} -> {res['loglik']!r} at {res['theta']}")
+    check(np.isfinite(res["loglik"]) and res["loglik"] > start,
+          f"N={n} fit_mle did not raise the loglik ({start} -> "
+          f"{res['loglik']})")
+    return {"ms": ms, "peak": peak, "fd": fd, "ad": ad}
 
 
 # ---------------------------------------------------------------------------
 
+#: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
+#: replaces, the main-path shape of its record)
+KERNELS = (
+    ("leaf_factor", "leaf_factor.cu",
+     "pymra_tpu/ops/pallas/linalg.py:255,309", LEAF_MAIN[-1]),
+    ("cholesky_jittered", "cholesky_jittered.cu",
+     "pymra_tpu/ops/pallas/linalg.py:123", CHOL_MAIN[-1]),
+    ("triangular_inverse_lower", "tri_inv.cu",
+     "pymra_tpu/ops/pallas/linalg.py:439", TRI_MAIN[-1]),
+    ("cholesky", "cholesky.cu", "pymra_tpu/ops/pallas/linalg.py:99",
+     TRI_MAIN[-1]),
+    ("solve_triangular_batched", "tri_solve.cu",
+     "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1]),
+)
+FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
+
+
 def reset_counters(tl):
-    tl.cholesky_jittered.launches = 0
-    tl.leaf_factor.launches = 0
-    tl.cholesky_jittered_ref.cuda_calls = 0
-    tl.leaf_factor_ref.cuda_calls = 0
+    for name, *_ in KERNELS:
+        getattr(tl, name).launches = 0
+        getattr(tl, name + "_ref").cuda_calls = 0
+
+
+def read_counters(tl, title, names):
+    """Print the launch counts of a path; every kernel in ``names`` must
+    have launched and no twin may have run on a CUDA tensor."""
+    launches = {n: getattr(tl, n).launches for n, *_ in KERNELS}
+    twins = {f"{n}_ref": getattr(tl, f"{n}_ref").cuda_calls
+             for n, *_ in KERNELS}
+    print(f"== {title}")
+    print(f"kernel launches {launches}; twin calls on CUDA tensors {twins}")
+    missing = [n for n in names if launches[n] == 0]
+    check(not missing, f"kernels of the path never launched: {missing}")
+    check(all(v == 0 for v in twins.values()),
+          "a plain twin ran on a CUDA tensor in the path")
+    return launches
 
 
 def main() -> int:
@@ -397,34 +807,32 @@ def main() -> int:
     phase_device()
     phase_build()
     err, times = phase_kernels()
+    err_bwd = phase_backward()
 
     reset_counters(tl)
     phase_n10k()
-    phase_n1m()
-    print("== phase 6: launch counters over phases 4-5")
-    launches = {"cholesky_jittered": tl.cholesky_jittered.launches,
-                "leaf_factor": tl.leaf_factor.launches}
-    twins = {"cholesky_jittered_ref": tl.cholesky_jittered_ref.cuda_calls,
-             "leaf_factor_ref": tl.leaf_factor_ref.cuda_calls}
-    print(f"kernel launches {launches}; twin calls on CUDA tensors {twins}")
-    check(all(v > 0 for v in launches.values()),
-          "a kernel of the main path was never launched")
-    check(all(v == 0 for v in twins.values()),
-          "a plain twin ran on a CUDA tensor in the main path")
+    n1m = phase_n1m()
+    forward = read_counters(tl, "phase 6: launch counters over phases 4-5",
+                            FORWARD_KERNELS)
+
+    reset_counters(tl)
+    phase_grad_n10k()
+    phase_grad_n1m(n1m, n1m["ms_lik"])
+    gradient = read_counters(
+        tl, "phase 9: launch counters over phases 7-8",
+        [n for n, *_ in KERNELS])
     print_precision()
 
-    src = "pymra_torch/ops/cuda/csrc/"
     rec = []
-    for name, replaces, (b, p) in (
-            ("cholesky_jittered", "pymra_tpu/ops/pallas/linalg.py:123",
-             CHOL_MAIN[-1]),
-            ("leaf_factor", "pymra_tpu/ops/pallas/linalg.py:255,309",
-             LEAF_MAIN[-1])):
-        ms, ms_ref = times[(name, b, p)]
+    for name, src, replaces, (b, p) in KERNELS:
+        launches = forward if name in FORWARD_KERNELS else gradient
         rec.append({"name": name, "route": "cuda",
-                    "source": f"{src}{name}.cu", "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": err[name],
-                    "ms": ms, "plain_ms": ms_ref,
+                    "source": f"pymra_torch/ops/cuda/csrc/{src}",
+                    "replaces": replaces, "launches": launches[name],
+                    "launches_gradient_path": gradient[name],
+                    "max_abs_err": err[name],
+                    "max_abs_err_backward": err_bwd.get(name),
+                    **times[(name, b, p)],
                     "shape": f"{b}x{p}x{p}"})
     print(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,19 @@ or ``pymra_tpu``. Module names mirror the JAX package's::
     model = MRAModel(locs, r=4, M=4, dtype=torch.float32, device="cuda",
                      config=PlanConfig(r=4, kmeans_impl="native"))
     res = model.sweep(Kernel("exponential", l=2.0), y_obs, 1e-4)
+
+    # maximum likelihood through the gradient path
+    f = model.loglik_fn(y_obs, 1e-4, kernel_builder=lambda th: Kernel(
+        "exponential", l=th["l"], sig=th["sig"]))
+    fit_mle(f, {"l": 2.0, "sig": 1.0}, method="lbfgs", steps=20)
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from pymra_torch.data.loader import load_data
+from pymra_torch.infer import fit_mle
 from pymra_torch.kernels import Kernel
 from pymra_torch.tree.model import MRAModel, MRATree
 from pymra_torch.tree.plan import PlanConfig, build_plan
 
 __all__ = ["Kernel", "MRAModel", "MRATree", "load_data", "build_plan",
-           "PlanConfig"]
+           "PlanConfig", "fit_mle"]

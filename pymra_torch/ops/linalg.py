@@ -1,44 +1,81 @@
 """Batched small-matrix factorizations of the MRA sweep
 (counterpart of ``pymra_tpu/ops/pallas/linalg.py``).
 
-Two entry points, each a wrapper that chooses by the device of its input:
+Five entry points, each a wrapper that chooses by the device of its input
+and is differentiable (a ``torch.autograd.Function`` with the JAX
+package's custom VJP):
 
-* :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I`` with
-  per-member jitter escalation (replaces the TPU kernel K2,
-  ``_chol_jittered_kernel``); CUDA kernel in
-  ``ops/cuda/csrc/cholesky_jittered.cu``.
+* :func:`cholesky` — plain lower Cholesky factor, NaN on an indefinite
+  pivot (replaces K4, ``_chol_kernel``); ``ops/cuda/csrc/cholesky.cu``.
+* :func:`triangular_inverse_lower` — explicit inverse of a lower triangle
+  (replaces K3, ``_tri_inv_kernel``); ``ops/cuda/csrc/tri_inv.cu``.
+* :func:`solve_triangular_batched` — ``L x = b`` or ``L^T x = b``
+  (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``.
+* :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I``
+  with per-member jitter escalation (replaces K2,
+  ``_chol_jittered_kernel``); ``ops/cuda/csrc/cholesky_jittered.cu``.
 * :func:`leaf_factor` — the fused leaf stage: prior log-determinant and
   posterior inverse factor + log-determinant (replaces K1,
-  ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``); CUDA kernel in
+  ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``);
   ``ops/cuda/csrc/leaf_factor.cu``.
 
 A CPU tensor runs the plain PyTorch twin (``*_ref``), an explicit batched
 column loop with the kernel's arithmetic. A CUDA tensor launches the hand
 written kernel or raises; there is no fallback. Each wrapper counts its
-launches in ``.launches``; each twin counts the calls it gets with CUDA
-tensors in ``.cuda_calls`` (only kernel-versus-twin comparisons make any).
+kernel launches in ``.launches``; each twin counts the calls it gets with
+CUDA tensors in ``.cuda_calls`` (only kernel-versus-twin comparisons make
+any). The twins update in place, so the Functions run them (and the
+kernels) without autograd and differentiate by their own backward, which
+calls the other wrappers: on the card every backward factorization,
+inverse and solve is a kernel, and its products are full-float32
+``torch.matmul`` (TF32 off, :func:`set_matmul_precision`).
 
-Escalation contract (both): a member is retried at the next factor of
+Escalation contract (K1, K2): a member is retried at the next factor of
 ``factors`` while its log-pivot sum is non-finite — NaN for a negative
 pivot, -inf for an exact zero. Members that succeed keep their first
 result; a member that fails every factor keeps its last, NaN, result and
-reports the last factor.
+reports the last factor. The backward linearizes each member at its
+selected factor, so a discarded attempt never reaches a gradient, and an
+all-fail member's NaN stays in that member. The jitter scale is
+structural: no gradient flows into it through ``jit`` of K1.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pymra_torch.ops.cuda import build
 
-__all__ = ["FACTORS", "cholesky_jittered", "cholesky_jittered_ref",
-           "leaf_factor", "leaf_factor_ref"]
+__all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "cholesky",
+           "cholesky_ref", "triangular_inverse_lower",
+           "triangular_inverse_lower_ref", "solve_triangular_batched",
+           "solve_triangular_batched_ref", "cholesky_pullback",
+           "cholesky_jittered", "cholesky_jittered_ref", "leaf_factor",
+           "leaf_factor_ref"]
 
 FACTORS = (1.0, 1e2, 1e4)
 #: widest block the single-block kernels take; wider needs K8
 #: ``cholesky_blocked``, which is not ported yet
 MAX_P = 64
+#: shared-memory budget of one K5 block (the kernel's static limit)
+_SOLVE_SMEM = 48 * 1024
+
+
+def set_matmul_precision() -> None:
+    """Full float32 in every matmul: no TF32 in cuBLAS or cuDNN.
+
+    The N=10^4 bench tree's tiny measurement error (R = 1e-4) conditions
+    its posterior blocks at ~1e4 and amplifies reduced-precision matmul
+    residue through the log-determinants; on the JAX package's reference
+    runs a 3-pass bf16 matmul put that objective 4e-2 off its golden value.
+    TF32 keeps about three decimal digits, the same hazard. Called by the
+    sweep before its forward and by every backward here.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +110,9 @@ def _escalate(base: torch.Tensor, jit: torch.Tensor, factors,
 
 
 def _chol_attempt(a: torch.Tensor):
-    """Right-looking Cholesky of ``[n, P, P]``: (factor, sum log pivots)."""
+    """Right-looking Cholesky of ``[n, P, P]``: (factor, sum log pivots).
+    Column j is ``a[j:, j] / sqrt(a[j, j])``, the diagonal included, so an
+    indefinite or zero pivot turns its column and the trailing block NaN."""
     a = a.clone()
     n, p = a.shape[0], a.shape[-1]
     out = torch.zeros_like(a)
@@ -115,6 +154,63 @@ def _inv_attempt(a: torch.Tensor):
         x[:, j + 1:, :j + 1] -= col[:, :, None] * x[:, None, j, :j + 1]
         a[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
     return (x,), acc
+
+
+def _forward_subst(l: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Solve ``l x = b`` in place of ``x = b`` (``[n, P, Q]``), one row of
+    the solution per step, in order."""
+    p = l.shape[-1]
+    for j in range(p):
+        x[:, j, :] = x[:, j, :] / l[:, j, j, None]
+        x[:, j + 1:, :] -= l[:, j + 1:, j, None] * x[:, j, None, :]
+    return x
+
+
+def cholesky_ref(mat: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`cholesky`; any dtype, any width."""
+    if mat.is_cuda:
+        cholesky_ref.cuda_calls += 1
+    p = mat.shape[-1]
+    (l,), _ = _chol_attempt(mat.reshape(-1, p, p))
+    return l.reshape(mat.shape)
+
+
+cholesky_ref.cuda_calls = 0
+
+
+def triangular_inverse_lower_ref(l: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`triangular_inverse_lower`: forward substitution
+    against the identity (entries above the diagonal stay exact zeros)."""
+    if l.is_cuda:
+        triangular_inverse_lower_ref.cuda_calls += 1
+    p = l.shape[-1]
+    lf = l.reshape(-1, p, p)
+    eye = torch.eye(p, dtype=l.dtype, device=l.device)
+    return _forward_subst(lf, eye.expand_as(lf).clone()).reshape(l.shape)
+
+
+triangular_inverse_lower_ref.cuda_calls = 0
+
+
+def solve_triangular_batched_ref(l: torch.Tensor, b: torch.Tensor,
+                                 transpose: bool = False) -> torch.Tensor:
+    """Plain twin of :func:`solve_triangular_batched`: forward (``L x =
+    b``) or back (``L^T x = b``, reading ``L[j, i]`` for ``L^T[i, j]``)
+    substitution, one row of the solution per step."""
+    if l.is_cuda:
+        solve_triangular_batched_ref.cuda_calls += 1
+    p, q = l.shape[-1], b.shape[-1]
+    lf = l.reshape(-1, p, p)
+    x = b.reshape(-1, p, q).clone()
+    if not transpose:
+        return _forward_subst(lf, x).reshape(b.shape)
+    for j in range(p - 1, -1, -1):
+        x[:, j, :] = x[:, j, :] / lf[:, j, j, None]
+        x[:, :j, :] -= lf[:, j, :j, None] * x[:, j, None, :]
+    return x.reshape(b.shape)
+
+
+solve_triangular_batched_ref.cuda_calls = 0
 
 
 def cholesky_jittered_ref(mat: torch.Tensor, jit: torch.Tensor,
@@ -166,7 +262,7 @@ leaf_factor_ref.cuda_calls = 0
 
 
 # ---------------------------------------------------------------------------
-# CUDA wrappers
+# CUDA launches
 # ---------------------------------------------------------------------------
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -180,10 +276,6 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels are forward-only; their gradient is "
-            "still to be ported (ROADMAP queue 2)")
 
 
 def _check_square(name: str, t: torch.Tensor) -> int:
@@ -208,17 +300,75 @@ def _factors(factors) -> tuple[float, float, float]:
     return tuple(float(f) for f in factors)
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launched(name: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
-    """Lower Cholesky factor of ``mat + f*jit*I`` with escalation.
+def _where(t: torch.Tensor) -> tuple[int, int]:
+    """``(device index, current stream)`` arguments of a launch."""
+    return (t.device.index or 0,
+            torch.cuda.current_stream(t.device).cuda_stream)
 
-    ``mat [..., P, P]``, ``jit [...]`` one jitter magnitude per matrix.
-    Returns ``(L [..., P, P], ld [...], f [...])``: the factor, its
-    log-pivot sum and the selected escalation factor.
-    """
+
+def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
+    if mat.device.type == "cpu":
+        return cholesky_ref(mat)
+    lib = build.load_library()
+    p = _check_square("cholesky: mat", mat)
+    _check("cholesky: mat", mat, mat.shape, mat.device)
+    out = torch.empty_like(mat)
+    n = out.numel() // (p * p)
+    if n:
+        _launched("cholesky", lib.pymra_cholesky(
+            mat.data_ptr(), out.data_ptr(), n, p, *_where(mat)))
+        cholesky.launches += 1
+    return out
+
+
+def _tri_inv_fwd(l: torch.Tensor) -> torch.Tensor:
+    if l.device.type == "cpu":
+        return triangular_inverse_lower_ref(l)
+    lib = build.load_library()
+    p = _check_square("triangular_inverse_lower: l", l)
+    _check("triangular_inverse_lower: l", l, l.shape, l.device)
+    out = torch.empty_like(l)
+    n = out.numel() // (p * p)
+    if n:
+        _launched("triangular_inverse_lower", lib.pymra_tri_inv(
+            l.data_ptr(), out.data_ptr(), n, p, *_where(l)))
+        triangular_inverse_lower.launches += 1
+    return out
+
+
+def _tri_solve_fwd(l: torch.Tensor, b: torch.Tensor,
+                   transpose: bool) -> torch.Tensor:
+    if l.device.type == "cpu":
+        return solve_triangular_batched_ref(l, b, transpose)
+    lib = build.load_library()
+    p = _check_square("solve_triangular_batched: l", l)
+    batch = l.shape[:-2]
+    if b.ndim != l.ndim or b.shape[-2] != p or b.shape[-1] < 1:
+        raise ValueError(f"solve_triangular_batched: b {tuple(b.shape)} "
+                         f"does not match l {tuple(l.shape)}")
+    q = b.shape[-1]
+    _check("solve_triangular_batched: l", l, l.shape, l.device)
+    _check("solve_triangular_batched: b", b, batch + (p, q), l.device)
+    if (p * (p + 1) + p * q) * 4 > _SOLVE_SMEM or q > 1024:
+        raise NotImplementedError(
+            f"solve_triangular_batched: P={p}, Q={q} exceeds one block's "
+            "shared memory; the kernel takes Q up to ~(12288 - P(P+1))/P")
+    out = torch.empty_like(b)
+    n = out.numel() // (p * q)
+    if n:
+        _launched("solve_triangular_batched", lib.pymra_tri_solve(
+            l.data_ptr(), b.data_ptr(), out.data_ptr(), n, p, q,
+            int(bool(transpose)), *_where(l)))
+        solve_triangular_batched.launches += 1
+    return out
+
+
+def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     if mat.device.type == "cpu":
         return cholesky_jittered_ref(mat, jit, factors)
     lib = build.load_library()
@@ -232,15 +382,261 @@ def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     f = torch.empty(batch, dtype=mat.dtype, device=mat.device)
     n = out.numel() // (p * p)
     if n:
-        rc = lib.pymra_cholesky_jittered(
+        _launched("cholesky_jittered", lib.pymra_cholesky_jittered(
             mat.data_ptr(), jit.data_ptr(), out.data_ptr(), ld.data_ptr(),
-            f.data_ptr(), n, p, f0, f1, f2, mat.device.index or 0,
-            _stream(mat.device))
-        if rc:
-            raise RuntimeError(f"cholesky_jittered kernel launch failed: "
-                               f"CUDA error {rc}")
+            f.data_ptr(), n, p, f0, f1, f2, *_where(mat)))
         cholesky_jittered.launches += 1
     return out, ld, f
+
+
+def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
+    if c_own.device.type == "cpu":
+        return leaf_factor_ref(c_own, kmask, a_oo, jitter, factors)
+    lib = build.load_library()
+    p = _check_square("leaf_factor: c_own", c_own)
+    batch = c_own.shape[:-2]
+    _check("leaf_factor: c_own", c_own, c_own.shape, c_own.device)
+    _check("leaf_factor: kmask", kmask, batch + (p,), c_own.device)
+    _check("leaf_factor: a_oo", a_oo, c_own.shape, c_own.device)
+    f0, f1, f2 = _factors(factors)
+    li = torch.empty_like(c_own)
+    vec = dict(dtype=c_own.dtype, device=c_own.device)
+    ldp, ldq = torch.empty(batch, **vec), torch.empty(batch, **vec)
+    fp, fq = torch.empty(batch, **vec), torch.empty(batch, **vec)
+    n = li.numel() // (p * p)
+    if n:
+        _launched("leaf_factor", lib.pymra_leaf_factor(
+            c_own.data_ptr(), kmask.data_ptr(), a_oo.data_ptr(),
+            float(jitter), li.data_ptr(), ldp.data_ptr(), ldq.data_ptr(),
+            fp.data_ptr(), fq.data_ptr(), n, p, f0, f1, f2,
+            *_where(c_own)))
+        leaf_factor.launches += 1
+    return li, ldp, ldq, fp, fq
+
+
+# ---------------------------------------------------------------------------
+# backward passes (the JAX package's custom VJPs)
+# ---------------------------------------------------------------------------
+
+def _mt(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular projection with halved diagonal (Cholesky
+    pullback)."""
+    return torch.tril(x) - 0.5 * torch.diag_embed(
+        torch.diagonal(x, dim1=-2, dim2=-1))
+
+
+def _kernel_solve(l, b, trans):
+    return solve_triangular_batched(l, b.contiguous(), trans)
+
+
+def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
+                      solve: Callable = _kernel_solve) -> torch.Tensor:
+    """Standard Cholesky pullback (Murray 2016) at the factor ``l``:
+    ``raw = L^-T phi(L^T Lbar) L^-1``, returned symmetrized — the JAX
+    package's ``_cholesky_bwd``. ``solve(L, B, trans)`` solves ``L X = B``
+    (``L^T X = B``); by default K5, :func:`solve_triangular_batched`."""
+    w = _phi(_mt(l) @ lbar)
+    x = solve(l, w, True)  # L^-T w
+    raw = _mt(solve(l, _mt(x), True))  # x L^-1
+    return 0.5 * (raw + _mt(raw))
+
+
+class _Cholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat):
+        l = _cholesky_fwd(mat)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, lbar):
+        set_matmul_precision()
+        l, = ctx.saved_tensors
+        return cholesky_pullback(l, lbar)
+
+
+class _TriInv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, l):
+        y = _tri_inv_fwd(l)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ybar):
+        set_matmul_precision()
+        y, = ctx.saved_tensors
+        yt = _mt(y)
+        return -torch.tril(yt @ (ybar @ yt))
+
+
+class _TriSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, l, b, transpose):
+        x = _tri_solve_fwd(l, b, transpose)
+        ctx.transpose = transpose
+        ctx.save_for_backward(l, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, xbar):
+        # x = op(L)^-1 b:  bbar = op(L)^-T xbar,  Lbar = -tril(op'(bbar x^T))
+        set_matmul_precision()
+        l, x = ctx.saved_tensors
+        bbar = _kernel_solve(l, xbar, not ctx.transpose)
+        g = x @ _mt(bbar) if ctx.transpose else bbar @ _mt(x)
+        return -torch.tril(g), bbar, None
+
+
+class _CholeskyJittered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, jit, factors):
+        l, ld, f = _cholesky_jittered_fwd(mat, jit, factors)
+        ctx.mark_non_differentiable(f)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(l, f)
+        return l, ld, f
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, lbar, ldbar, _fbar):
+        # linearized at the selected factor: mat' = mat + f jit I
+        set_matmul_precision()
+        l, f = ctx.saved_tensors
+        if lbar is None:
+            lbar = torch.zeros_like(l)
+        if ldbar is not None:
+            # ld = sum_j log L_jj
+            lbar = lbar + torch.diag_embed(
+                ldbar[..., None] / torch.diagonal(l, dim1=-2, dim2=-1))
+        abar = cholesky_pullback(l, lbar)
+        jbar = None
+        if ctx.needs_input_grad[1]:
+            jbar = f * torch.diagonal(abar, dim1=-2, dim2=-1).sum(-1)
+        return abar, jbar, None
+
+
+def _leaf_posterior_pullback(x, libar, ldqbar):
+    """``Kbar`` of ``K_q = K_leaf + A_oo + fq jeff I`` from the saved
+    inverse factor ``X = chol(K_q)^-1`` (flat ``[n, P, P]``).
+
+    ``ld_post = 1/2 logdet K_q`` gives ``1/2 ldqbar X^T X``; ``X = L^-1``
+    gives ``Lbar = -X^T Xbar X^T``, mapped by the Cholesky pullback
+    ``phi(L^T Lbar)`` at ``L = X^-1``. ``L^T Lbar = -(X L)^T Xbar X^T =
+    -Xbar X^T`` exactly, so ``L`` is never formed (the JAX package inverts
+    ``X`` back, K3, and multiplies).
+
+    The products are taken in float64 and rounded once: ``X`` carries
+    ``1/sqrt(lambda_min(K_q))``, and in float32 these products put the
+    N=10^4 bench tree's gradient 1.7e-3 off the same sweep in float64 on an
+    NVIDIA H100 (700 W), against 3e-4 with them in float64
+    (``tools/grad_precision_n10k.py``)."""
+    xd = x.double()
+    xt = _mt(xd)
+    kbar = torch.zeros_like(xd)
+    if ldqbar is not None:
+        kbar = 0.5 * ldqbar.double()[:, None, None] * (xt @ xd)
+    if libar is not None:
+        raw = xt @ (_phi(-(libar.double() @ xt)) @ xd)
+        kbar = kbar + 0.5 * (raw + _mt(raw))
+    return kbar.to(x.dtype)
+
+
+def _leaf_prior_pullback(k_leaf, jeff_sel, ldpbar):
+    """``Kbar`` of the prior block: ``1/2 ldpbar K_p^-1`` with ``K_p =
+    K_leaf + jeff_sel I`` at the selected factor, inverted through its
+    Cholesky factor (K4, then K3)."""
+    eye = torch.eye(k_leaf.shape[-1], dtype=k_leaf.dtype,
+                    device=k_leaf.device)
+    li_p = triangular_inverse_lower(
+        cholesky(k_leaf + jeff_sel[:, None, None] * eye))
+    return 0.5 * ldpbar[:, None, None] * (_mt(li_p) @ li_p)
+
+
+class _LeafFactor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c_own, kmask, a_oo, jitter, factors):
+        li, ldp, ldq, fp, fq = _leaf_factor_fwd(c_own, kmask, a_oo, jitter,
+                                                factors)
+        ctx.mark_non_differentiable(fp, fq)
+        ctx.set_materialize_grads(False)
+        ctx.jitter = float(jitter)
+        ctx.save_for_backward(c_own, kmask, li, fp, fq)
+        return li, ldp, ldq, fp, fq
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, libar, ldpbar, ldqbar, _fpbar, _fqbar):
+        set_matmul_precision()
+        c_own, kmask, li, fp, fq = ctx.saved_tensors
+        shape, p = c_own.shape, c_own.shape[-1]
+        c = c_own.reshape(-1, p, p)
+        k_leaf, pair, _, s = _leaf_parts(c, kmask.reshape(-1, p).to(c.dtype))
+
+        kbar_q = _leaf_posterior_pullback(
+            li.reshape(-1, p, p),
+            None if libar is None else libar.reshape(-1, p, p),
+            None if ldqbar is None else ldqbar.reshape(-1))
+        kbar = kbar_q
+        if ldpbar is not None:
+            kbar = kbar + _leaf_prior_pullback(
+                k_leaf, fp.reshape(-1) * (ctx.jitter * s), ldpbar.reshape(-1))
+        # A_oo enters only through the pair-masked posterior assembly;
+        # no gradient to the mask or the structural jitter scale
+        return ((kbar * pair).reshape(shape), None,
+                (kbar_q * pair).reshape(shape), None, None)
+
+
+# ---------------------------------------------------------------------------
+# public, differentiable entry points
+# ---------------------------------------------------------------------------
+
+def cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Batched lower Cholesky ``[..., P, P] -> [..., P, P]``; an indefinite
+    or zero pivot leaves NaN in its column and the trailing block, as the
+    JAX kernel does (the upper triangle stays 0)."""
+    return _Cholesky.apply(mat)
+
+
+cholesky.launches = 0
+
+
+def triangular_inverse_lower(l: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of a batch of lower triangles ``[..., P, P]``;
+    differentiable with ``Lbar = -tril(Y^T Ybar Y^T)``, ``Y = L^-1``."""
+    return _TriInv.apply(l)
+
+
+triangular_inverse_lower.launches = 0
+
+
+def solve_triangular_batched(l: torch.Tensor, b: torch.Tensor,
+                             transpose: bool = False) -> torch.Tensor:
+    """Batched triangular solve with a lower factor: ``L x = b`` (or
+    ``L^T x = b`` with ``transpose=True``); ``b`` is ``[..., P, Q]``."""
+    return _TriSolve.apply(l, b, bool(transpose))
+
+
+solve_triangular_batched.launches = 0
+
+
+def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
+    """Lower Cholesky factor of ``mat + f*jit*I`` with escalation.
+
+    ``mat [..., P, P]``, ``jit [...]`` one jitter magnitude per matrix.
+    Returns ``(L [..., P, P], ld [...], f [...])``: the factor, its
+    log-pivot sum and the selected escalation factor. Differentiable in
+    ``mat`` and ``jit`` (``jitbar = f trace(matbar)``) at the selected
+    factor; ``f`` is not differentiable.
+    """
+    return _CholeskyJittered.apply(mat, jit, tuple(factors))
 
 
 cholesky_jittered.launches = 0
@@ -260,32 +656,12 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     + 1``, returns ``(Li, ld_prior, ld_post, fp, fq)``: ``Li = chol(K_leaf
     + A_oo + fq*jitter*s*I)^-1``, the prior and posterior Cholesky
     log-diagonal sums and the selected prior/posterior factors.
+    Differentiable in ``c_own`` and ``a_oo``; the backward refactors the
+    prior block at ``fp`` (K4) and inverts that factor (K3), and takes the
+    posterior pullback from ``Li`` in float64 products.
     """
-    if c_own.device.type == "cpu":
-        return leaf_factor_ref(c_own, kmask, a_oo, jitter, factors)
-    lib = build.load_library()
-    p = _check_square("leaf_factor: c_own", c_own)
-    batch = c_own.shape[:-2]
-    _check("leaf_factor: c_own", c_own, c_own.shape, c_own.device)
-    _check("leaf_factor: kmask", kmask, batch + (p,), c_own.device)
-    _check("leaf_factor: a_oo", a_oo, c_own.shape, c_own.device)
-    f0, f1, f2 = _factors(factors)
-    li = torch.empty_like(c_own)
-    vec = dict(dtype=c_own.dtype, device=c_own.device)
-    ldp, ldq = torch.empty(batch, **vec), torch.empty(batch, **vec)
-    fp, fq = torch.empty(batch, **vec), torch.empty(batch, **vec)
-    n = li.numel() // (p * p)
-    if n:
-        rc = lib.pymra_leaf_factor(
-            c_own.data_ptr(), kmask.data_ptr(), a_oo.data_ptr(),
-            float(jitter), li.data_ptr(), ldp.data_ptr(), ldq.data_ptr(),
-            fp.data_ptr(), fq.data_ptr(), n, p, f0, f1, f2,
-            c_own.device.index or 0, _stream(c_own.device))
-        if rc:
-            raise RuntimeError(f"leaf_factor kernel launch failed: CUDA "
-                               f"error {rc}")
-        leaf_factor.launches += 1
-    return li, ldp, ldq, fp, fq
+    return _LeafFactor.apply(c_own, kmask, a_oo, float(jitter),
+                             tuple(factors))
 
 
 leaf_factor.launches = 0

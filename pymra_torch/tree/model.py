@@ -8,6 +8,8 @@ accepted and ignored.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -17,6 +19,7 @@ from pymra_torch.tree.sweep import (
     SweepResult,
     make_device_plan,
     mra_sweep,
+    prepare_obs,
 )
 
 __all__ = ["MRAModel", "MRATree"]
@@ -34,14 +37,16 @@ class MRAModel:
       jitter: Cholesky diagonal regularization; ``None`` selects 0 for
         float64 and 1e-6 for float32.
       seed / config: planner determinism and thresholds (:class:`PlanConfig`).
-      device: where the plan's tensors live and the sweep runs. A CUDA
-        device needs float32 with jitter > 0.
+      device: where the plan's tensors live and the sweep runs: the card
+        unless the caller asks for ``"cpu"``. A CUDA device needs float32
+        with jitter > 0; without a GPU it raises.
     """
 
     def __init__(self, locs, r: int, *, M: int = -1, J: int = -1,
                  seed: int = 0, dtype=None, jitter: float | None = None,
                  config: PlanConfig | None = None,
-                 plan: TreePlan | None = None, device="cpu"):
+                 plan: TreePlan | None = None, device="cuda"):
+        self.device = _device(device)
         if plan is None:
             plan = build_plan(locs, r, M=M, J=J, seed=seed, config=config)
         self.plan = plan
@@ -49,7 +54,6 @@ class MRAModel:
         if jitter is None:
             jitter = 0.0 if self.dtype == torch.float64 else 1e-6
         self.jitter = float(jitter)
-        self.device = torch.device(device)
         self.dplan: DevicePlan = make_device_plan(plan, dtype=self.dtype,
                                                   device=self.device)
 
@@ -57,10 +61,7 @@ class MRAModel:
         """Run the full batched sweep (likelihood + posterior moments).
         ``R`` is a scalar or an ``[N]`` diagonal measurement-error
         variance."""
-        if torch.as_tensor(R).ndim == 2:
-            raise NotImplementedError(
-                "dense measurement error R is a sweep side path still to be "
-                "ported (ROADMAP queue 1)")
+        _diagonal_r(R)
         return mra_sweep(self.dplan, cov, y, R,
                          compute_posterior=compute_posterior,
                          jitter=self.jitter)
@@ -79,11 +80,58 @@ class MRAModel:
         res = self.sweep(cov, y, R, compute_posterior=True)
         return res.mean, torch.sqrt(torch.clamp(res.var, min=0.0))
 
+    def loglik_fn(self, y, R, kernel_builder: Callable | None = None
+                  ) -> Callable:
+        """Return ``theta -> loglik`` for gradient-based inference.
+
+        ``kernel_builder(theta)`` maps the parameters (for example a dict
+        of 0-dim tensors with ``requires_grad``) to a covariance callable;
+        without one ``theta`` is itself the covariance (a :class:`Kernel`,
+        whose tensor buffers then receive the gradient). The per-leaf
+        observation tensors are prepared once, here
+        (:func:`pymra_torch.tree.sweep.prepare_obs`), not per evaluation.
+
+        The tensor values of a dict ``theta`` are copied to the model's
+        device (differentiably) before the builder sees them: a 0-dim CPU
+        parameter would otherwise send each covariance call's gradient back
+        to the host in the backward pass, one synchronization each.
+        """
+        _diagonal_r(R)
+        prep = prepare_obs(self.dplan, y, R)
+
+        def fn(theta):
+            if isinstance(theta, dict):
+                theta = {k: v.to(self.device) if torch.is_tensor(v) else v
+                         for k, v in theta.items()}
+            cov = kernel_builder(theta) if kernel_builder else theta
+            return mra_sweep(self.dplan, cov, None, None,
+                             compute_posterior=False, jitter=self.jitter,
+                             prep=prep).loglik
+
+        return fn
+
     def leaf_sizes(self) -> np.ndarray:
         return self.plan.leaf_sizes()
 
     def describe(self) -> str:
         return self.plan.describe()
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch.cuda.is_available() "
+            "is False (no GPU, or a CPU-only PyTorch); pass device='cpu' to "
+            "run on the CPU")
+    return dev
+
+
+def _diagonal_r(R) -> None:
+    if np.ndim(R) == 2:
+        raise NotImplementedError(
+            "dense measurement error R is a sweep side path still to be "
+            "ported (ROADMAP queue 1)")
 
 
 class MRATree:
@@ -95,7 +143,7 @@ class MRATree:
 
     def __init__(self, locs, r, cov, obs, R, M=-1, J=-1, critDepth=-1,
                  verbose: bool = False, seed: int = 0, dtype=None,
-                 device="cpu"):
+                 device="cuda"):
         del critDepth, verbose
         if isinstance(cov, (np.ndarray, torch.Tensor)) and np.ndim(cov) == 2:
             raise NotImplementedError(

@@ -28,6 +28,12 @@ CPU tensors only. The ops wrappers choose the CUDA kernel or its plain twin
 by the tensors' device, so a CPU run of the kernel structure executes the
 exact sequence of operations the card does.
 
+Differentiation: both structures differentiate end to end with autograd
+(``MRAModel.loglik_fn``). Every jittered factorization is linearized at
+its selected escalation factor — the kernels' autograd Functions in the
+kernel structure, :class:`_CholCascade` in the plain one — so a discarded
+attempt never reaches a gradient. Jitter scales are structural (detached).
+
 Not ported yet (they raise ``NotImplementedError``): dense ``r_dense``
 measurement error, ``keep_internals``, sharding (``axis_name``) and
 ``posterior_segments``.
@@ -40,7 +46,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from pymra_torch.ops.linalg import cholesky_jittered, leaf_factor
+from pymra_torch.ops.linalg import (
+    cholesky_jittered,
+    cholesky_pullback,
+    leaf_factor,
+    set_matmul_precision,
+)
 from pymra_torch.tree.plan import TreePlan
 
 __all__ = ["DeviceLevel", "DevicePlan", "SweepResult", "make_device_plan",
@@ -51,20 +62,6 @@ LOG2PI = float(np.log(2.0 * np.pi))
 #: leaf widths that go through the fused leaf kernel in the kernel structure
 LEAF_FUSED_MIN_P = 16
 LEAF_FUSED_MAX_P = 64
-
-
-def set_matmul_precision() -> None:
-    """Full float32 in every matmul: no TF32 in cuBLAS or cuDNN.
-
-    The N=10^4 bench tree's tiny measurement error (R = 1e-4) conditions
-    its posterior blocks at ~1e4 and amplifies reduced-precision matmul
-    residue through the log-determinants; on the JAX package's reference
-    runs a 3-pass bf16 matmul put that objective 4e-2 off its golden value.
-    TF32 keeps about three decimal digits, the same hazard.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 @dataclasses.dataclass
@@ -240,8 +237,8 @@ def _plain_only(mat: torch.Tensor) -> None:
     if mat.device.type != "cpu":
         raise NotImplementedError(
             "the sweep on an accelerator runs float32 with jitter > 0 "
-            "(kernel structure); the plain Cholesky it would need here is "
-            "K4 cholesky, not ported yet (ROADMAP queue 2)")
+            "(kernel structure); the plain structure (float64 or jitter 0) "
+            "runs on the CPU only")
 
 
 def _cholesky_nan(mat: torch.Tensor) -> torch.Tensor:
@@ -265,15 +262,35 @@ def _chol(mat: torch.Tensor, jitter: float,
     jit_scale = jitter * (scale.detach() + 1.0)
     if _kernel_structure(mat.dtype, jitter):
         return cholesky_jittered(mat.contiguous(), jit_scale.contiguous())[0]
-    # plain structure with jitter: the JAX package's unconditional cascade
-    eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
-    jit_scale = jit_scale[..., None, None]
-    c = _cholesky_nan(mat + jit_scale * eye)
-    for factor in (1e2, 1e4):
-        bad = ~torch.isfinite(c).all(-1).all(-1)[..., None, None]
-        c = torch.where(bad, _cholesky_nan(mat + (factor * jit_scale) * eye),
-                        c)
-    return c
+    return _CholCascade.apply(mat, jit_scale)
+
+
+class _CholCascade(torch.autograd.Function):
+    """The plain structure's jitter cascade (the JAX package's
+    ``_chol_cascade``): factor ``mat + jit_scale*I``; members that come
+    back NaN are retried at 1e2x and 1e4x, selected by ``torch.where``.
+
+    Differentiated at the selected factor only (the JAX package's custom
+    JVP): a discarded NaN attempt never reaches the Cholesky pullback, so
+    an escalated member gets a finite gradient and cannot poison healthy
+    members. ``jit_scale`` is a structural constant."""
+
+    @staticmethod
+    def forward(ctx, mat, jit_scale):
+        eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
+        jit_scale = jit_scale[..., None, None]
+        c = _cholesky_nan(mat + jit_scale * eye)
+        for factor in (1e2, 1e4):
+            bad = ~torch.isfinite(c).all(-1).all(-1)[..., None, None]
+            c = torch.where(
+                bad, _cholesky_nan(mat + (factor * jit_scale) * eye), c)
+        ctx.save_for_backward(c)
+        return c
+
+    @staticmethod
+    def backward(ctx, lbar):
+        c, = ctx.saved_tensors
+        return cholesky_pullback(c, lbar, _tri_solve), None
 
 
 def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False

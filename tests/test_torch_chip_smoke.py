@@ -2,8 +2,9 @@
 
 On the CPU every wrapper runs its plain twin, so these runs check the
 script's control flow, its test matrices (escalated, exact-zero, all-fail
-and masked members) and its checks — not the CUDA kernels, which only the
-card runs. Timings here come from a host clock and mean nothing.
+and masked members), its checks and its work counts — not the CUDA
+kernels, which only the card runs. Timings here come from a host clock and
+mean nothing.
 """
 import subprocess
 import sys
@@ -15,8 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke
-from pymra_torch import Kernel, MRAModel, PlanConfig
+from pymra_torch import Kernel, MRAModel, PlanConfig, load_data
 from pymra_torch.ops import linalg as tl
+from pymra_torch.tree import sweep
 from pymra_torch.tree.plan import tpu_shaped_M
 from pymra_torch.utils import gen_locations_2d
 
@@ -32,10 +34,54 @@ def _host_timer(fn, reps=10):
 def test_kernel_phase_passes_with_twins():
     err, times = chip_smoke.phase_kernels(
         "cpu", ragged=9, chol_main=((8, 4),), leaf_main=((6, 17),),
-        timer=_host_timer)
+        tri_main=((5, 17),), solve_main=((8, 4),), timer=_host_timer)
+    assert err == dict.fromkeys(
+        ["cholesky_jittered", "leaf_factor", "cholesky",
+         "triangular_inverse_lower", "solve_triangular_batched"], 0.0)
+    assert set(times) == {("cholesky_jittered", 8, 4), ("leaf_factor", 6, 17),
+                          ("cholesky", 5, 17),
+                          ("triangular_inverse_lower", 5, 17),
+                          ("solve_triangular_batched", 8, 4)}
+    for key, rec in times.items():
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
+                                                           "operations")
+        assert (rec["library_ms"] is None) == (key[0] == "leaf_factor")
+
+
+def test_work_counts_bytes_and_escalated_attempts():
+    # K2 at 8 x 4: one member escalated once, one twice and one (all-fail)
+    # three times; bytes are the inputs read once, the outputs written once,
+    # and of a symmetric or lower-triangular input only its 4*5/2 = 10
+    # lower entries per member
+    m, jit = (torch.as_tensor(x) for x in chip_smoke.chol_case(
+        np.random.default_rng(0), 8, 4))
+    out = tl.cholesky_jittered(m, jit)
+    nbytes, flops = chip_smoke.work("cholesky_jittered", [m, jit], list(out))
+    assert nbytes == 4 * (8 * 10 + 8 + 8 * 16 + 2 * 8)
+    assert flops == (8 + 1 + 1 + 2) * 4 ** 3 / 3
+    lt = torch.as_tensor(chip_smoke.lower_case(np.random.default_rng(1), 3,
+                                               4))
+    b = torch.zeros(3, 4, 2)
+    assert chip_smoke.work("solve_triangular_batched", [lt, b], [b]) == (
+        4 * (3 * 10 + 2 * 3 * 8), 3 * 16 * 2)
+    assert chip_smoke.work("triangular_inverse_lower", [lt], [lt])[0] == (
+        4 * (3 * 10 + 3 * 16))
+    assert chip_smoke.work("cholesky", [m], [m])[0] == 4 * (8 * 10 + 8 * 16)
+    # K1: C and A_oo symmetric, the knot mask dense; Li and four [B]
+    # outputs (two log-determinants, two factors) written
+    c, k, a = (torch.as_tensor(x) for x in chip_smoke.leaf_case(
+        np.random.default_rng(2), 6, 17, escalate=True))
+    out = tl.leaf_factor(c, k, a, 1e-3)
+    assert chip_smoke.work("leaf_factor", [c, k, a], list(out))[0] == (
+        4 * (2 * 6 * 153 + 6 * 17 + 6 * 289 + 4 * 6))
+    assert chip_smoke.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
+    assert chip_smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
+
+
+def test_backward_phase_passes_with_twins():
+    err = chip_smoke.phase_backward("cpu", chol_main=((8, 4),),
+                                    leaf_main=((6, 17),))
     assert err == {"cholesky_jittered": 0.0, "leaf_factor": 0.0}
-    assert set(times) == {("cholesky_jittered", 8, 4),
-                          ("leaf_factor", 6, 17)}
 
 
 def test_compare_refuses_differing_factors_and_nan_patterns():
@@ -49,24 +95,96 @@ def test_compare_refuses_differing_factors_and_nan_patterns():
         chip_smoke.compare("x", (a + 1e-2,), (a,), factor_idx=set())
 
 
-def test_main_path_phases_pass_on_small_inputs():
-    side = 40
+def test_compare_per_member_holds_each_member_to_its_own_scale():
+    # a K2 backward's outputs: a [B, P, P] gradient and the jitter's [B],
+    # with member 1 escalated (jitter gradient 1.5e4); dropping the healthy
+    # member's jitter gradient passes the whole-output tolerance (1.5) and
+    # fails its own (1e-5 + 1e-4 * 1.0)
+    abar = torch.full((2, 3, 3), 0.5)
+    jbar = torch.tensor([1.0, 1.5e4])
+    dropped = torch.tensor([0.0, 1.5e4])
+    chip_smoke.compare("x", (abar, dropped), (abar, jbar))
+    with pytest.raises(SystemExit, match=r"output 1 .* at \(0,\)"):
+        chip_smoke.compare("x", (abar, dropped), (abar, jbar),
+                           per_member=True)
+    # the escalated member's own scale covers its float32 rounding
+    near = torch.tensor([1.0, 1.5e4 + 1.0])
+    assert chip_smoke.compare("x", (abar, near), (abar, jbar),
+                              per_member=True) == 1.0
+    # NaN members (all-fail) carry no scale and still need equal patterns
+    nan = torch.tensor([1.0, float("nan")])
+    assert chip_smoke.compare("x", (abar, nan), (abar, nan),
+                              per_member=True) == 0.0
+
+
+def _flagship_golden(side):
+    """The float64 objective of the phase-5 tree at ``side``^2 locations,
+    standing in for its golden."""
     locs = gen_locations_2d(side)
     rng = np.random.default_rng(0)
     y = rng.standard_normal(len(locs)).astype(np.float32)
     y[rng.random(len(locs)) > 0.9] = np.nan
-    golden = float(MRAModel(
+    return float(MRAModel(
         locs, r=8, M=tpu_shaped_M(len(locs), 8), dtype=torch.float64,
-        config=PlanConfig(r=8, kmeans_impl="native")).objective(
+        config=PlanConfig(r=8, kmeans_impl="native"), device="cpu").objective(
             Kernel("exponential", l=0.05), y.astype(np.float64), 1e-2))
+
+
+def test_main_path_phases_pass_on_small_inputs():
+    side = 40
     chip_smoke.reset_counters(tl)
     chip_smoke.phase_n10k("cpu", timer=_host_timer, n_evals=1)
     chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
-                         golden=golden, n_evals=1)
+                         golden=_flagship_golden(side), n_evals=1)
     # CPU tensors never launch a kernel or count as twin calls on CUDA
     assert tl.cholesky_jittered.launches == tl.leaf_factor.launches == 0
     assert tl.cholesky_jittered_ref.cuda_calls == 0
     assert tl.leaf_factor_ref.cuda_calls == 0
+
+
+def _small_golden_gradient():
+    """Float64 gradient of the bundled small tree (held to the JAX package
+    by tests/test_torch_loglik.py), standing in for the N=10^4 golden."""
+    locs, y = load_data("small")
+    model = MRAModel(locs, r=4, dtype=torch.float64, device="cpu",
+                     config=PlanConfig(r=4, kmeans_impl="native"))
+    f = model.loglik_fn(y, 1e-4,
+                        kernel_builder=chip_smoke.exponential_builder)
+    return chip_smoke.value_and_grad(f, 2.0, 1.0)[1]
+
+
+def test_gradient_phases_pass_on_small_inputs():
+    # the five-point check needs N = 128^2 for its float32 noise to sit
+    # well inside the tolerance
+    side = 128
+    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                               golden=_flagship_golden(side), n_evals=1)
+    chip_smoke.reset_counters(tl)
+    chip_smoke.phase_grad_n10k("cpu", timer=_host_timer, n_evals=1,
+                               data="small", M=-1,
+                               golden=_small_golden_gradient())
+    out = chip_smoke.phase_grad_n1m(n1m, n1m["ms_lik"], "cpu",
+                                    timer=_host_timer, n_evals=1)
+    for k in ("l", "sig"):
+        assert abs(out["ad"][k] - out["fd"][k]) <= (
+            chip_smoke.FD_RTOL * abs(out["fd"][k]))
+    for name, *_ in chip_smoke.KERNELS:
+        assert getattr(tl, name).launches == 0
+        assert getattr(tl, f"{name}_ref").cuda_calls == 0
+
+
+def test_gradient_check_rejects_a_dropped_leaf_backward(monkeypatch):
+    # the five-point check's tolerance is tight enough to see the leaf
+    # stage's gradient go missing
+    side = 128
+    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                               golden=_flagship_golden(side), n_evals=1)
+    real = sweep.leaf_factor
+    monkeypatch.setattr(sweep, "leaf_factor", lambda *a: tuple(
+        t.detach() for t in real(*a)))
+    with pytest.raises(SystemExit, match="off the difference"):
+        chip_smoke.phase_grad_n1m(n1m, n1m["ms_lik"], "cpu",
+                                  timer=_host_timer, n_evals=1)
 
 
 def test_script_fails_without_a_gpu():

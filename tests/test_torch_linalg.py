@@ -1,4 +1,5 @@
-"""Plain twins of the CUDA kernels against the JAX package's Pallas kernels.
+"""Plain twins of the CUDA kernels (K1-K5) against the JAX package's
+Pallas kernels.
 
 The JAX kernels run in Pallas interpret mode on the CPU, called directly
 (the way ``tests/test_pallas.py`` runs them). Inputs are made once with
@@ -197,6 +198,70 @@ def test_leaf_factor_ref_float64_matches_numpy_oracle():
 
 
 # ---------------------------------------------------------------------------
+# K4 cholesky, K3 triangular_inverse_lower, K5 solve_triangular_batched
+# ---------------------------------------------------------------------------
+
+def _lower(p, b=6, seed=0):
+    rng = np.random.default_rng(seed + p)
+    low = np.tril(rng.standard_normal((b, p, p)), -1) * (0.5 / np.sqrt(p))
+    diag = rng.uniform(1.0, 2.0, (b, p))
+    return (low + diag[:, :, None] * np.eye(p)).astype(np.float32)
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_cholesky_ref_matches_pallas(p):
+    # healthy members, a singular, an indefinite one and -I: the same
+    # members fail. The JAX kernel writes columns by one-hot products, so a
+    # non-finite column entry spreads along its whole row (x * 0 = NaN);
+    # the port leaves the columns before the failing pivot as they were,
+    # and NaN runs from the failing column through the trailing block
+    m, _ = _chol_case(p)
+    m[-1] = -np.eye(p)
+    got = tl.cholesky(torch.as_tensor(m)).numpy()
+    want = np.asarray(jl.cholesky(jnp.asarray(m)))
+    ok = np.isfinite(want).all((-2, -1))
+    np.testing.assert_array_equal(np.isfinite(got).all((-2, -1)), ok)
+    assert ok[:6].all() and not ok[6:].any()
+    np.testing.assert_allclose(got[ok], want[ok], rtol=RTOL, atol=ATOL)
+    assert np.isnan(got[-1][:, 0]).all() and (np.triu(got[ok], 1) == 0).all()
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_triangular_inverse_ref_matches_pallas(p):
+    l = _lower(p)
+    got = tl.triangular_inverse_lower(torch.as_tensor(l)).numpy()
+    l_t, batch = jl._to_lanes(jnp.asarray(l))
+    want = np.asarray(jl._from_lanes(jl._tri_inv_lanes(l_t), batch))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got @ l, np.broadcast_to(np.eye(p), l.shape),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("p", WIDTHS)
+def test_solve_triangular_ref_matches_pallas(p, transpose):
+    l = _lower(p, seed=1)
+    b = np.random.default_rng(p).standard_normal((6, p, 3)).astype(
+        np.float32)
+    got = tl.solve_triangular_batched(torch.as_tensor(l), torch.as_tensor(b),
+                                      transpose).numpy()
+    want = np.asarray(jl.solve_triangular_batched(jnp.asarray(l),
+                                                  jnp.asarray(b), transpose))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_solve_triangular_takes_any_batch_shape():
+    l = _lower(5, b=6).reshape(2, 3, 5, 5)
+    b = np.ones((2, 3, 5, 4), dtype=np.float32)
+    for transpose in (False, True):
+        got = tl.solve_triangular_batched(torch.as_tensor(l),
+                                          torch.as_tensor(b), transpose)
+        op = np.swapaxes(l, -1, -2) if transpose else l
+        np.testing.assert_allclose(got.numpy(), np.linalg.solve(op, b),
+                                   rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # device routing: a non-CPU tensor reaches the kernel or raises
 # ---------------------------------------------------------------------------
 
@@ -209,16 +274,25 @@ def test_non_cpu_call_raises_without_kernel_library(monkeypatch):
         raise RuntimeError("no kernel library")
 
     monkeypatch.setattr(build, "load_library", missing)
-    before = (tl.cholesky_jittered_ref.cuda_calls,
-              tl.leaf_factor_ref.cuda_calls, tl.cholesky_jittered.launches,
-              tl.leaf_factor.launches)
+    names = ("cholesky_jittered", "leaf_factor", "cholesky",
+             "triangular_inverse_lower", "solve_triangular_batched")
+
+    def counts():
+        return [(getattr(tl, n).launches, getattr(tl, f"{n}_ref").cuda_calls)
+                for n in names]
+
+    before = counts()
     with pytest.raises(RuntimeError, match="no kernel library"):
         tl.cholesky_jittered(_meta(3, 4, 4), _meta(3))
     with pytest.raises(RuntimeError, match="no kernel library"):
         tl.leaf_factor(_meta(3, 4, 4), _meta(3, 4), _meta(3, 4, 4), 1e-6)
-    assert before == (tl.cholesky_jittered_ref.cuda_calls,
-                      tl.leaf_factor_ref.cuda_calls,
-                      tl.cholesky_jittered.launches, tl.leaf_factor.launches)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tl.cholesky(_meta(3, 4, 4))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tl.triangular_inverse_lower(_meta(3, 4, 4))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tl.solve_triangular_batched(_meta(3, 4, 4), _meta(3, 4, 2))
+    assert before == counts()
 
 
 def test_non_cuda_device_is_refused(monkeypatch):
@@ -227,6 +301,12 @@ def test_non_cuda_device_is_refused(monkeypatch):
         tl.cholesky_jittered(_meta(3, 4, 4), _meta(3))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tl.leaf_factor(_meta(3, 4, 4), _meta(3, 4), _meta(3, 4, 4), 1e-6)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tl.cholesky(_meta(3, 4, 4))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tl.triangular_inverse_lower(_meta(3, 4, 4))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tl.solve_triangular_batched(_meta(3, 4, 4), _meta(3, 4, 2))
 
 
 def test_nvcc_missing_raises(monkeypatch):

@@ -22,6 +22,35 @@ from pymra_torch.tree.sweep import plan_groups, plan_post_inv
 from pymra_torch.utils import gen_locations, gen_locations_2d
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_planner():
+    """Load the JAX package's native planner before it plans a reference.
+
+    Its binding compiles ``csrc/planner.cpp`` with ``g++ -o`` straight to
+    its final path and gives up for good after one failed load, silently
+    planning with the numpy Lloyd instead (another tree). Under parallel
+    test workers, one worker can load the half-written file another
+    worker's compiler is still writing. So when the binding has no library
+    yet, point it at the port's library of the same source and flags,
+    which is built under a private name and renamed into place, and retry.
+    """
+    from pymra_tpu.ops import native as jax_native
+    from pymra_torch.ops import native
+
+    if jax_native._LIB is None:
+        with pytest.MonkeyPatch.context() as mp:
+            so = native.load_library()._name
+            mp.setattr(jax_native, "_lib_path", lambda: so)
+            # no mtime-based rebuild: the port's library name already
+            # carries a digest of the source
+            mp.setattr(jax_native, "_source_path", lambda: "")
+            mp.setattr(jax_native, "_TRIED", False)
+            jax_native.available()
+    assert jax_native.available(), (
+        "the JAX package's native planner did not load; its reference plans "
+        "would silently use the numpy k-means")
+
+
 def clustered_locs():
     return np.random.default_rng(1).random((300, 2)) ** 3
 

@@ -62,7 +62,7 @@ def _obs(n, seed=5, keep=0.85):
 
 def test_readme_1d_golden():
     locs, y_obs = _readme_1d_data()
-    model = MRAModel(locs, r=2, M=3, J=3, dtype=F64)
+    model = MRAModel(locs, r=2, M=3, J=3, dtype=F64, device="cpu")
     res = model.sweep(Kernel("exponential", l=0.3), y_obs, 1e-2)
     np.testing.assert_allclose(float(res.objective), README_1D_OBJECTIVE,
                                rtol=1e-9)
@@ -70,7 +70,7 @@ def test_readme_1d_golden():
 
 def test_bundled_small_golden():
     locs, y_obs = load_data("small")
-    model = MRAModel(locs, r=4, dtype=F64)
+    model = MRAModel(locs, r=4, dtype=F64, device="cpu")
     res = model.sweep(Kernel("exponential", l=2.0), y_obs, 1e-4)
     np.testing.assert_allclose(float(res.objective), BUNDLED_SMALL_OBJECTIVE,
                                rtol=1e-10)
@@ -81,7 +81,7 @@ def test_250k_golden_objective_and_posterior():
     rng = np.random.default_rng(0)
     y = rng.standard_normal(len(locs))
     y[rng.random(len(locs)) > 0.9] = np.nan
-    model = MRAModel(locs, r=8, dtype=F64,
+    model = MRAModel(locs, r=8, dtype=F64, device="cpu",
                      config=PlanConfig(r=8, kmeans_impl="native"))
     assert model.dplan.M == 7
     res = model.sweep(Kernel("exponential", l=0.05), y, 1e-2,
@@ -103,7 +103,7 @@ def test_float64_several_leaf_levels_match_jax(name, jitter):
     locs, kw = {"multi_leaf_1d": (gen_locations(100), dict(r=3, J=2)),
                 "clustered_2d": (_clustered(), dict(r=4, M=3))}[name]
     y = _obs(len(locs)).astype(np.float64)
-    res = MRAModel(locs, dtype=F64, jitter=jitter, **kw).sweep(
+    res = MRAModel(locs, dtype=F64, jitter=jitter, device="cpu", **kw).sweep(
         Kernel("matern32", l=0.2), y, 0.05)
     ref = JaxMRAModel(locs, dtype=jnp.float64, jitter=jitter, **kw).sweep(
         jk.Kernel("matern32", l=0.2), y, 0.05)
@@ -158,7 +158,7 @@ def test_float32_kernel_structure_matches_pallas(name, monkeypatch):
 
     monkeypatch.setattr(tl, "leaf_factor_ref", leaf)
     monkeypatch.setattr(tl, "cholesky_jittered_ref", chol)
-    model = MRAModel(locs, dtype=torch.float32, **kw)
+    model = MRAModel(locs, dtype=torch.float32, device="cpu", **kw)
     assert model.jitter == 1e-6
     res = model.sweep(Kernel("exponential", l=l), y, R)
     # the CPU run went through the wrappers the card launches
@@ -192,7 +192,7 @@ def test_port_on_jax_plan_equals_port_on_own_plan(dtype):
     kern = kernel_from_numpy(jkern.name, {k: np.asarray(v) for k, v in
                                           jkern.params.items()},
                              jkern.static)
-    model = MRAModel(locs, r=4, M=3, dtype=tdt)
+    model = MRAModel(locs, r=4, M=3, dtype=tdt, device="cpu")
     got = mra_sweep(dplan, kern, y, 0.1, jitter=model.jitter)
     want = model.sweep(Kernel("matern52", l=0.15, sig=1.3), y, 0.1)
     for a, b in zip(got, want):
@@ -206,7 +206,7 @@ def test_port_on_jax_plan_equals_port_on_own_plan(dtype):
 def test_mratree_facade_matches_jax():
     y, locs, y_obs = load_data("small", include_truth=True)
     tree = MRATree(locs, 4, Kernel("exponential", l=2.0), y_obs, 1e-4,
-                   dtype=F64)
+                   dtype=F64, device="cpu")
     ref = JaxMRATree(locs, 4, jk.Kernel("exponential", l=2.0), y_obs, 1e-4)
     np.testing.assert_allclose(tree.getLikelihood(), BUNDLED_SMALL_OBJECTIVE,
                                rtol=1e-10)
@@ -227,8 +227,9 @@ def test_mratree_facade_matches_jax():
 
 def test_model_defaults_and_hoisted_prep():
     locs, y_obs = load_data("small")
-    m32 = MRAModel(locs, r=4, dtype=torch.float32)
-    assert m32.jitter == 1e-6 and MRAModel(locs, r=4, dtype=F64).jitter == 0
+    m32 = MRAModel(locs, r=4, dtype=torch.float32, device="cpu")
+    assert m32.jitter == 1e-6 and MRAModel(
+        locs, r=4, dtype=F64, device="cpu").jitter == 0
     kern = Kernel("exponential", l=2.0)
     base = m32.sweep(kern, y_obs, 1e-4)
     prep = prepare_obs(m32.dplan, y_obs, 1e-4)
@@ -246,7 +247,7 @@ def test_model_defaults_and_hoisted_prep():
 
 def test_side_paths_raise():
     locs, y_obs = load_data("small")
-    model = MRAModel(locs, r=4, dtype=F64)
+    model = MRAModel(locs, r=4, dtype=F64, device="cpu")
     kern = Kernel("exponential", l=2.0)
     with pytest.raises(NotImplementedError, match="dense"):
         model.sweep(kern, y_obs, np.eye(100))
@@ -255,7 +256,7 @@ def test_side_paths_raise():
         with pytest.raises(NotImplementedError):
             mra_sweep(model.dplan, kern, y_obs, 1e-4, **kw)
     with pytest.raises(NotImplementedError):
-        MRATree(locs, 4, np.eye(100), y_obs, 1e-4)
+        MRATree(locs, 4, np.eye(100), y_obs, 1e-4, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +272,7 @@ def test_port_imports_and_runs_without_jax():
         "import pymra_torch\n"
         "from pymra_torch import Kernel, MRAModel, load_data\n"
         "locs, y = load_data('small')\n"
-        "res = MRAModel(locs, r=4, dtype=torch.float32).sweep(\n"
+        "res = MRAModel(locs, r=4, dtype=torch.float32, device='cpu').sweep(\n"
         "    Kernel('exponential', l=2.0), y, 1e-4)\n"
         "assert torch.isfinite(res.objective)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'pymra_tpu'))\n"

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Where the time of the gradient path goes on the card.
+
+For the two bench trees of ``chip_smoke.py`` (N=10^4: bundled ``large``,
+r=4, M=4, R=1e-4, l around 2; N=10^6: the 1000^2 grid, r=8, M=7, R=1e-2,
+l around 0.05) this measures, on one GPU:
+
+* ms per likelihood-only forward and per value-and-gradient evaluation of
+  ``MRAModel.loglik_fn``: the median and quartiles of ``--reps``
+  repetitions of chip_smoke's CUDA-event timing loop, alternating them;
+  the value-and-gradient both with the parameters in a dict (copied to
+  the card by ``loglik_fn``) and in a tuple (left on the host, so each
+  covariance call's parameter gradient goes back to the host);
+* kernel launches per evaluation, forward and value-and-gradient;
+* peak device memory of one value-and-gradient evaluation;
+* a ``torch.profiler`` trace of three value-and-gradient evaluations:
+  device time by kernel name, and the device's busy share of the wall
+  time.
+
+Run from the repository root on a machine with an NVIDIA GPU::
+
+    python3 tools/profile_gradient.py [--reps 5] [--side 1000] [--out FILE]
+
+It prints a summary and, with ``--out``, writes the numbers as JSON.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from pymra_torch import MRAModel, PlanConfig, load_data  # noqa: E402
+from pymra_torch.ops import linalg as tl  # noqa: E402
+from pymra_torch.tree.plan import tpu_shaped_M  # noqa: E402
+from pymra_torch.ops.linalg import set_matmul_precision  # noqa: E402
+from pymra_torch.utils import gen_locations_2d  # noqa: E402
+
+
+def cells(side):
+    locs, y = load_data("large")
+    yield "N=10^4", locs, y, 4, 4, 1e-4, 2.0
+    locs = gen_locations_2d(side)
+    rng = np.random.default_rng(0)
+    y = rng.standard_normal(len(locs)).astype(np.float32)
+    y[rng.random(len(locs)) > 0.9] = np.nan
+    yield (f"N={side * side}", locs, y, 8, tpu_shaped_M(len(locs), 8), 1e-2,
+           0.05)
+
+
+def launches(run):
+    cs.reset_counters(tl)
+    run()
+    torch.cuda.synchronize()
+    return {name: getattr(tl, name).launches for name, *_ in cs.KERNELS}
+
+
+def quartiles(xs):
+    q1, med, q3 = np.percentile(xs, [25, 50, 75])
+    return {"median": float(med), "q1": float(q1), "q3": float(q3),
+            "runs": [float(x) for x in xs]}
+
+
+def device_times(prof, n_evals):
+    """Self device ms per evaluation by kernel name, and their sum."""
+    by_name = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+    total = sum(by_name.values()) / n_evals
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return total, [(k, v / n_evals) for k, v in top]
+
+
+def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    f = model.loglik_fn(torch.as_tensor(y, dtype=torch.float32,
+                                        device=device), R,
+                        kernel_builder=cs.exponential_builder)
+    ls = l0 * np.linspace(0.8, 1.2, 11)
+
+    def forward(l):
+        with torch.no_grad():
+            return f({"l": torch.tensor(l, dtype=torch.float64),
+                      "sig": torch.tensor(1.0, dtype=torch.float64)})
+
+    out = {"launches_forward": launches(lambda: forward(l0)),
+           "launches_value_and_grad": launches(
+               lambda: cs.value_and_grad(f, l0, 1.0))}
+    f_host = model.loglik_fn(
+        torch.as_tensor(y, dtype=torch.float32, device=device), R,
+        kernel_builder=lambda th: cs.exponential_builder(dict(th)))
+
+    def host_params(l):
+        theta = tuple((k, torch.tensor(v, dtype=torch.float64,
+                                       requires_grad=True))
+                      for k, v in (("l", l), ("sig", 1.0)))
+        f_host(theta).backward()
+        return [float(t.grad) for _, t in theta]
+
+    fwd, vg, vg_host = [], [], []
+    for _ in range(reps):
+        it = iter(ls)
+        fwd.append(cs.time_ms(lambda: forward(float(next(it))), reps=10))
+        vg.append(cs._grad_timer(f, ls, cs.time_ms))
+        it = iter(ls)
+        vg_host.append(cs.time_ms(lambda: host_params(float(next(it))),
+                                  reps=10))
+    out["ms_forward"] = quartiles(fwd)
+    out["ms_value_and_grad"] = quartiles(vg)
+    out["ms_value_and_grad_host_params"] = quartiles(vg_host)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.value_and_grad(f, l0, 1.0)
+    torch.cuda.synchronize()
+    out["peak_gib_value_and_grad"] = torch.cuda.max_memory_allocated() / 2**30
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n_prof = 3
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for l in ls[:n_prof]:
+            cs.value_and_grad(f, float(l), 1.0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_prof
+    busy, top = device_times(prof, n_prof)
+    out["profile"] = {"wall_ms": wall, "device_kernel_ms": busy,
+                      "busy_share": busy / wall, "top": top[:15]}
+
+    print(f"== {name}")
+    print(f"launches per forward {out['launches_forward']}")
+    print(f"launches per value-and-gradient "
+          f"{out['launches_value_and_grad']}")
+    for key in ("ms_forward", "ms_value_and_grad",
+                "ms_value_and_grad_host_params"):
+        q = out[key]
+        print(f"{key}: median {q['median']:.3f} (IQR {q['q1']:.3f}-"
+              f"{q['q3']:.3f}) over {reps} runs {q['runs']}")
+    print(f"peak memory of one value-and-gradient: "
+          f"{out['peak_gib_value_and_grad']:.2f} GiB")
+    print(f"profiled: wall {wall:.3f} ms/eval, device kernels {busy:.3f} "
+          f"ms/eval, busy {busy / wall:.1%}")
+    for k, v in top[:15]:
+        print(f"  {v:9.3f} ms/eval  {k[:110]}")
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--side", type=int, default=1000)
+    parser.add_argument("--out", help="write the numbers as JSON here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_gradient: needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card)
+    set_matmul_precision()
+    result = {"card": card}
+    for cell in cells(args.side):
+        result[cell[0]] = profile_cell(*cell, reps=args.reps)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(result, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()
