@@ -12,14 +12,17 @@ non-zero exit code and no result line:
    versions and the matmul precision settings the sweep pins;
 2. build: one ``nvcc`` per kernel source of ``pymra_torch/ops/cuda``, all
    at once;
-3. kernels: each of the five CUDA kernels against its plain PyTorch twin
-   on the card at every shipped width, escalation and NaN cases included,
-   and kernel, twin and one PyTorch library call (a yardstick the port
-   never calls) timed with CUDA events at the main path's shapes, beside
-   the roofline bound of the same work;
-3b. backward: the autograd Functions of ``cholesky_jittered`` and
-   ``leaf_factor`` on the card against the same Functions on CPU copies
-   (the twins), at the main path's shapes with random cotangents;
+3. kernels: each of the seven CUDA kernels and the two compositions over
+   them (K8 ``cholesky_blocked``, KC ``cholesky_cascade``; and the blocked
+   ``triangular_inverse_lower``) against its plain PyTorch twin on the card
+   at every shipped width, escalation and NaN cases included, and kernel,
+   twin and one PyTorch library call (a yardstick the port never calls)
+   timed with CUDA events at the paths' shapes, beside the roofline bound
+   of the same work;
+3b. backward: the autograd Functions of ``cholesky_jittered``,
+   ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet`` and
+   ``cholesky_cascade`` on the card against the same Functions on CPU
+   copies (the twins), at the paths' shapes with random cotangents;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
 5. the N=10^6 flagship (1000^2 grid, r=8, M=7): likelihood-only objective
@@ -34,7 +37,19 @@ non-zero exit code and no result line:
    five-point difference of the card's own float32 loglik, ms per
    value-and-gradient evaluation, its ratio to the forward, peak memory
    with autograd, then a 3-step L-BFGS ``fit_mle``;
-9. launch counters over phases 7-8: all five kernels launched, no twin ran
+9. launch counters over phases 7-8: K1-K5 launched, no twin ran on a
+   CUDA tensor;
+10. dense measurement error at N=10^4 (bundled ``large``, r=4, M=4):
+   (a) R = 1e-4 I passed as a dense matrix against the float64 golden and
+   the diagonal path's own objective; (b) a correlated R against a frozen
+   float64 objective and gradient, ms per full and per value-and-gradient
+   evaluation, peak memory;
+11. leaves wider than 64: the N=10^4 tree at M=3 (64 leaves of 169)
+   against its frozen float64 objective and gradient, and the N=10^6 grid
+   at M=6 (4096 leaves of 256): ms per evaluation with and without the
+   posterior, peak memory, value and gradient against a five-point
+   difference;
+12. launch counters over phases 10-11: K2-K8 and KC launched, no twin ran
    on a CUDA tensor.
 
 The last two lines are JSON: the per-kernel record, then
@@ -69,6 +84,20 @@ GRAD_RTOL = 2e-3
 #: the gradient at N=128^2 and 1e-4 at N=256^2, while dropping the leaf
 #: backward moves the gradient by a factor of 40 or more
 FD_STEP, FD_RTOL = 0.1, 2e-3
+#: the correlated measurement error of phase 10: R_ij = scale
+#: exp(-|s_i - s_j| / rho), rho one grid spacing of bundled ``large``
+DENSE_R_SCALE, DENSE_R_RHO = 1e-4, 1.0 / 99.0
+#: float64 objective and gradient (l=2, sig=1) of the N=10^4 tree under
+#: that R, from the JAX package with jitter 0
+#: (``tools/golden_dense_r_n10k.py``)
+GOLDEN_DENSE_R_N10K = {"objective": 119999.24034216302,
+                       "l": -37953.354942693455, "sig": 75912.41807796384}
+#: the same for the N=10^4 data cut at M=3 (64 leaves of 169) with R=1e-2
+#: (``tools/golden_wide_leaves_n10k.py``; at R=1e-4 those leaves' float32
+#: posterior blocks fail every jitter factor, in the JAX package too)
+GOLDEN_WIDE_N10K = {"objective": 26656.746190704536,
+                    "l": -6463.406800508911, "sig": 12930.823023250949}
+WIDE_R = 1e-2
 #: kernel-versus-twin agreement: max|kernel - twin| <= ATOL + RTOL max|twin|
 #: per output (two float32 column loops rounding in different places; the
 #: CUDA kernel contracts multiply-subtract into FMA, the twin does not).
@@ -91,6 +120,12 @@ LEAF_MAIN = ((256, 49), (16384, 64))
 #: K5 in K2's backward (the r x r interior blocks, Q = r)
 TRI_MAIN = LEAF_MAIN
 SOLVE_MAIN = CHOL_MAIN
+#: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49)
+LOGDET_MAIN = ((256, 49),)
+#: widths of K8, KC and the blocked inverse, and their paths' shapes: the
+#: N=10^4 tree at M=3 (P=169) and the N=10^6 grid at M=6 (P=256)
+WIDE_WIDTHS = (96, 169, 256)
+WIDE_MAIN = ((64, 169), (4096, 256))
 
 
 def fail(msg: str) -> None:
@@ -181,8 +216,11 @@ def _rotate(rng, lam):
 
 
 def _spd_batch(rng, b, p):
-    a = rng.standard_normal((b, p, p))
-    return a @ np.swapaxes(a, -1, -2) / p + np.eye(p)
+    # wider than one kernel block the batch is made in float32: the
+    # N=10^6 shape 4096 x 256 x 256 is 2 GB in float64
+    dt = np.float32 if p > 64 else np.float64
+    a = rng.standard_normal((b, p, p), dtype=dt)
+    return a @ np.swapaxes(a, -1, -2) / dt(p) + np.eye(p, dtype=dt)
 
 
 def chol_case(rng, b, p):
@@ -295,8 +333,13 @@ def work(name, inputs, outputs) -> tuple[float, float]:
     nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
         b * p * (p + 1) // 2 if i in triangular else t.numel()
         for i, t in enumerate(inputs)))
-    if name == "cholesky_jittered":
+    if name in ("cholesky_jittered", "cholesky_cascade"):
         flops = _attempts(outputs[2]) * p ** 3 / 3
+    elif name == "cholesky_logdet":
+        flops = _attempts(outputs[1]) * p ** 3 / 3
+    elif name == "cholesky_inv_logdet":
+        # factor and inverse
+        flops = _attempts(outputs[2]) * 2 * p ** 3 / 3
     elif name == "leaf_factor":
         # prior log-determinant P^3/3, posterior factor + inverse 2 P^3/3
         flops = (_attempts(outputs[3]) + 2 * _attempts(outputs[4])) \
@@ -323,9 +366,19 @@ def timed(times, key, timer, run, plain, library, inputs):
             f"bound {b_ms:.4f} ms ({b_by})")
 
 
+def _check_escalation(name, f):
+    """Members 1-3 of ``chol_case`` escalate to 1e2, 1e2 and (all fail)
+    1e4."""
+    f = f.tolist()
+    check(f[1] == 1e2 and f[2] == 1e2 and f[3] == 1e4,
+          f"{name}: escalation factors {f[1:4]}, expected [100, 100, 10000]")
+
+
 def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   leaf_main=LEAF_MAIN, tri_main=TRI_MAIN,
-                  solve_main=SOLVE_MAIN, timer=time_ms):
+                  solve_main=SOLVE_MAIN, logdet_main=LOGDET_MAIN,
+                  wide_widths=WIDE_WIDTHS, wide_main=WIDE_MAIN,
+                  timer=time_ms):
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -334,9 +387,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
           f"(tolerance max|diff| <= {ATOL} + {RTOL} max|twin|)")
     rng = np.random.default_rng(0)
     dev = torch.device(device)
-    err = dict.fromkeys(["cholesky_jittered", "leaf_factor", "cholesky",
-                         "triangular_inverse_lower",
-                         "solve_triangular_batched"], 0.0)
+    err = dict.fromkeys(KERNEL_NAMES, 0.0)
     times = {}
 
     def dv(x):
@@ -465,6 +516,99 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                                                           upper=True),
                     [lt, rhs])
             print(line)
+
+    # K6 and K7: chol_case's escalated, exact-zero-pivot and all-fail
+    # members; library yardsticks take one attempt
+    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(logdet_main)
+    for b, p in shapes:
+        m, jit = chol_case(rng, b, p)
+        mt, jt = dv(m), dv(jit)
+        eye = torch.eye(p, device=dev)
+        for name, fidx in (("cholesky_logdet", 1), ("cholesky_inv_logdet", 2)):
+            fn, twin = getattr(tl, name), getattr(tl, name + "_ref")
+            got = fn(mt, jt)
+            e = compare(f"{name} {b}x{p}", got, twin(mt, jt),
+                        factor_idx={fidx})
+            err[name] = max(err[name], e)
+            _check_escalation(f"{name} {b}x{p}", got[fidx])
+            line = f"{name} B={b} P={p}: max|diff| {e:.3g}"
+            if (b, p) in logdet_main:
+                if name == "cholesky_logdet":
+                    def library():
+                        lc = torch.linalg.cholesky_ex(
+                            mt + jt[:, None, None] * eye)[0]
+                        return torch.log(torch.diagonal(
+                            lc, dim1=-2, dim2=-1)).sum(-1)
+                else:
+                    def library():
+                        lc = torch.linalg.cholesky_ex(
+                            mt + jt[:, None, None] * eye)[0]
+                        return torch.linalg.solve_triangular(
+                            lc, eye.expand_as(lc), upper=False)
+                line += timed(times, (name, b, p), timer,
+                              lambda: fn(mt, jt), lambda: twin(mt, jt),
+                              library, [mt, jt])
+            print(line)
+
+    # K8, KC and the blocked inverse, wider than one kernel block: K8 has
+    # no jitter, so chol_case's failing members are NaN from their failing
+    # column on; KC escalates them as K2 does
+    shapes = [(ragged, p) for p in wide_widths] + list(wide_main)
+    for b, p in shapes:
+        m, jit = chol_case(rng, b, p)
+        mt, jt = dv(m), dv(jit)
+        eye = torch.eye(p, device=dev)
+        main = (b, p) in wide_main
+        got = tl.cholesky_blocked(mt)
+        e = compare(f"cholesky_blocked {b}x{p}", (got,),
+                    (tl.cholesky_blocked_ref(mt),))
+        err["cholesky_blocked"] = max(err["cholesky_blocked"], e)
+        check(bool(torch.isfinite(got[0]).all())
+              and bool(torch.isnan(got[3][:, 0]).all()),
+              f"cholesky_blocked {b}x{p}: healthy member not finite or -I "
+              "member's first column not NaN")
+        line = f"cholesky_blocked B={b} P={p}: max|diff| {e:.3g}"
+        if main:
+            line += timed(times, ("cholesky_blocked", b, p), timer,
+                          lambda: tl.cholesky_blocked(mt),
+                          lambda: tl.cholesky_blocked_ref(mt),
+                          lambda: torch.linalg.cholesky_ex(mt), [mt])
+        print(line)
+        del got
+
+        got = tl.cholesky_cascade(mt, jt)
+        e = compare(f"cholesky_cascade {b}x{p}", got,
+                    tl.cholesky_cascade_ref(mt, jt), factor_idx={2})
+        err["cholesky_cascade"] = max(err["cholesky_cascade"], e)
+        _check_escalation(f"cholesky_cascade {b}x{p}", got[2])
+        line = f"cholesky_cascade B={b} P={p}: max|diff| {e:.3g}"
+        if main:
+            line += timed(
+                times, ("cholesky_cascade", b, p), timer,
+                lambda: tl.cholesky_cascade(mt, jt),
+                lambda: tl.cholesky_cascade_ref(mt, jt),
+                lambda: torch.linalg.cholesky_ex(
+                    mt + jt[:, None, None] * eye), [mt, jt])
+        print(line)
+        del got, m, mt
+
+        lt = dv(lower_case(rng, b, p))
+        got = tl.triangular_inverse_lower(lt)
+        e = compare(f"triangular_inverse_lower (blocked) {b}x{p}", (got,),
+                    (tl.triangular_inverse_lower_ref(lt),))
+        err["triangular_inverse_lower"] = max(
+            err["triangular_inverse_lower"], e)
+        line = (f"triangular_inverse_lower (blocked) B={b} P={p}: "
+                f"max|diff| {e:.3g}")
+        if main:
+            line += timed(
+                times, ("triangular_inverse_lower", b, p), timer,
+                lambda: tl.triangular_inverse_lower(lt),
+                lambda: tl.triangular_inverse_lower_ref(lt),
+                lambda: torch.linalg.solve_triangular(
+                    lt, eye.expand_as(lt), upper=False), [lt])
+        print(line)
+        del got, lt
     return err, times
 
 
@@ -484,13 +628,16 @@ def _backward(fn, inputs, cotangents, device):
         outs, xs, [torch.tensor(c, device=device) for c in cotangents])
 
 
-def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN):
+def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
+                   logdet_main=LOGDET_MAIN, wide_main=WIDE_MAIN[:1]):
     from pymra_torch.ops import linalg as tl
 
     print("== phase 3b: backward on the card against CPU copies "
           f"(tolerance |diff| <= {ATOL} + {RTOL} max|cpu| of each member)")
     rng = np.random.default_rng(1)
-    err = {"cholesky_jittered": 0.0, "leaf_factor": 0.0}
+    err = dict.fromkeys(["cholesky_jittered", "leaf_factor",
+                         "cholesky_logdet", "cholesky_inv_logdet",
+                         "cholesky_cascade"], 0.0)
     f32 = np.float32
 
     def chol(m, jit):
@@ -523,6 +670,31 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN):
                     _backward(leaf, [c, a], cot, "cpu"), per_member=True)
         err["leaf_factor"] = max(err["leaf_factor"], e)
         print(f"leaf_factor backward B={b} P={p}: max|diff| {e:.3g}")
+
+    # K6, K7 and KC, escalated and all-fail members included; the jitter
+    # gets its gradient too
+    def logdet(m, jit):
+        return tl.cholesky_logdet(m, jit)[:1]
+
+    def inv_logdet(m, jit):
+        return tl.cholesky_inv_logdet(m, jit)[:2]
+
+    def cascade(m, jit):
+        return tl.cholesky_cascade(m, jit)[:2]
+
+    cases = [("cholesky_logdet", logdet, s) for s in logdet_main] + [
+        ("cholesky_inv_logdet", inv_logdet, s) for s in logdet_main] + [
+        ("cholesky_cascade", cascade, s) for s in wide_main]
+    for name, fn, (b, p) in cases:
+        m, jit = chol_case(rng, b, p)
+        cot = ([] if name == "cholesky_logdet"
+               else [rng.standard_normal(m.shape).astype(f32)])
+        cot.append(rng.standard_normal(b).astype(f32))
+        e = compare(f"{name} backward {b}x{p}",
+                    _backward(fn, [m, jit], cot, device),
+                    _backward(fn, [m, jit], cot, "cpu"), per_member=True)
+        err[name] = max(err[name], e)
+        print(f"{name} backward B={b} P={p}: max|diff| {e:.3g}")
     return err
 
 
@@ -704,24 +876,21 @@ def five_point(fn, h):
     return (8.0 * (fn(h) - fn(-h)) - (fn(2 * h) - fn(-2 * h))) / (12.0 * h)
 
 
-def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
-                   n_evals=5, fit_steps=3):
+def gradient_vs_difference(f, tag, device, l0=0.05):
+    """Value and gradient of ``f`` at (l0, sig=1), finite, with the peak
+    device memory of that evaluation; each partial in log-parameter held
+    to a five-point difference of ``f``'s own values. Returns ``(peak GiB,
+    differences, autograd)``."""
     import torch
 
-    from pymra_torch import fit_mle
-
-    model, y = n1m["model"], n1m["y"]
-    n = model.dplan.n_locs
-    print(f"== phase 8: gradient path at N={n} (l=0.05, sig=1, R=1e-2)")
-    f = model.loglik_fn(y, 1e-2, kernel_builder=exponential_builder)
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    value, grad = value_and_grad(f, 0.05, 1.0)
+    value, grad = value_and_grad(f, l0, 1.0)
     peak = (torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
             else float("nan"))
     check(np.isfinite(value) and all(np.isfinite(list(grad.values()))),
-          f"N={n} value {value} or gradient {grad} not finite")
+          f"{tag} value {value} or gradient {grad} not finite")
 
     def loglik(l, sig):
         with torch.no_grad():
@@ -729,16 +898,28 @@ def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
                             "sig": torch.tensor(sig, dtype=torch.float64)}))
 
     # derivatives in log-parameter: d/dlog l = l d/dl
-    fd = {"l": five_point(lambda t: loglik(0.05 * np.exp(t), 1.0), FD_STEP),
-          "sig": five_point(lambda t: loglik(0.05, np.exp(t)), FD_STEP)}
-    ad = {"l": 0.05 * grad["l"], "sig": 1.0 * grad["sig"]}
+    fd = {"l": five_point(lambda t: loglik(l0 * np.exp(t), 1.0), FD_STEP),
+          "sig": five_point(lambda t: loglik(l0, np.exp(t)), FD_STEP)}
+    ad = {"l": l0 * grad["l"], "sig": 1.0 * grad["sig"]}
     for k in ("l", "sig"):
         rel = abs(ad[k] - fd[k]) / abs(fd[k])
-        print(f"N={n} dloglik/dlog {k}: autograd {ad[k]!r}, five-point "
+        print(f"{tag} dloglik/dlog {k}: autograd {ad[k]!r}, five-point "
               f"difference (step {FD_STEP}) {fd[k]!r}, rel diff {rel:.3g} "
               f"(limit {FD_RTOL})")
-        check(rel <= FD_RTOL, f"N={n} gradient in {k} off the difference "
+        check(rel <= FD_RTOL, f"{tag} gradient in {k} off the difference "
                               f"by {rel:.3g}")
+    return peak, fd, ad
+
+
+def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
+                   n_evals=5, fit_steps=3):
+    from pymra_torch import fit_mle
+
+    model, y = n1m["model"], n1m["y"]
+    n = model.dplan.n_locs
+    print(f"== phase 8: gradient path at N={n} (l=0.05, sig=1, R=1e-2)")
+    f = model.loglik_fn(y, 1e-2, kernel_builder=exponential_builder)
+    peak, fd, ad = gradient_vs_difference(f, f"N={n}", device)
     ms = _grad_timer(f, np.linspace(0.04, 0.06, n_evals + 1), timer)
     print(f"N={n} value and gradient: {ms:.3f} ms/eval ({n_evals} evals, "
           f"l in [0.04, 0.06]); {ms / ms_forward:.2f}x the likelihood-only "
@@ -756,9 +937,185 @@ def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
 
 
 # ---------------------------------------------------------------------------
+# phases 10-11: dense measurement error and wide leaves
+# ---------------------------------------------------------------------------
 
-#: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
-#: replaces, the main-path shape of its record)
+def correlated_r(locs, device, scale=DENSE_R_SCALE, rho=DENSE_R_RHO):
+    """``R_ij = scale exp(-|s_i - s_j| / rho)`` on the device, formed in
+    float64 and rounded once."""
+    import torch
+
+    s = torch.as_tensor(np.asarray(locs), dtype=torch.float64, device=device)
+    return (scale * torch.exp(-torch.cdist(s, s) / rho)).float()
+
+
+def _held(tag, got, golden, rtol):
+    """Each of objective, dloglik/dl, dloglik/dsig within ``rtol`` of its
+    golden."""
+    for k, v in got.items():
+        rel = abs(v - golden[k]) / abs(golden[k])
+        print(f"{tag} {k} {v!r} golden {golden[k]!r} rel err {rel:.3g} "
+              f"(limit {rtol})")
+        check(rel <= rtol, f"{tag} {k} off its golden by {rel:.3g}")
+
+
+def sweep_value_and_grad(model, y, R, l, sig):
+    """Objective and gradient of ``sweep(...).loglik`` in (l, sig), the
+    parameters 0-dim float64 tensors on the model's device: the gradient
+    path of a dense R (``loglik_fn`` takes a diagonal R)."""
+    import torch
+
+    from pymra_torch import Kernel
+
+    th = {k: torch.tensor(v, dtype=torch.float64, device=model.device,
+                          requires_grad=True)
+          for k, v in (("l", l), ("sig", sig))}
+    res = model.sweep(Kernel("exponential", l=th["l"], sig=th["sig"]), y, R,
+                      compute_posterior=False)
+    res.loglik.backward()
+    return {"objective": float(res.objective.detach()),
+            **{k: float(t.grad) for k, t in th.items()}}
+
+
+def phase_dense_r(device="cuda", timer=time_ms, n_evals=10, data="large",
+                  r=4, M=4, rho=DENSE_R_RHO, golden_diag=GOLDEN_N10K,
+                  golden=GOLDEN_DENSE_R_N10K):
+    import torch
+
+    from pymra_torch import Kernel, MRAModel, PlanConfig, load_data
+
+    locs, y_obs = load_data(data)
+    n = len(locs)
+    tag = f"dense R N={n}"
+    print(f"== phase 10: dense measurement error at N={n} (bundled {data}, "
+          f"r={r}, M={M}, exponential l=2)")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    kern = Kernel("exponential", l=2.0)
+
+    # (a) the bench tree's R = 1e-4 I, passed as a dense matrix
+    eye_r = torch.diag(torch.full((n,), 1e-4, device=device))
+    dense = float(model.objective(kern, y, eye_r))
+    diag = float(model.objective(kern, y, 1e-4))
+    _anchor(f"{tag} (a) 1e-4 I as a dense R:", dense, golden_diag)
+    rel = abs(dense - diag) / abs(diag)
+    print(f"{tag} (a) against the diagonal path's {diag!r}: rel diff "
+          f"{rel:.3g} (limit {ANCHOR_RTOL})")
+    check(rel <= ANCHOR_RTOL, f"{tag} (a) off the diagonal path by {rel:.3g}")
+    del eye_r
+
+    # (b) a correlated R: objective and gradient against the float64 golden
+    R = correlated_r(locs, device, rho=rho)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _held(f"{tag} (b)", sweep_value_and_grad(model, y, R, 2.0, 1.0), golden,
+          GRAD_RTOL)
+    full = model.sweep(kern, y, R)
+    for name, v in (("mean", full.mean), ("var", full.var)):
+        check(tuple(v.shape) == (n,) and bool(torch.isfinite(v).all()),
+              f"{tag} (b) posterior {name} not finite of shape [{n}]")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
+            else float("nan"))
+    ls = np.linspace(1.5, 2.5, n_evals + 1)
+    ms_full = _sweep_timer(lambda l: model.sweep(Kernel("exponential", l=l),
+                                                 y, R), ls, timer)
+    it = iter(ls)
+    ms_grad = timer(lambda: sweep_value_and_grad(model, y, R,
+                                                 float(next(it)), 1.0),
+                    reps=n_evals)
+    print(f"{tag} (b) full likelihood+posterior: {ms_full:.3f} ms/eval; "
+          f"value and gradient: {ms_grad:.3f} ms/eval ({n_evals} evals, "
+          f"l in [1.5, 2.5]); peak device memory with autograd {peak:.2f} "
+          "GiB (R itself takes "
+          f"{R.numel() * 4 / 2**30:.2f})")
+    return {"ms_full": ms_full, "ms_grad": ms_grad, "peak": peak}
+
+
+def phase_wide(device="cuda", timer=time_ms, n_evals=8, data="large", r=4,
+               M=3, golden=GOLDEN_WIDE_N10K, side=1000, big_M=6, big_l=0.05,
+               grad_evals=3):
+    import torch
+
+    from pymra_torch import Kernel, MRAModel, PlanConfig, load_data
+    from pymra_torch.tree.sweep import mra_sweep, prepare_obs
+    from pymra_torch.utils import gen_locations_2d
+
+    locs, y_obs = load_data(data)
+    print(f"== phase 11: leaves wider than 64 (bundled {data}, r={r}, "
+          f"M={M}, R={WIDE_R}; a {side}^2 grid, r=8, M={big_M}, "
+          f"l={big_l}, R=1e-2)")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    widths = sorted({lvl.leaf_locs.shape[1] for lvl in model.dplan.levels
+                     if lvl.leaf_locs.shape[0]})
+    tag = f"N={len(locs)} M={M} (leaves of {widths})"
+    check(max(widths) > 64, f"{tag}: no leaf wider than 64")
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    f = model.loglik_fn(y, WIDE_R, kernel_builder=exponential_builder)
+    value, grad = value_and_grad(f, 2.0, 1.0)
+    n_obs = int(np.isfinite(y_obs).sum())
+    _held(tag, {"objective": -2.0 * value - n_obs * np.log(2.0 * np.pi),
+                **grad}, golden, GRAD_RTOL)
+
+    big = gen_locations_2d(side)
+    rng = np.random.default_rng(0)
+    y_np = rng.standard_normal(len(big)).astype(np.float32)
+    y_np[rng.random(len(big)) > 0.9] = np.nan
+    t0 = time.perf_counter()
+    bmodel = MRAModel(big, r=8, M=big_M, dtype=torch.float32,
+                      config=PlanConfig(r=8, kmeans_impl="native"),
+                      device=device)
+    leaf = [tuple(lvl.leaf_locs.shape[:2]) for lvl in bmodel.dplan.levels
+            if lvl.leaf_locs.shape[0]]
+    tag = f"N={len(big)} M={big_M} (leaves {leaf})"
+    print(f"{tag}: plan + upload {time.perf_counter() - t0:.2f} s")
+    yb = torch.as_tensor(y_np, device=device)
+    dplan, jitter = bmodel.dplan, bmodel.jitter
+    prep = prepare_obs(dplan, yb, 1e-2)
+
+    def evaluate(l, post=False):
+        return mra_sweep(dplan, Kernel("exponential", l=l), yb, 1e-2,
+                         compute_posterior=post, jitter=jitter, prep=prep)
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    full = evaluate(big_l, post=True)
+    check(bool(torch.isfinite(full.objective)), f"{tag} objective not finite")
+    for name, v in (("mean", full.mean), ("var", full.var)):
+        check(bool(torch.isfinite(v).all()),
+              f"{tag} posterior {name} not finite")
+    print(f"{tag} objective {float(full.objective)!r}")
+    del full
+    thetas = big_l * np.linspace(0.8, 1.2, n_evals + 1)
+    ms_lik = _sweep_timer(evaluate, thetas, timer)
+    ms_full = _sweep_timer(lambda l: evaluate(l, post=True), thetas, timer)
+    peak_fwd = (torch.cuda.max_memory_allocated() / 2**30
+                if device != "cpu" else float("nan"))
+    print(f"{tag} likelihood-only: {ms_lik:.3f} ms/eval; full "
+          f"likelihood+posterior: {ms_full:.3f} ms/eval ({n_evals} evals, "
+          f"l in [{thetas[0]:.3g}, {thetas[-1]:.3g}]); peak device memory "
+          f"{peak_fwd:.2f} GiB")
+    fb = bmodel.loglik_fn(yb, 1e-2, kernel_builder=exponential_builder)
+    peak, fd, ad = gradient_vs_difference(fb, tag, device, l0=big_l)
+    ms_grad = _grad_timer(fb, big_l * np.linspace(0.8, 1.2, grad_evals + 1),
+                          timer)
+    print(f"{tag} value and gradient: {ms_grad:.3f} ms/eval ({grad_evals} "
+          f"evals); {ms_grad / ms_lik:.2f}x the likelihood-only forward; "
+          f"peak device memory with autograd {peak:.2f} GiB")
+    return {"ms_lik": ms_lik, "ms_full": ms_full, "ms_grad": ms_grad,
+            "peak": peak, "fd": fd, "ad": ad}
+
+
+# ---------------------------------------------------------------------------
+
+#: every kernel: (wrapper name, source in ops/cuda/csrc — or, for the two
+#: compositions, what they compose — the TPU kernel it replaces, the path
+#: shape of its record)
 KERNELS = (
     ("leaf_factor", "leaf_factor.cu",
      "pymra_tpu/ops/pallas/linalg.py:255,309", LEAF_MAIN[-1]),
@@ -770,8 +1127,25 @@ KERNELS = (
      TRI_MAIN[-1]),
     ("solve_triangular_batched", "tri_solve.cu",
      "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1]),
+    ("cholesky_logdet", "chol_logdet.cu",
+     "pymra_tpu/ops/pallas/linalg.py:394", LOGDET_MAIN[-1]),
+    ("cholesky_inv_logdet", "chol_inv_logdet.cu",
+     "pymra_tpu/ops/pallas/linalg.py:175", LOGDET_MAIN[-1]),
+    ("cholesky_blocked", "K4 cholesky.cu on 64-wide diagonal blocks, K3 "
+     "tri_inv.cu, torch.matmul (cuBLAS) panels and trailing downdates "
+     "carried in float64",
+     "pymra_tpu/ops/pallas/linalg.py:1097", WIDE_MAIN[-1]),
+    ("cholesky_cascade", "K4 (P <= 64) or cholesky_blocked attempts, failed "
+     "members retried at 1e2 and 1e4", "pymra_tpu/ops/pallas/linalg.py:976",
+     WIDE_MAIN[-1]),
 )
+KERNEL_NAMES = tuple(n for n, *_ in KERNELS)
+COMPOSITIONS = ("cholesky_blocked", "cholesky_cascade")
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
+GRADIENT_KERNELS = FORWARD_KERNELS + ("triangular_inverse_lower", "cholesky",
+                                      "solve_triangular_batched")
+#: the dense-R and wide-leaf paths (phases 10-11) leave K1
+SLICE3_KERNELS = KERNEL_NAMES[1:]
 
 
 def reset_counters(tl):
@@ -819,21 +1193,36 @@ def main() -> int:
     phase_grad_n10k()
     phase_grad_n1m(n1m, n1m["ms_lik"])
     gradient = read_counters(
-        tl, "phase 9: launch counters over phases 7-8",
-        [n for n, *_ in KERNELS])
+        tl, "phase 9: launch counters over phases 7-8", GRADIENT_KERNELS)
+
+    del n1m  # its N=10^6 plan and data
+    torch.cuda.empty_cache()
+    reset_counters(tl)
+    phase_dense_r()
+    phase_wide()
+    slice3 = read_counters(
+        tl, "phase 12: launch counters over phases 10-11", SLICE3_KERNELS)
     print_precision()
 
     rec = []
     for name, src, replaces, (b, p) in KERNELS:
-        launches = forward if name in FORWARD_KERNELS else gradient
-        rec.append({"name": name, "route": "cuda",
-                    "source": f"pymra_torch/ops/cuda/csrc/{src}",
+        launches = (forward if name in FORWARD_KERNELS else
+                    gradient if name in GRADIENT_KERNELS else slice3)
+        source = (f"pymra_torch/ops/cuda/csrc/{src}"
+                  if name not in COMPOSITIONS else "pymra_torch/ops/linalg.py")
+        extra = {"composition": src} if name in COMPOSITIONS else {}
+        if name == "triangular_inverse_lower":
+            wb, wp = WIDE_MAIN[-1]
+            extra = {"blocked": {"shape": f"{wb}x{wp}x{wp}",
+                                 **times[(name, wb, wp)]}}
+        rec.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "launches_gradient_path": gradient[name],
+                    "launches_dense_r_wide_path": slice3[name],
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),
                     **times[(name, b, p)],
-                    "shape": f"{b}x{p}x{p}"})
+                    "shape": f"{b}x{p}x{p}", **extra})
     print(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

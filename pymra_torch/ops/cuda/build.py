@@ -51,6 +51,11 @@ _SIGNATURES = {
     "pymra_tri_inv": [_P, _P, _I, _I, _I, _P],
     # l, b, x, batch, p, q, transpose, device, stream
     "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, jit, ld, f, batch, p, f0, f1, f2, device, stream
+    "pymra_chol_logdet": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
+    # a, jit, x, ld, f, batch, p, f0, f1, f2, device, stream
+    "pymra_chol_inv_logdet": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
+                              _P],
 }
 
 

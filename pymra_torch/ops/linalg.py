@@ -1,14 +1,16 @@
 """Batched small-matrix factorizations of the MRA sweep
 (counterpart of ``pymra_tpu/ops/pallas/linalg.py``).
 
-Five entry points, each a wrapper that chooses by the device of its input
-and is differentiable (a ``torch.autograd.Function`` with the JAX
-package's custom VJP):
+Entry points, each a wrapper that chooses by the device of its input and
+is differentiable (a ``torch.autograd.Function`` with the JAX package's
+custom VJP, or a composition of such):
 
 * :func:`cholesky` — plain lower Cholesky factor, NaN on an indefinite
   pivot (replaces K4, ``_chol_kernel``); ``ops/cuda/csrc/cholesky.cu``.
 * :func:`triangular_inverse_lower` — explicit inverse of a lower triangle
-  (replaces K3, ``_tri_inv_kernel``); ``ops/cuda/csrc/tri_inv.cu``.
+  (replaces K3, ``_tri_inv_kernel``); ``ops/cuda/csrc/tri_inv.cu``. Wider
+  than 64 it is blocked: K3 on the 64-wide diagonal blocks, ``torch.matmul``
+  for the off-diagonal ones (the JAX package's ``_tri_inv_recursive``).
 * :func:`solve_triangular_batched` — ``L x = b`` or ``L^T x = b``
   (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``.
 * :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I``
@@ -18,26 +20,41 @@ package's custom VJP):
   posterior inverse factor + log-determinant (replaces K1,
   ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``);
   ``ops/cuda/csrc/leaf_factor.cu``.
+* :func:`cholesky_logdet` — jittered log-determinant with escalation, no
+  factor formed (replaces K6, ``_chol_logdet_kernel``);
+  ``ops/cuda/csrc/chol_logdet.cu``.
+* :func:`cholesky_inv_logdet` — jittered inverse factor and log-determinant
+  with escalation (replaces K7, ``_chol_inv_logdet_kernel``);
+  ``ops/cuda/csrc/chol_inv_logdet.cu``.
+* :func:`cholesky_blocked` — blocked Cholesky for P > 64 (K8): K4 on the
+  64-wide diagonal blocks, K3 to invert them, ``torch.matmul`` for the
+  panel and the trailing downdate (float64 for a float32 input).
+* :func:`cholesky_cascade` — jitter escalation over K4 (P <= 64) or K8
+  (the counterpart of ``cholesky_cascade_lanes`` and the sweep's
+  ``_chol_cascade``, KC).
 
 A CPU tensor runs the plain PyTorch twin (``*_ref``), an explicit batched
-column loop with the kernel's arithmetic. A CUDA tensor launches the hand
-written kernel or raises; there is no fallback. Each wrapper counts its
-kernel launches in ``.launches``; each twin counts the calls it gets with
-CUDA tensors in ``.cuda_calls`` (only kernel-versus-twin comparisons make
-any). The twins update in place, so the Functions run them (and the
-kernels) without autograd and differentiate by their own backward, which
-calls the other wrappers: on the card every backward factorization,
-inverse and solve is a kernel, and its products are full-float32
-``torch.matmul`` (TF32 off, :func:`set_matmul_precision`).
+column loop with the kernel's arithmetic (K8 and KC: the same composition
+over the twins). A CUDA tensor launches the hand written kernel or raises;
+there is no fallback. Each wrapper counts its kernel launches (the two
+compositions: their calls on the card) in ``.launches``; each twin counts
+the calls it gets with CUDA tensors in ``.cuda_calls`` (only
+kernel-versus-twin comparisons make any). The twins update in place, so the
+Functions run them (and the kernels) without autograd and differentiate by
+their own backward, which calls the other wrappers: on the card every
+backward factorization, inverse and solve is a kernel (KC's solves above
+P = 64: ``torch.linalg.solve_triangular``, as the JAX package's XLA solve
+there), and its products are full-float32 ``torch.matmul`` (TF32 off,
+:func:`set_matmul_precision`).
 
-Escalation contract (K1, K2): a member is retried at the next factor of
-``factors`` while its log-pivot sum is non-finite — NaN for a negative
-pivot, -inf for an exact zero. Members that succeed keep their first
-result; a member that fails every factor keeps its last, NaN, result and
-reports the last factor. The backward linearizes each member at its
-selected factor, so a discarded attempt never reaches a gradient, and an
-all-fail member's NaN stays in that member. The jitter scale is
-structural: no gradient flows into it through ``jit`` of K1.
+Escalation contract (K1, K2, K6, K7, KC): a member is retried at the next
+factor of ``factors`` while its log-pivot sum (KC: its factor) is
+non-finite — NaN for a negative pivot, -inf for an exact zero. Members that
+succeed keep their first result; a member that fails every factor keeps its
+last, NaN, result and reports the last factor. The backward linearizes each
+member at its selected factor, so a discarded attempt never reaches a
+gradient, and an all-fail member's NaN stays in that member. The jitter
+scale is structural: no gradient flows into it through ``jit`` of K1.
 """
 from __future__ import annotations
 
@@ -53,11 +70,15 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "cholesky",
            "triangular_inverse_lower_ref", "solve_triangular_batched",
            "solve_triangular_batched_ref", "cholesky_pullback",
            "cholesky_jittered", "cholesky_jittered_ref", "leaf_factor",
-           "leaf_factor_ref"]
+           "leaf_factor_ref", "cholesky_logdet", "cholesky_logdet_ref",
+           "cholesky_inv_logdet", "cholesky_inv_logdet_ref",
+           "cholesky_blocked", "cholesky_blocked_ref", "cholesky_cascade",
+           "cholesky_cascade_ref"]
 
 FACTORS = (1.0, 1e2, 1e4)
-#: widest block the single-block kernels take; wider needs K8
-#: ``cholesky_blocked``, which is not ported yet
+#: widest block the single-block kernels take; wider goes through the
+#: blocked compositions (K8 ``cholesky_blocked``, the blocked
+#: ``triangular_inverse_lower``, KC ``cholesky_cascade``)
 MAX_P = 64
 #: shared-memory budget of one K5 block (the kernel's static limit)
 _SOLVE_SMEM = 48 * 1024
@@ -93,7 +114,10 @@ def _escalate(base: torch.Tensor, jit: torch.Tensor, factors,
     todo = torch.arange(n, device=base.device)
     outs = acc = f = None
     for fac in factors:
-        sub = base[todo] + eye * (jit[todo] * fac)[:, None, None]
+        if outs is None:  # every member: no gather
+            sub = base + eye * (jit * fac)[:, None, None]
+        else:
+            sub = base[todo] + eye * (jit[todo] * fac)[:, None, None]
         o, a = attempt(sub)
         if outs is None:
             outs, acc = list(o), a
@@ -261,6 +285,117 @@ def leaf_factor_ref(c_own: torch.Tensor, kmask: torch.Tensor,
 leaf_factor_ref.cuda_calls = 0
 
 
+def _flat_jit(mat: torch.Tensor, jit) -> torch.Tensor:
+    """One jitter per member, ``[n]``, from a scalar or a batch-shaped
+    ``jit``."""
+    jit = torch.as_tensor(jit, dtype=mat.dtype, device=mat.device)
+    return jit.expand(mat.shape[:-2]).reshape(-1)
+
+
+def cholesky_logdet_ref(mat: torch.Tensor, jit: torch.Tensor,
+                        factors=FACTORS):
+    """Plain twin of :func:`cholesky_logdet`; any dtype, any width."""
+    if mat.is_cuda:
+        cholesky_logdet_ref.cuda_calls += 1
+    batch, p = mat.shape[:-2], mat.shape[-1]
+    _, ld, f = _escalate(mat.reshape(-1, p, p), _flat_jit(mat, jit),
+                         factors, _logdet_attempt)
+    return ld.reshape(batch), f.reshape(batch)
+
+
+cholesky_logdet_ref.cuda_calls = 0
+
+
+def cholesky_inv_logdet_ref(mat: torch.Tensor, jit: torch.Tensor,
+                            factors=FACTORS):
+    """Plain twin of :func:`cholesky_inv_logdet`; any dtype, any width."""
+    if mat.is_cuda:
+        cholesky_inv_logdet_ref.cuda_calls += 1
+    batch, p = mat.shape[:-2], mat.shape[-1]
+    (x,), ld, f = _escalate(mat.reshape(-1, p, p), _flat_jit(mat, jit),
+                            factors, _inv_attempt)
+    return x.reshape(mat.shape), ld.reshape(batch), f.reshape(batch)
+
+
+cholesky_inv_logdet_ref.cuda_calls = 0
+
+
+def _blocked(mat: torch.Tensor, block: int, chol: Callable,
+             tri_inv: Callable) -> torch.Tensor:
+    """Right-looking blocked Cholesky (the JAX package's
+    ``cholesky_blocked``): ``chol`` factors each ``block``-wide diagonal
+    block, ``tri_inv`` inverts it, the panel ``A21 L11^-T`` and the
+    trailing downdate are matmuls. An indefinite block leaves NaN from its
+    failing column on, in its own member only.
+
+    A float32 input has its panels and trailing blocks carried in float64
+    and rounded once, where they leave the composition: the JAX package
+    keeps them in float32. The wide leaves' posterior blocks (cond ~1e5)
+    lose most of their float32 accuracy there: on 62500 points of the
+    1000^2 grid at 256-wide leaves (exponential l=0.05, R=1e-2) the float32
+    gradient fell from 2.3e-3 to 1.4e-3 off the float64 sweep's, the
+    loglik from 5.9e-4 to 3.6e-4 (``tools/float32_wide_leaves.py``, CPU
+    twins); on an NVIDIA H100 (700 W) the N=10^6 grid's 4096 leaves of 256
+    went from 2.03e-3 to 1.29e-3 between autograd and a five-point
+    difference (``chip_smoke.py``)."""
+    p = mat.shape[-1]
+    if p <= block:
+        return chol(mat.contiguous())
+    wide = torch.float64 if mat.dtype == torch.float32 else mat.dtype
+    a = mat
+    cols = []  # per block column: its [..., p - j0, b] lower part
+    for j0 in range(0, p, block):
+        b = min(block, p - j0)
+        l11 = chol(a[..., :b, :b].to(mat.dtype).contiguous())
+        if j0 + b < p:
+            l21 = a[..., b:, :b].to(wide) @ _mt(tri_inv(l11)).to(wide)
+            a = a[..., b:, b:].to(wide) - l21 @ _mt(l21)
+            l11 = torch.cat([l11, l21.to(mat.dtype)], dim=-2)
+        cols.append(torch.cat([l11.new_zeros(mat.shape[:-2] + (j0, b)),
+                               l11], dim=-2))
+    return torch.cat(cols, dim=-1)
+
+
+def cholesky_blocked_ref(mat: torch.Tensor, block: int = MAX_P
+                         ) -> torch.Tensor:
+    """Plain twin of :func:`cholesky_blocked`: the same composition over
+    the twins of K4 and K3."""
+    if mat.is_cuda:
+        cholesky_blocked_ref.cuda_calls += 1
+    return _blocked(mat, block, cholesky_ref, triangular_inverse_lower_ref)
+
+
+cholesky_blocked_ref.cuda_calls = 0
+
+
+def _cascade_attempt(factor: Callable) -> Callable:
+    """An :func:`_escalate` attempt of the cascade: the factor, and its
+    log-diagonal sum where every entry is finite (NaN elsewhere, so that a
+    member with any non-finite entry is retried, as the JAX cascade's
+    all-finite select does)."""
+    def attempt(a):
+        l = factor(a)
+        ok = torch.isfinite(l).flatten(-2).all(-1)
+        ld = torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+        return (l,), torch.where(ok, ld, torch.full_like(ld, float("nan")))
+    return attempt
+
+
+def cholesky_cascade_ref(mat: torch.Tensor, jit: torch.Tensor,
+                         factors=FACTORS):
+    """Plain twin of :func:`cholesky_cascade`; any dtype, any width."""
+    if mat.is_cuda:
+        cholesky_cascade_ref.cuda_calls += 1
+    batch, p = mat.shape[:-2], mat.shape[-1]
+    factor = cholesky_ref if p <= MAX_P else cholesky_blocked_ref
+    (l,), ld, f = _escalate(mat.reshape(-1, p, p), _flat_jit(mat, jit),
+                            factors, _cascade_attempt(factor))
+    return l.reshape(mat.shape), ld.reshape(batch), f.reshape(batch)
+
+
+cholesky_cascade_ref.cuda_calls = 0
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -287,9 +422,10 @@ def _check_square(name: str, t: torch.Tensor) -> int:
                          f"{tuple(t.shape)}")
     p = t.shape[-1]
     if p > MAX_P:
-        raise NotImplementedError(
-            f"{name}: P={p} > {MAX_P} needs K8 cholesky_blocked, which is "
-            "not ported yet (ROADMAP queue 2)")
+        raise ValueError(
+            f"{name}: P={p} > {MAX_P}, wider than one block of the kernel; "
+            "wider matrices go through cholesky_blocked / cholesky_cascade "
+            "and the blocked triangular_inverse_lower")
     return p
 
 
@@ -326,7 +462,24 @@ def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _tri_inv_blocked(l: torch.Tensor) -> torch.Tensor:
+    """``L^-1`` for P > 64 by ``inv([[A, 0], [B, C]]) = [[A^-1, 0],
+    [-C^-1 B A^-1, C^-1]]`` (the JAX package's ``_tri_inv_recursive``),
+    split at a multiple of 64 so that every diagonal block K3 inverts is
+    64 wide but the last; the off-diagonal blocks are matmuls."""
+    p = l.shape[-1]
+    nb = -(-p // MAX_P)
+    k = MAX_P * ((nb + 1) // 2)
+    ai = _tri_inv_fwd(l[..., :k, :k].contiguous())
+    ci = _tri_inv_fwd(l[..., k:, k:].contiguous())
+    x = -(ci @ (l[..., k:, :k] @ ai))
+    top = torch.cat([ai, ai.new_zeros(l.shape[:-2] + (k, p - k))], dim=-1)
+    return torch.cat([top, torch.cat([x, ci], dim=-1)], dim=-2)
+
+
 def _tri_inv_fwd(l: torch.Tensor) -> torch.Tensor:
+    if l.shape[-1] > MAX_P:
+        return _tri_inv_blocked(l)
     if l.device.type == "cpu":
         return triangular_inverse_lower_ref(l)
     lib = build.load_library()
@@ -414,6 +567,75 @@ def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
     return li, ldp, ldq, fp, fq
 
 
+def _jittered_args(name: str, mat: torch.Tensor, jit: torch.Tensor,
+                   factors) -> tuple:
+    """Checks of a jittered kernel's inputs on the card: ``(P, batch
+    shape, f0, f1, f2)``."""
+    p = _check_square(f"{name}: mat", mat)
+    batch = mat.shape[:-2]
+    _check(f"{name}: mat", mat, mat.shape, mat.device)
+    _check(f"{name}: jit", jit, batch, mat.device)
+    return (p, batch) + _factors(factors)
+
+
+def _cholesky_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
+    if mat.device.type == "cpu":
+        return cholesky_logdet_ref(mat, jit, factors)
+    lib = build.load_library()
+    p, batch, f0, f1, f2 = _jittered_args("cholesky_logdet", mat, jit,
+                                          factors)
+    ld = torch.empty(batch, dtype=mat.dtype, device=mat.device)
+    f = torch.empty_like(ld)
+    if ld.numel():
+        _launched("cholesky_logdet", lib.pymra_chol_logdet(
+            mat.data_ptr(), jit.data_ptr(), ld.data_ptr(), f.data_ptr(),
+            ld.numel(), p, f0, f1, f2, *_where(mat)))
+        cholesky_logdet.launches += 1
+    return ld, f
+
+
+def _cholesky_inv_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor,
+                             factors):
+    if mat.device.type == "cpu":
+        return cholesky_inv_logdet_ref(mat, jit, factors)
+    lib = build.load_library()
+    p, batch, f0, f1, f2 = _jittered_args("cholesky_inv_logdet", mat, jit,
+                                          factors)
+    x = torch.empty_like(mat)
+    ld = torch.empty(batch, dtype=mat.dtype, device=mat.device)
+    f = torch.empty_like(ld)
+    if ld.numel():
+        _launched("cholesky_inv_logdet", lib.pymra_chol_inv_logdet(
+            mat.data_ptr(), jit.data_ptr(), x.data_ptr(), ld.data_ptr(),
+            f.data_ptr(), ld.numel(), p, f0, f1, f2, *_where(mat)))
+        cholesky_inv_logdet.launches += 1
+    return x, ld, f
+
+
+def _on_card(name: str, mat: torch.Tensor) -> None:
+    """The checks of a composition's input on the card (any width)."""
+    if mat.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got "
+                         f"{mat.device}")
+    if mat.ndim < 2 or mat.shape[-1] != mat.shape[-2]:
+        raise ValueError(f"{name}: expected [..., P, P], got "
+                         f"{tuple(mat.shape)}")
+    _check(name, mat, mat.shape, mat.device)
+
+
+def _cholesky_cascade_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
+    if mat.device.type == "cpu":
+        return cholesky_cascade_ref(mat, jit, factors)
+    _on_card("cholesky_cascade: mat", mat)
+    batch, p = mat.shape[:-2], mat.shape[-1]
+    _check("cholesky_cascade: jit", jit, batch, mat.device)
+    factor = cholesky if p <= MAX_P else cholesky_blocked
+    (l,), ld, f = _escalate(mat.reshape(-1, p, p), jit.reshape(-1),
+                            _factors(factors), _cascade_attempt(factor))
+    cholesky_cascade.launches += 1
+    return l.reshape(mat.shape), ld.reshape(batch), f.reshape(batch)
+
+
 # ---------------------------------------------------------------------------
 # backward passes (the JAX package's custom VJPs)
 # ---------------------------------------------------------------------------
@@ -495,6 +717,32 @@ class _TriSolve(torch.autograd.Function):
         return -torch.tril(g), bbar, None
 
 
+def _trace(x: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(x, dim1=-2, dim2=-1).sum(-1)
+
+
+def _torch_solve(l, b, trans):
+    if trans:
+        return torch.linalg.solve_triangular(_mt(l), b, upper=True)
+    return torch.linalg.solve_triangular(l, b, upper=False)
+
+
+def _jittered_cholesky_backward(ctx, lbar, ldbar, solve):
+    """Backward of a jittered factorization ``(L, ld, f)`` of ``mat + f jit
+    I``, linearized at the selected factor (K2, KC)."""
+    set_matmul_precision()
+    l, f = ctx.saved_tensors
+    if lbar is None:
+        lbar = torch.zeros_like(l)
+    if ldbar is not None:
+        # ld = sum_j log L_jj
+        lbar = lbar + torch.diag_embed(
+            ldbar[..., None] / torch.diagonal(l, dim1=-2, dim2=-1))
+    abar = cholesky_pullback(l, lbar, solve)
+    jbar = f * _trace(abar) if ctx.needs_input_grad[1] else None
+    return abar, jbar, None
+
+
 class _CholeskyJittered(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mat, jit, factors):
@@ -507,20 +755,26 @@ class _CholeskyJittered(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, lbar, ldbar, _fbar):
-        # linearized at the selected factor: mat' = mat + f jit I
-        set_matmul_precision()
-        l, f = ctx.saved_tensors
-        if lbar is None:
-            lbar = torch.zeros_like(l)
-        if ldbar is not None:
-            # ld = sum_j log L_jj
-            lbar = lbar + torch.diag_embed(
-                ldbar[..., None] / torch.diagonal(l, dim1=-2, dim2=-1))
-        abar = cholesky_pullback(l, lbar)
-        jbar = None
-        if ctx.needs_input_grad[1]:
-            jbar = f * torch.diagonal(abar, dim1=-2, dim2=-1).sum(-1)
-        return abar, jbar, None
+        return _jittered_cholesky_backward(ctx, lbar, ldbar, _kernel_solve)
+
+
+class _CholeskyCascade(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, jit, factors):
+        l, ld, f = _cholesky_cascade_fwd(mat, jit, factors)
+        ctx.mark_non_differentiable(f)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(l, f)
+        return l, ld, f
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, lbar, ldbar, _fbar):
+        # the JAX cascade's JVP solves with XLA above P = 64: here torch's
+        # solve (cuBLAS on the card), K5 up to 64
+        solve = _kernel_solve if ctx.saved_tensors[0].shape[-1] <= MAX_P \
+            else _torch_solve
+        return _jittered_cholesky_backward(ctx, lbar, ldbar, solve)
 
 
 def _leaf_posterior_pullback(x, libar, ldqbar):
@@ -594,6 +848,56 @@ class _LeafFactor(torch.autograd.Function):
                 (kbar_q * pair).reshape(shape), None, None)
 
 
+class _CholeskyLogdet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, jit, factors):
+        ld, f = _cholesky_logdet_fwd(mat, jit, factors)
+        ctx.mark_non_differentiable(f)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(mat, jit, f)
+        return ld, f
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ldbar, _fbar):
+        # Kbar = 1/2 ldbar K_sel^-1, refactored at the selected factor
+        if ldbar is None:
+            return None, None, None
+        set_matmul_precision()
+        mat, jit, f = ctx.saved_tensors
+        p = mat.shape[-1]
+        kbar = _leaf_prior_pullback(
+            mat.reshape(-1, p, p), (f * jit).reshape(-1),
+            ldbar.reshape(-1)).reshape(mat.shape)
+        jbar = f * _trace(kbar) if ctx.needs_input_grad[1] else None
+        return kbar, jbar, None
+
+
+class _CholeskyInvLogdet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, jit, factors):
+        x, ld, f = _cholesky_inv_logdet_fwd(mat, jit, factors)
+        ctx.mark_non_differentiable(f)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, f)
+        return x, ld, f
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, xbar, ldbar, _fbar):
+        if xbar is None and ldbar is None:
+            return None, None, None
+        set_matmul_precision()
+        x, f = ctx.saved_tensors
+        p = x.shape[-1]
+        kbar = _leaf_posterior_pullback(
+            x.reshape(-1, p, p),
+            None if xbar is None else xbar.reshape(-1, p, p),
+            None if ldbar is None else ldbar.reshape(-1)).reshape(x.shape)
+        jbar = f * _trace(kbar) if ctx.needs_input_grad[1] else None
+        return kbar, jbar, None
+
+
 # ---------------------------------------------------------------------------
 # public, differentiable entry points
 # ---------------------------------------------------------------------------
@@ -665,3 +969,79 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
 
 
 leaf_factor.launches = 0
+
+
+def cholesky_logdet(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
+    """Log-determinant half ``sum_j log L_jj`` of ``chol(mat + f*jit*I)``
+    with escalation, the factor never formed (``1/2 sum_j log d_j`` over
+    the downdated pivots, no square root).
+
+    ``mat [..., P, P]`` (P <= 64 on the card), ``jit [...]``. Returns
+    ``(ld [...], f [...])``, ``f`` the selected factor (not
+    differentiable). The backward is the JAX VJP: ``matbar = 1/2 ldbar
+    K_sel^-1`` with ``K_sel`` refactored at ``f`` (K4) and inverted (K3),
+    ``jitbar = f trace(matbar)``.
+    """
+    return _CholeskyLogdet.apply(mat, jit, tuple(factors))
+
+
+cholesky_logdet.launches = 0
+
+
+def cholesky_inv_logdet(mat: torch.Tensor, jit: torch.Tensor,
+                        factors=FACTORS):
+    """``(X, ld, f)``: ``X = chol(mat + f*jit*I)^-1``, its log-diagonal sum
+    and the selected factor, with escalation; the inverse is formed
+    alongside the factorization and the factor itself never is.
+
+    ``mat [..., P, P]`` (P <= 64 on the card), ``jit [...]``.
+    Differentiable in ``mat`` and ``jit`` (``jitbar = f trace(matbar)``).
+
+    The backward departs from the JAX VJP in two ways, both found on the
+    N=10^4 gradient (R = 1e-4, where ``X`` carries ``1/sqrt(lambda_min)``):
+    it takes the products ``X^T X`` and ``X^T phi(.) X`` in float64 and
+    rounds once, and it uses the exact identity ``L^T Lbar = -Xbar X^T``
+    instead of re-inverting ``X`` to ``L`` (K3) and multiplying — the
+    pullback K1's posterior half already uses
+    (:func:`_leaf_posterior_pullback`). In float32 those products put that
+    gradient 2.1e-3 off its float64 golden, over the 2e-3 budget.
+    """
+    return _CholeskyInvLogdet.apply(mat, jit, tuple(factors))
+
+
+cholesky_inv_logdet.launches = 0
+
+
+def cholesky_blocked(mat: torch.Tensor, block: int = MAX_P) -> torch.Tensor:
+    """Batched lower Cholesky for any width (K8): K4 factors each
+    ``block``-wide diagonal block, K3 inverts it, and the panel ``A21
+    L11^-T`` and the trailing downdate are ``torch.matmul`` outside the
+    kernels, as the JAX package's ``jnp.matmul``; a float32 input has them
+    carried in float64 (see :func:`_blocked`). NaN semantics of :func:`cholesky`: an indefinite block leaves NaN from
+    its failing column on, in its own member only. Differentiable through
+    the composition."""
+    if mat.device.type != "cpu":
+        _on_card("cholesky_blocked: mat", mat)
+        cholesky_blocked.launches += 1
+    return _blocked(mat, block, cholesky, triangular_inverse_lower)
+
+
+cholesky_blocked.launches = 0
+
+
+def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
+    """Jittered lower Cholesky factor of ``mat + f*jit*I`` for any width,
+    escalated per member while its factor has a non-finite entry (KC, the
+    counterpart of the JAX package's ``_chol_cascade`` and
+    ``cholesky_cascade_lanes``): each attempt is K4 (P <= 64) or
+    :func:`cholesky_blocked`, and only the members that failed are
+    factored again — the factors of the JAX package's three unconditional
+    attempts, which exist only for TPU compile safety.
+
+    Returns ``(L, ld, f)`` as :func:`cholesky_jittered` does; differentiable
+    in ``mat`` and ``jit`` at the selected factor.
+    """
+    return _CholeskyCascade.apply(mat, jit, tuple(factors))
+
+
+cholesky_cascade.launches = 0

@@ -59,9 +59,19 @@ class MRAModel:
 
     def sweep(self, cov, y, R, compute_posterior: bool = True) -> SweepResult:
         """Run the full batched sweep (likelihood + posterior moments).
-        ``R`` is a scalar or an ``[N]`` diagonal measurement-error
-        variance."""
-        _diagonal_r(R)
+
+        ``R`` is a scalar, an ``[N]`` diagonal or an ``[N, N]`` dense
+        measurement-error covariance (a numpy array or a tensor, moved to
+        the model's device), honored within each leaf block: the
+        reference's slicing of a matrix R to children. The result is
+        differentiable: with a kernel whose parameters require gradients,
+        ``sweep(...).loglik.backward()`` is the gradient path for a dense
+        R (``loglik_fn`` takes a diagonal R only).
+        """
+        if _ndim(R) == 2:
+            return mra_sweep(self.dplan, cov, y, None,
+                             compute_posterior=compute_posterior,
+                             jitter=self.jitter, r_dense=R)
         return mra_sweep(self.dplan, cov, y, R,
                          compute_posterior=compute_posterior,
                          jitter=self.jitter)
@@ -95,8 +105,16 @@ class MRAModel:
         device (differentiably) before the builder sees them: a 0-dim CPU
         parameter would otherwise send each covariance call's gradient back
         to the host in the backward pass, one synchronization each.
+
+        ``R`` is a scalar or an ``[N]`` diagonal, as the JAX package's
+        ``loglik_fn`` takes it; for a dense R differentiate
+        ``sweep(...).loglik``.
         """
-        _diagonal_r(R)
+        if _ndim(R) == 2:
+            raise NotImplementedError(
+                "loglik_fn takes a scalar or [N] diagonal R (its per-leaf "
+                "observation tensors are diagonal, as in the JAX package); "
+                "for a dense R differentiate MRAModel.sweep(...).loglik")
         prep = prepare_obs(self.dplan, y, R)
 
         def fn(theta):
@@ -127,11 +145,8 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _diagonal_r(R) -> None:
-    if np.ndim(R) == 2:
-        raise NotImplementedError(
-            "dense measurement error R is a sweep side path still to be "
-            "ported (ROADMAP queue 1)")
+def _ndim(R) -> int:
+    return R.ndim if isinstance(R, torch.Tensor) else np.ndim(R)
 
 
 class MRATree:

@@ -17,26 +17,46 @@ and the reference pyMRA):
   per-leaf mean/variance, reassembled by one gather.
 
 Dispatch: with float32 and ``jitter > 0`` the sweep takes the *kernel
-structure* the card runs — every jittered Cholesky through
-:func:`pymra_torch.ops.linalg.cholesky_jittered`, leaves with
-``16 <= P <= 64`` through :func:`pymra_torch.ops.linalg.leaf_factor`
-(their solves become matmuls with the inverse factor), narrower leaves
-through ``cholesky_jittered`` and triangular solves. Otherwise (float64,
-or ``jitter == 0``) it takes the *plain structure* of the JAX package's CPU
-path: ``torch.linalg`` factorizations and triangular solves, which run on
-CPU tensors only. The ops wrappers choose the CUDA kernel or its plain twin
-by the tensors' device, so a CPU run of the kernel structure executes the
-exact sequence of operations the card does.
+structure* the card runs, the JAX package's Pallas dispatch (its Pass B
+leaf branches, ``tree/sweep.py:1026-1078``):
+
+* every jittered Cholesky through
+  :func:`pymra_torch.ops.linalg.cholesky_jittered` (K2) up to P = 64 and
+  :func:`pymra_torch.ops.linalg.cholesky_cascade` (KC over the blocked
+  K8) above;
+* leaves with ``16 <= P <= 64`` and diagonal R through the fused
+  :func:`pymra_torch.ops.linalg.leaf_factor` (K1);
+* the same leaves with a dense R through two kernels: the prior
+  log-determinant by :func:`pymra_torch.ops.linalg.cholesky_logdet` (K6),
+  the posterior inverse factor and log-determinant by
+  :func:`pymra_torch.ops.linalg.cholesky_inv_logdet` (K7);
+* narrower leaves: the prior log-determinant by K6, the posterior factor
+  by K2 and triangular solves; wider leaves: both factors by KC and the
+  posterior inverse by the blocked
+  :func:`pymra_torch.ops.linalg.triangular_inverse_lower`.
+
+Wherever a leaf has its inverse factor the solves are matmuls with it.
+Otherwise (float64, or ``jitter == 0``) the sweep takes the *plain
+structure* of the JAX package's CPU path: ``torch.linalg`` factorizations
+and triangular solves, which run on CPU tensors only. The ops wrappers
+choose the CUDA kernel or its plain twin by the tensors' device, so a CPU
+run of the kernel structure executes the exact sequence of operations the
+card does.
+
+Dense measurement error (``r_dense``): each leaf whitens its data and basis
+against the Cholesky factor of its own R block (the reference's slicing of
+R to children; cross-leaf entries drop out) and sends its parent the
+ungrouped message.
 
 Differentiation: both structures differentiate end to end with autograd
-(``MRAModel.loglik_fn``). Every jittered factorization is linearized at
-its selected escalation factor — the kernels' autograd Functions in the
-kernel structure, :class:`_CholCascade` in the plain one — so a discarded
-attempt never reaches a gradient. Jitter scales are structural (detached).
+(``MRAModel.loglik_fn``, or ``sweep(...).loglik.backward()``). Every
+jittered factorization is linearized at its selected escalation factor —
+the kernels' autograd Functions in the kernel structure,
+:class:`_CholCascade` in the plain one — so a discarded attempt never
+reaches a gradient. Jitter scales are structural (detached).
 
-Not ported yet (they raise ``NotImplementedError``): dense ``r_dense``
-measurement error, ``keep_internals``, sharding (``axis_name``) and
-``posterior_segments``.
+Not ported yet (they raise ``NotImplementedError``): ``keep_internals``,
+sharding (``axis_name``) and ``posterior_segments``.
 """
 from __future__ import annotations
 
@@ -47,10 +67,16 @@ import numpy as np
 import torch
 
 from pymra_torch.ops.linalg import (
+    MAX_P,
+    cholesky_cascade,
+    cholesky_inv_logdet,
     cholesky_jittered,
+    cholesky_logdet,
     cholesky_pullback,
     leaf_factor,
     set_matmul_precision,
+    solve_triangular_batched,
+    triangular_inverse_lower,
 )
 from pymra_torch.tree.plan import TreePlan
 
@@ -59,9 +85,13 @@ __all__ = ["DeviceLevel", "DevicePlan", "SweepResult", "make_device_plan",
 
 LOG2PI = float(np.log(2.0 * np.pi))
 
-#: leaf widths that go through the fused leaf kernel in the kernel structure
+#: leaf widths that go through the fused leaf kernel (diagonal R) or the
+#: two-kernel branch (dense R) in the kernel structure
 LEAF_FUSED_MIN_P = 16
 LEAF_FUSED_MAX_P = 64
+#: a triangular solve in the kernel structure takes K5 for 16 <= P <= 64
+#: and P + Q up to this (the JAX package's ``_tri_solve`` dispatch)
+SOLVE_KERNEL_MAX_PQ = 112
 
 
 @dataclasses.dataclass
@@ -250,6 +280,15 @@ def _cholesky_nan(mat: torch.Tensor) -> torch.Tensor:
                        torch.full_like(L, float("nan")))
 
 
+def _jit_scale(mat: torch.Tensor, jitter: float,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-member jitter ``jitter*(scale+1)``, ``scale`` the mean |diagonal|
+    of ``mat`` unless given; structural, so no gradient flows into it."""
+    if scale is None:
+        scale = torch.diagonal(mat, dim1=-2, dim2=-1).abs().mean(-1)
+    return jitter * (scale.detach() + 1.0)
+
+
 def _chol(mat: torch.Tensor, jitter: float,
           scale: torch.Tensor | None = None) -> torch.Tensor:
     """Cholesky factor of ``mat + f*jitter*(scale+1)*I``, ``scale`` the mean
@@ -257,12 +296,22 @@ def _chol(mat: torch.Tensor, jitter: float,
     block's scale), ``f`` escalating 1, 1e2, 1e4 per member on failure."""
     if not jitter:
         return _cholesky_nan(mat)
-    if scale is None:
-        scale = torch.diagonal(mat, dim1=-2, dim2=-1).abs().mean(-1)
-    jit_scale = jitter * (scale.detach() + 1.0)
+    jit_scale = _jit_scale(mat, jitter, scale)
     if _kernel_structure(mat.dtype, jitter):
-        return cholesky_jittered(mat.contiguous(), jit_scale.contiguous())[0]
+        chol = (cholesky_jittered if mat.shape[-1] <= MAX_P
+                else cholesky_cascade)
+        return chol(mat.contiguous(), jit_scale.contiguous())[0]
     return _CholCascade.apply(mat, jit_scale)
+
+
+def _chol_logdiag(mat: torch.Tensor, jitter: float) -> torch.Tensor:
+    """``sum log diag`` of :func:`_chol`'s factor; in the kernel structure
+    up to P = 64 without forming the factor (K6, the JAX package's
+    ``_chol_logdiag``)."""
+    if _kernel_structure(mat.dtype, jitter) and mat.shape[-1] <= MAX_P:
+        jit_scale = _jit_scale(mat, jitter)
+        return cholesky_logdet(mat.contiguous(), jit_scale.contiguous())[0]
+    return _logdiag_sum(_chol(mat, jitter))
 
 
 class _CholCascade(torch.autograd.Function):
@@ -293,9 +342,16 @@ class _CholCascade(torch.autograd.Function):
         return cholesky_pullback(c, lbar, _tri_solve), None
 
 
-def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False
-               ) -> torch.Tensor:
-    """Solve ``L x = B`` (or ``L^T x = B``) for a batch of lower factors."""
+def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False,
+               kernel: bool = False) -> torch.Tensor:
+    """Solve ``L x = B`` (or ``L^T x = B``) for a batch of lower factors.
+    With ``kernel`` (the kernel structure) factors of width 16 to 64 with
+    ``P + Q <= 112`` go through K5, as the JAX package's ``_tri_solve``
+    takes its Pallas kernel there; everything else is ``torch.linalg``."""
+    p = L.shape[-1]
+    if (kernel and LEAF_FUSED_MIN_P <= p <= LEAF_FUSED_MAX_P
+            and p + B.shape[-1] <= SOLVE_KERNEL_MAX_PQ):
+        return solve_triangular_batched(L.contiguous(), B.contiguous(), trans)
     if trans:
         return torch.linalg.solve_triangular(L.transpose(-1, -2), B,
                                              upper=True)
@@ -313,7 +369,9 @@ def _logdiag_sum(chol: torch.Tensor) -> torch.Tensor:
 
 
 def _message_downdate(W, w, X):
-    """The leaf's message to its parent, ``W^T diag(w) W - X^T X``.
+    """The leaf's message to its parent, ``W^T diag(w) W - X^T X`` (with
+    ``w`` None, ``W^T W - X^T X``: the dense-R form, ``W`` the whitened
+    head basis).
 
     The two Gram blocks carry the data weight ``1/R`` and nearly cancel
     when R is small: on the N=10^4 bench tree (R = 1e-4) a float32
@@ -324,7 +382,8 @@ def _message_downdate(W, w, X):
     """
     wide = torch.float64 if W.dtype == torch.float32 else W.dtype
     Wd, Xd = W.to(wide), X.to(wide)
-    out = (Wd * w.to(wide)[..., None]).transpose(-1, -2) @ Wd
+    Ww = Wd if w is None else Wd * w.to(wide)[..., None]
+    out = Ww.transpose(-1, -2) @ Wd
     return (out - Xd.transpose(-1, -2) @ Xd).to(W.dtype)
 
 
@@ -417,6 +476,38 @@ def prepare_obs(dplan: DevicePlan, y, r_diag) -> tuple:
     return tuple(out)
 
 
+def _dense_obs(dplan: DevicePlan, y, r_dense) -> tuple:
+    """Per-leaf observation tensors under a dense ``[N, N]`` R: the
+    observed-slot mask ``o``, ``y`` with zeros off it, the counts, and each
+    leaf's own R block with unobserved and padded slots decoupled
+    (identity rows and columns), so they contribute nothing."""
+    N = dplan.n_locs
+    fl = dict(dtype=dplan.dtype, device=dplan.device)
+    y = torch.as_tensor(y, **fl).reshape(-1)
+    R = torch.as_tensor(r_dense, **fl)
+    if tuple(R.shape) != (N, N):
+        raise ValueError(f"r_dense: shape {tuple(R.shape)}, expected "
+                         f"({N}, {N})")
+    out = []
+    for lvl in dplan.levels:
+        if lvl.leaf_locs.shape[0] == 0:
+            out.append(None)
+            continue
+        # padded slots (index N) read the last location; the mask drops it
+        gidx = lvl.leaf_loc_gidx.clamp(max=N - 1)
+        y_leaf = y[gidx]
+        obs = torch.isfinite(y_leaf) & lvl.leaf_loc_mask
+        o = obs.to(dplan.dtype)
+        P = gidx.shape[1]
+        R_m = (R[gidx[:, :, None], gidx[:, None, :]]
+               * (o[:, :, None] * o[:, None, :])
+               + (1.0 - o)[:, :, None] * torch.eye(P, **fl))
+        out.append({"o": o, "y0": torch.where(obs, y_leaf,
+                                              torch.zeros((), **fl)),
+                    "R_m": R_m, "n_obs": o.sum(-1)})
+    return tuple(out)
+
+
 def mra_sweep(
     dplan: DevicePlan,
     covfn: Callable,
@@ -440,11 +531,15 @@ def mra_sweep(
       r_diag: scalar or ``[N]`` measurement-error variance (diagonal R).
       compute_posterior: also run the downward pass for mean/var.
       jitter: scale-relative diagonal regularization before each Cholesky.
+      r_dense: optional ``[N, N]`` measurement-error covariance (array or
+        tensor); each leaf whitens against its own block of it, entries
+        coupling different leaves drop out. ``r_diag`` and ``prep`` are
+        then ignored.
       prep: optional :func:`prepare_obs` output for this ``(y, r_diag)``;
         ``y``/``r_diag`` are then ignored.
 
-    ``keep_internals``, ``axis_name``, ``r_dense`` and
-    ``posterior_segments`` are not ported yet and raise.
+    ``keep_internals``, ``axis_name`` and ``posterior_segments`` are not
+    ported yet and raise.
     """
     if keep_internals:
         raise NotImplementedError(
@@ -454,18 +549,17 @@ def mra_sweep(
         raise NotImplementedError(
             "sharded sweeps are still to be ported (ROADMAP queue 1, "
             "sharding)")
-    if r_dense is not None:
-        raise NotImplementedError(
-            "dense measurement error (r_dense) is a sweep side path still "
-            "to be ported (ROADMAP queue 1)")
     set_matmul_precision()
-    if prep is None:
+    dense = None
+    if r_dense is not None:
+        dense = _dense_obs(dplan, y, r_dense)
+    elif prep is None:
         prep = prepare_obs(dplan, y, r_diag)
     return _mra_sweep_impl(dplan, covfn, compute_posterior, float(jitter),
-                           prep)
+                           prep, dense)
 
 
-def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep):
+def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
     levels = dplan.levels
     M, N, r = dplan.M, dplan.n_locs, dplan.r
     dtype = dplan.dtype
@@ -562,15 +656,35 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep):
         kmask_f = lvl.leaf_is_knot.to(dtype)
         # own-basis block: conditional covariance with own-knot columns only
         B_own = C_own * kmask_f[:, None, :]
-        lp = prep[m]
-        w, wy = lp["w"], lp["wy"]
-        Bw = B_own * w[:, :, None]
-        A_oo = Bw.transpose(-1, -2) @ B_own
-        omg_o = (B_own.transpose(-1, -2) @ wy[..., None])[..., 0]
-        if S:
-            A_oh = Bw.transpose(-1, -2) @ W
+        if dense is not None:
+            # correlated measurement error: whiten y and the basis against
+            # this leaf's own R block
+            dn = dense[m]
+            L_R = _chol(dn["R_m"], jitter)
+            Bstack = torch.cat([W, B_own], dim=-1) if S else B_own
+            Bw = _tri_solve(L_R, Bstack * dn["o"][:, :, None],
+                            kernel=kernel_structure)
+            yw = _tri_solve(L_R, dn["y0"][..., None],
+                            kernel=kernel_structure)
+            Bw_h, Bw_o = Bw[..., :S], Bw[..., S:]
+            A_oo = Bw_o.transpose(-1, -2) @ Bw_o
+            omg_o = (Bw_o.transpose(-1, -2) @ yw)[..., 0]
+            if S:
+                A_oh = Bw_o.transpose(-1, -2) @ Bw_h
+                omg_h = (Bw_h.transpose(-1, -2) @ yw)[..., 0]
+            lp = {"logdet_R": 2.0 * _logdiag_sum(L_R),
+                  "quad_y": (yw * yw).sum((-2, -1)), "n_obs": dn["n_obs"]}
+        else:
+            lp = prep[m]
+            w, wy = lp["w"], lp["wy"]
+            Bw = B_own * w[:, :, None]
+            A_oo = Bw.transpose(-1, -2) @ B_own
+            omg_o = (B_own.transpose(-1, -2) @ wy[..., None])[..., 0]
+            if S:
+                A_oh = Bw.transpose(-1, -2) @ W
 
-        if kernel_structure and LEAF_FUSED_MIN_P <= P <= LEAF_FUSED_MAX_P:
+        fused = kernel_structure and LEAF_FUSED_MIN_P <= P <= LEAF_FUSED_MAX_P
+        if fused and dense is None:
             # one kernel: prior log-det, posterior inverse factor + log-det;
             # K_leaf and K_leaf + A_oo never exist in memory
             Li, ld_prior, ld_post, _, _ = leaf_factor(
@@ -582,14 +696,27 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep):
             pair = kmask_f[:, :, None] * kmask_f[:, None, :]
             eyeP = torch.eye(P, **fl)
             K_leaf = C_own * pair + (1.0 - kmask_f)[:, :, None] * eyeP
-            ld_prior = _logdiag_sum(_chol(K_leaf, jitter))
+            ld_prior = _chol_logdiag(K_leaf, jitter)
             prior_scale = torch.diagonal(K_leaf, dim1=-2, dim2=-1).abs().mean(-1)
-            L_post = _chol(K_leaf + A_oo, jitter, scale=prior_scale)
-            ld_post = _logdiag_sum(L_post)
-            Li = None
+            if fused:
+                # two kernels (dense R): posterior inverse factor and
+                # log-det in one pass, the factor never formed
+                K_post = K_leaf + A_oo
+                jit_post = _jit_scale(K_post, jitter, prior_scale)
+                Li, ld_post, _ = cholesky_inv_logdet(
+                    K_post.contiguous(), jit_post.contiguous())
+                L_post = None
+            else:
+                L_post = _chol(K_leaf + A_oo, jitter, scale=prior_scale)
+                ld_post = _logdiag_sum(L_post)
+                # wide leaves: the solves become matmuls with the blocked
+                # inverse, as in the JAX package
+                Li = (triangular_inverse_lower(L_post)
+                      if kernel_structure and P > MAX_P else None)
+
         def solve(B, trans=False):
             """``L^-1 B`` (or ``L^-T B``) for the leaf's posterior factor:
-            matmuls when the leaf kernel produced ``Li = L^-1``."""
+            matmuls when a kernel produced ``Li = L^-1``."""
             if Li is not None:
                 return (Li.transpose(-1, -2) if trans else Li) @ B
             return _tri_solve(L_post, B, trans)
@@ -606,7 +733,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep):
 
         if S:
             Xblk = solve(A_oh)  # [n, P, S]
-            if grp:
+            if grp and dense is None:
                 # aggregate the head messages straight at the parent: the
                 # same contractions over c*P rows land [n/c, S, S] blocks
                 # with no per-leaf A_hh in memory
@@ -620,10 +747,13 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep):
                        @ v.reshape(n_par, grp * P)[..., None])[..., 0])
                 children[m].append((ATil, omgTil, lvl.leaf_parent[::grp], 1))
             else:
-                ATil = _message_downdate(W, w, Xblk)
-                omg_h = (W.transpose(-1, -2) @ wy[..., None])[..., 0]
+                if dense is None:
+                    ATil = _message_downdate(W, w, Xblk)
+                    omg_h = (W.transpose(-1, -2) @ wy[..., None])[..., 0]
+                else:
+                    ATil = _message_downdate(Bw_h, None, Xblk)
                 omgTil = omg_h - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
-                children[m].append((ATil, omgTil, lvl.leaf_parent, 0))
+                children[m].append((ATil, omgTil, lvl.leaf_parent, grp))
             G = solve(Xblk, trans=True)  # [n, P, S]
         else:
             G = torch.zeros(n_leaf, P, 0, **fl)

@@ -22,6 +22,8 @@ from pymra_torch.tree import sweep
 from pymra_torch.tree.plan import tpu_shaped_M
 from pymra_torch.utils import gen_locations_2d
 
+from tests.test_torch_grad import one_torch_thread  # noqa: F401
+
 
 def _host_timer(fn, reps=10):
     fn()
@@ -34,14 +36,24 @@ def _host_timer(fn, reps=10):
 def test_kernel_phase_passes_with_twins():
     err, times = chip_smoke.phase_kernels(
         "cpu", ragged=9, chol_main=((8, 4),), leaf_main=((6, 17),),
-        tri_main=((5, 17),), solve_main=((8, 4),), timer=_host_timer)
-    assert err == dict.fromkeys(
-        ["cholesky_jittered", "leaf_factor", "cholesky",
-         "triangular_inverse_lower", "solve_triangular_batched"], 0.0)
+        tri_main=((5, 17),), solve_main=((8, 4),), logdet_main=((7, 9),),
+        wide_widths=(70,), wide_main=((5, 96),), timer=_host_timer)
+    # on the CPU each wrapper runs its twin, so kernel and twin agree
+    # exactly — but the blocked inverse (P > 64), which is K3 on blocks
+    # and matmuls against plain forward substitution over the whole width
+    blocked = err.pop("triangular_inverse_lower")
+    assert err == dict.fromkeys(set(chip_smoke.KERNEL_NAMES)
+                                - {"triangular_inverse_lower"}, 0.0)
+    assert 0 < blocked < 1e-6
     assert set(times) == {("cholesky_jittered", 8, 4), ("leaf_factor", 6, 17),
                           ("cholesky", 5, 17),
                           ("triangular_inverse_lower", 5, 17),
-                          ("solve_triangular_batched", 8, 4)}
+                          ("solve_triangular_batched", 8, 4),
+                          ("cholesky_logdet", 7, 9),
+                          ("cholesky_inv_logdet", 7, 9),
+                          ("cholesky_blocked", 5, 96),
+                          ("cholesky_cascade", 5, 96),
+                          ("triangular_inverse_lower", 5, 96)}
     for key, rec in times.items():
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                            "operations")
@@ -74,14 +86,33 @@ def test_work_counts_bytes_and_escalated_attempts():
     out = tl.leaf_factor(c, k, a, 1e-3)
     assert chip_smoke.work("leaf_factor", [c, k, a], list(out))[0] == (
         4 * (2 * 6 * 153 + 6 * 17 + 6 * 289 + 4 * 6))
+    # K6 writes two [B] outputs, K7 the inverse too; the work counts the
+    # attempts each member took (members 1-3 escalate: 2, 2 and 3)
+    m, jit = (torch.as_tensor(x) for x in chip_smoke.chol_case(
+        np.random.default_rng(3), 5, 4))
+    ld, f = tl.cholesky_logdet(m, jit)
+    assert chip_smoke.work("cholesky_logdet", [m, jit], [ld, f]) == (
+        4 * (5 * 10 + 5 + 2 * 5), (5 + 1 + 1 + 2) * 4 ** 3 / 3)
+    out = tl.cholesky_inv_logdet(m, jit)
+    assert chip_smoke.work("cholesky_inv_logdet", [m, jit], list(out)) == (
+        4 * (5 * 10 + 5 + 5 * 16 + 2 * 5), (5 + 1 + 1 + 2) * 2 * 4 ** 3 / 3)
+    out = tl.cholesky_cascade(m, jit)
+    assert chip_smoke.work("cholesky_cascade", [m, jit], list(out))[1] == (
+        (5 + 1 + 1 + 2) * 4 ** 3 / 3)
+    assert chip_smoke.work("cholesky_blocked", [m], [m]) == (
+        4 * (5 * 10 + 5 * 16), 5 * 4 ** 3 / 3)
     assert chip_smoke.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
     assert chip_smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
 
 
 def test_backward_phase_passes_with_twins():
     err = chip_smoke.phase_backward("cpu", chol_main=((8, 4),),
-                                    leaf_main=((6, 17),))
-    assert err == {"cholesky_jittered": 0.0, "leaf_factor": 0.0}
+                                    leaf_main=((6, 17),),
+                                    logdet_main=((7, 9),),
+                                    wide_main=((5, 70),))
+    assert err == dict.fromkeys(
+        ["cholesky_jittered", "leaf_factor", "cholesky_logdet",
+         "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
 
 
 def test_compare_refuses_differing_factors_and_nan_patterns():
@@ -185,6 +216,48 @@ def test_gradient_check_rejects_a_dropped_leaf_backward(monkeypatch):
     with pytest.raises(SystemExit, match="off the difference"):
         chip_smoke.phase_grad_n1m(n1m, n1m["ms_lik"], "cpu",
                                   timer=_host_timer, n_evals=1)
+
+
+def test_dense_r_phase_passes_on_the_n10k_tree():
+    # the real configuration and its frozen goldens, on the CPU twins
+    chip_smoke.reset_counters(tl)
+    out = chip_smoke.phase_dense_r("cpu", timer=_host_timer, n_evals=1)
+    assert out["ms_full"] > 0 and out["ms_grad"] > 0
+    assert all(getattr(tl, n).launches == 0 for n in chip_smoke.KERNEL_NAMES)
+
+
+def test_dense_r_phase_rejects_a_dropped_whitening():
+    # with R's correlations dropped (its diagonal only) the objective
+    # leaves the correlated golden
+    real = chip_smoke.correlated_r
+
+    def diagonal_only(locs, device, **kw):
+        r = real(locs, device, **kw)
+        return torch.diag(torch.diagonal(r))
+
+    chip_smoke.correlated_r = diagonal_only
+    try:
+        with pytest.raises(SystemExit, match=r"\(b\) objective off"):
+            chip_smoke.phase_dense_r("cpu", timer=_host_timer, n_evals=1)
+    finally:
+        chip_smoke.correlated_r = real
+
+
+def test_wide_phase_passes_on_small_inputs():
+    # the N=10^4 M=3 tree against its frozen golden; the N=10^6 M=6 grid
+    # cut to 128^2 at M=3 (64 leaves of 256), the five-point check's size,
+    # at l=0.02: at l=0.05 those leaves' float32 loglik is too rough for a
+    # five-point difference at this size (6.3e-3 from the gradient, which
+    # is 2.8e-4 from float64; tools/float32_wide_leaves.py)
+    chip_smoke.reset_counters(tl)
+    out = chip_smoke.phase_wide("cpu", timer=_host_timer, n_evals=1,
+                                side=128, big_M=3, big_l=0.02, grad_evals=1)
+    for k in ("l", "sig"):
+        assert abs(out["ad"][k] - out["fd"][k]) <= (
+            chip_smoke.FD_RTOL * abs(out["fd"][k]))
+    for name in chip_smoke.KERNEL_NAMES:
+        assert getattr(tl, name).launches == 0
+        assert getattr(tl, f"{name}_ref").cuda_calls == 0
 
 
 def test_script_fails_without_a_gpu():

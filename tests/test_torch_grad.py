@@ -32,6 +32,19 @@ WIDTHS = [4, 8, 17, 49, 64]
 RTOL = 1e-9
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread per test, restored after it. A parallel
+    pytest run keeps every core busy; torch's own thread pool on top of it
+    oversubscribes them, and the wide-leaf and dense-R rehearsals of
+    ``chip_smoke.py`` then ran many times slower. The port's heavier test
+    modules import this fixture, which makes it autouse there too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd(rng, b, p):
     a = rng.standard_normal((b, p, p))
     return a @ np.swapaxes(a, -1, -2) / p + np.eye(p)

@@ -2,7 +2,9 @@
 plan transfer and the no-JAX import.
 
 * float64 (plain structure) against the frozen goldens of
-  ``tests/test_golden_anchors.py``, at the same tolerances;
+  ``tests/test_golden_anchors.py``, at the same tolerances; the N=250k
+  tree against the JAX package's float64 sweep on the same plan instead
+  (the 250k plan, and with it the frozen golden, depends on the host);
 * float32 with jitter (the kernel structure the CUDA path runs, here with
   the kernels' plain twins) against the JAX sweep under
   ``PYMRA_PALLAS=force`` (Pallas kernels in interpret mode): objective
@@ -26,7 +28,8 @@ import jax.numpy as jnp
 from pymra_tpu import kernels as jk
 from pymra_tpu.tree.model import MRAModel as JaxMRAModel
 from pymra_tpu.tree.model import MRATree as JaxMRATree
-from pymra_torch import Kernel, MRAModel, MRATree, PlanConfig, load_data
+from pymra_tpu.tree.plan import PlanConfig as JaxPlanConfig
+from pymra_torch import Kernel, MRAModel, MRATree, load_data
 from pymra_torch.convert import device_plan_from_numpy, kernel_from_numpy
 from pymra_torch.ops import linalg as tl
 from pymra_torch.tree.sweep import mra_sweep, prepare_obs
@@ -34,12 +37,10 @@ from pymra_torch.utils import gen_locations, gen_locations_2d
 
 from tests.test_golden_anchors import (
     BUNDLED_SMALL_OBJECTIVE,
-    N250K_MEAN_1234,
-    N250K_OBJECTIVE,
-    N250K_VAR_1234,
     README_1D_OBJECTIVE,
     _readme_1d_data,
 )
+from tests.test_torch_grad import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,20 +78,34 @@ def test_bundled_small_golden():
 
 
 def test_250k_golden_objective_and_posterior():
+    # the tree of test_golden_anchors.py's N250K golden, held to the JAX
+    # package's float64 sweep on the same host and the same plan, at the
+    # golden's tolerances: the frozen N250K_* values depend on the host
+    # the tree is planned on (one host plans a tree whose objective is
+    # 4049623.194876, 2.8e-4 from N250K_OBJECTIVE), and the port answers
+    # for agreeing with the JAX package wherever it runs
     locs = gen_locations_2d(500)
     rng = np.random.default_rng(0)
     y = rng.standard_normal(len(locs))
     y[rng.random(len(locs)) > 0.9] = np.nan
-    model = MRAModel(locs, r=8, dtype=F64, device="cpu",
-                     config=PlanConfig(r=8, kmeans_impl="native"))
-    assert model.dplan.M == 7
-    res = model.sweep(Kernel("exponential", l=0.05), y, 1e-2,
-                      compute_posterior=True)
-    np.testing.assert_allclose(float(res.objective), N250K_OBJECTIVE,
+    jmodel = JaxMRAModel(locs, r=8, dtype=jnp.float64,
+                         config=JaxPlanConfig(r=8, kmeans_impl="native"))
+    assert jmodel.dplan.M == 7
+    ref = jmodel.sweep(jk.Kernel("exponential", l=0.05), y, 1e-2,
+                       compute_posterior=True)
+    jd = jmodel.dplan
+    dplan = device_plan_from_numpy(
+        [{k: np.asarray(v) for k, v in lvl._asdict().items()}
+         for lvl in jd.levels],
+        jd.n_locs, jd.r, jd.M, jd.groups, np.asarray(jd.post_inv),
+        jd.iota_groups, dtype=F64)
+    res = mra_sweep(dplan, Kernel("exponential", l=0.05), y, 1e-2,
+                    compute_posterior=True)
+    np.testing.assert_allclose(float(res.objective), float(ref.objective),
                                rtol=1e-9)
-    np.testing.assert_allclose(float(res.mean[1234]), N250K_MEAN_1234,
+    np.testing.assert_allclose(float(res.mean[1234]), float(ref.mean[1234]),
                                rtol=1e-7)
-    np.testing.assert_allclose(float(res.var[1234]), N250K_VAR_1234,
+    np.testing.assert_allclose(float(res.var[1234]), float(ref.var[1234]),
                                rtol=1e-7)
 
 
@@ -249,10 +264,12 @@ def test_side_paths_raise():
     locs, y_obs = load_data("small")
     model = MRAModel(locs, r=4, dtype=F64, device="cpu")
     kern = Kernel("exponential", l=2.0)
+    # a dense R is a sweep path now (tests/test_torch_dense_r.py); the
+    # gradient function keeps the JAX package's diagonal-R contract
     with pytest.raises(NotImplementedError, match="dense"):
-        model.sweep(kern, y_obs, np.eye(100))
+        model.loglik_fn(y_obs, 1e-4 * np.eye(100))
     for kw in ({"keep_internals": True}, {"axis_name": "x"},
-               {"r_dense": np.eye(100)}):
+               {"posterior_segments": True}):
         with pytest.raises(NotImplementedError):
             mra_sweep(model.dplan, kern, y_obs, 1e-4, **kw)
     with pytest.raises(NotImplementedError):

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the gradient path goes on the card.
 
-For the two bench trees of ``chip_smoke.py`` (N=10^4: bundled ``large``,
-r=4, M=4, R=1e-4, l around 2; N=10^6: the 1000^2 grid, r=8, M=7, R=1e-2,
-l around 0.05) this measures, on one GPU:
+For the cells of ``chip_smoke.py`` — ``n10k`` (bundled ``large``, r=4,
+M=4, R=1e-4, l around 2), ``n1m`` (the 1000^2 grid, r=8, M=7, R=1e-2, l
+around 0.05), ``dense`` (the ``n10k`` tree under phase 10's correlated
+``[N, N]`` R, differentiated through ``MRAModel.sweep``) and ``wide`` (the
+1000^2 grid at M=6: 4096 leaves of 256) — this measures, on one GPU:
 
 * ms per likelihood-only forward and per value-and-gradient evaluation of
-  ``MRAModel.loglik_fn``: the median and quartiles of ``--reps``
+  ``MRAModel.loglik_fn`` (``dense``: of ``MRAModel.sweep(...).loglik``,
+  a dict's parameters copied to the card as ``loglik_fn`` does): the
+  median and quartiles of ``--reps``
   repetitions of chip_smoke's CUDA-event timing loop, alternating them;
   the value-and-gradient both with the parameters in a dict (copied to
   the card by ``loglik_fn``) and in a tuple (left on the host, so each
@@ -19,7 +23,8 @@ l around 0.05) this measures, on one GPU:
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    python3 tools/profile_gradient.py [--reps 5] [--side 1000] [--out FILE]
+    python3 tools/profile_gradient.py [--reps 5] [--side 1000]
+        [--cells n10k,n1m,dense,wide] [--out FILE]
 
 It prints a summary and, with ``--out``, writes the numbers as JSON.
 """
@@ -44,15 +49,24 @@ from pymra_torch.ops.linalg import set_matmul_precision  # noqa: E402
 from pymra_torch.utils import gen_locations_2d  # noqa: E402
 
 
-def cells(side):
+CELLS = ("n10k", "n1m", "dense", "wide")
+
+
+def cells(side, names):
     locs, y = load_data("large")
-    yield "N=10^4", locs, y, 4, 4, 1e-4, 2.0
+    if "n10k" in names:
+        yield "N=10^4", locs, y, 4, 4, 1e-4, 2.0
+    if "dense" in names:
+        yield "N=10^4 dense R", locs, y, 4, 4, "correlated", 2.0
     locs = gen_locations_2d(side)
     rng = np.random.default_rng(0)
     y = rng.standard_normal(len(locs)).astype(np.float32)
     y[rng.random(len(locs)) > 0.9] = np.nan
-    yield (f"N={side * side}", locs, y, 8, tpu_shaped_M(len(locs), 8), 1e-2,
-           0.05)
+    if "n1m" in names:
+        yield (f"N={side * side}", locs, y, 8, tpu_shaped_M(len(locs), 8),
+               1e-2, 0.05)
+    if "wide" in names:
+        yield f"N={side * side} M=6", locs, y, 8, 6, 1e-2, 0.05
 
 
 def launches(run):
@@ -86,9 +100,21 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
     model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
                      config=PlanConfig(r=r, kmeans_impl="native"),
                      device=device)
-    f = model.loglik_fn(torch.as_tensor(y, dtype=torch.float32,
-                                        device=device), R,
-                        kernel_builder=cs.exponential_builder)
+    y_dev = torch.as_tensor(y, dtype=torch.float32, device=device)
+    if R == "correlated":
+        r_dense = cs.correlated_r(locs, device)
+
+        def loglik(builder):
+            def f(theta):
+                if isinstance(theta, dict):  # to the card, as loglik_fn
+                    theta = {k: v.to(device) for k, v in theta.items()}
+                return model.sweep(builder(theta), y_dev, r_dense,
+                                   compute_posterior=False).loglik
+            return f
+    else:
+        def loglik(builder):
+            return model.loglik_fn(y_dev, R, kernel_builder=builder)
+    f = loglik(cs.exponential_builder)
     ls = l0 * np.linspace(0.8, 1.2, 11)
 
     def forward(l):
@@ -99,9 +125,7 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
     out = {"launches_forward": launches(lambda: forward(l0)),
            "launches_value_and_grad": launches(
                lambda: cs.value_and_grad(f, l0, 1.0))}
-    f_host = model.loglik_fn(
-        torch.as_tensor(y, dtype=torch.float32, device=device), R,
-        kernel_builder=lambda th: cs.exponential_builder(dict(th)))
+    f_host = loglik(lambda th: cs.exponential_builder(dict(th)))
 
     def host_params(l):
         theta = tuple((k, torch.tensor(v, dtype=torch.float64,
@@ -163,6 +187,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--side", type=int, default=1000)
+    parser.add_argument("--cells", default="n10k,n1m",
+                        help=f"comma-separated, of {', '.join(CELLS)}")
     parser.add_argument("--out", help="write the numbers as JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -174,7 +200,11 @@ def main():
     print(card)
     set_matmul_precision()
     result = {"card": card}
-    for cell in cells(args.side):
+    names = args.cells.split(",")
+    unknown = set(names) - set(CELLS)
+    if unknown:
+        raise SystemExit(f"profile_gradient: unknown cells {sorted(unknown)}")
+    for cell in cells(args.side, names):
         result[cell[0]] = profile_cell(*cell, reps=args.reps)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
