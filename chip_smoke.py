@@ -12,16 +12,20 @@ non-zero exit code and no result line:
    versions and the matmul precision settings the sweep pins;
 2. build: one ``nvcc`` per kernel source of ``pymra_torch/ops/cuda``, all
    at once;
-3. kernels: each of the seven CUDA kernels and the two compositions over
-   them (K8 ``cholesky_blocked``, KC ``cholesky_cascade``; and the blocked
-   ``triangular_inverse_lower``) against its plain PyTorch twin on the card
-   at every shipped width, escalation and NaN cases included, and kernel,
-   twin and one PyTorch library call (a yardstick the port never calls)
-   timed with CUDA events at the paths' shapes, beside the roofline bound
-   of the same work;
-3b. backward: the autograd Functions of ``cholesky_jittered``,
-   ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet`` and
-   ``cholesky_cascade`` on the card against the same Functions on CPU
+3. kernels: each of the seven forward CUDA kernels and the two
+   compositions over them (K8 ``cholesky_blocked``, KC
+   ``cholesky_cascade``; and the blocked ``triangular_inverse_lower``)
+   against its plain PyTorch twin on the card at every shipped width (K2
+   and K5 at every width of their sub-warp kernels too), escalation and NaN
+   cases included, and kernel, twin and one PyTorch library call (a
+   yardstick the port never calls) timed at the paths' shapes, per call
+   (CUDA events) and on the device alone (``torch.profiler``), beside the
+   roofline bound of the same work;
+3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
+   the same tensors, member by member, timed as in phase 3; the autograd
+   Functions of ``cholesky_jittered`` (its backward also timed as the sweep
+   calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``
+   and ``cholesky_cascade`` on the card against the same Functions on CPU
    copies (the twins), at the paths' shapes with random cotangents;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
@@ -37,8 +41,8 @@ non-zero exit code and no result line:
    five-point difference of the card's own float32 loglik, ms per
    value-and-gradient evaluation, its ratio to the forward, peak memory
    with autograd, then a 3-step L-BFGS ``fit_mle``;
-9. launch counters over phases 7-8: K1-K5 launched, no twin ran on a
-   CUDA tensor;
+9. launch counters over phases 7-8: K1-K4 and the pullback launched, no
+   twin ran on a CUDA tensor;
 10. dense measurement error at N=10^4 (bundled ``large``, r=4, M=4):
    (a) R = 1e-4 I passed as a dense matrix against the float64 golden and
    the diagonal path's own objective; (b) a correlated R against a frozen
@@ -49,8 +53,8 @@ non-zero exit code and no result line:
    at M=6 (4096 leaves of 256): ms per evaluation with and without the
    posterior, peak memory, value and gradient against a five-point
    difference;
-12. launch counters over phases 10-11: K2-K8 and KC launched, no twin ran
-   on a CUDA tensor.
+12. launch counters over phases 10-11: K2-K8, KC and the pullback
+   launched, no twin ran on a CUDA tensor.
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -110,6 +114,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 CHOL_WIDTHS = (4, 8, 17, 28, 48, 49, 64)
+#: K2 also at every width of its sub-warp kernel (a group of 4 or 8 lanes a
+#: member up to P = 8) and the first width of its shared-memory kernel
+SUBWARP_WIDTHS = tuple(sorted(set(CHOL_WIDTHS) | {1, 2, 3, 5, 6, 7, 9}))
 LEAF_WIDTHS = (17, 28, 48, 49, 64)
 RAGGED_BATCH = 1000
 #: (batch, P) the main path hands each kernel: N=10^4 (r=4, leaves P=49)
@@ -117,9 +124,15 @@ RAGGED_BATCH = 1000
 CHOL_MAIN = ((64, 4), (4096, 8))
 LEAF_MAIN = ((256, 49), (16384, 64))
 #: (batch, P) of K3 and K4 in the leaf backward (the leaf shapes), and of
-#: K5 in K2's backward (the r x r interior blocks, Q = r)
+#: K5 at the shape of the pullback's solves (the r x r interior blocks,
+#: Q = r)
 TRI_MAIN = LEAF_MAIN
 SOLVE_MAIN = CHOL_MAIN
+#: (batch, P) of the fused Cholesky pullback: K2's backward on the interior
+#: blocks, widths of both group sizes, the first width of the shared-memory
+#: kernel and a dense-R block width
+PULLBACK_SHAPES = CHOL_MAIN + tuple((RAGGED_BATCH, p) for p in (1, 3, 5, 9,
+                                                                 49))
 #: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49)
 LOGDET_MAIN = ((256, 49),)
 #: widths of K8, KC and the blocked inverse, and their paths' shapes: the
@@ -152,6 +165,75 @@ def time_ms(fn, reps: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _spin():
+    """A few spin kernels, synchronized: the profiler can miss the first
+    or last device activities of a profile (one or two of ten one-launch
+    calls went missing on an H100), so the timed calls sit between these,
+    which are not counted."""
+    import torch
+
+    for _ in range(3):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+#: the wrappers whose counter counts kernel launches (K8's and KC's count
+#: calls of their compositions), and the kernels they launch, by the names
+#: of their ``__global__`` functions in ``pymra_torch/ops/cuda/csrc``
+LAUNCHING = ("leaf_factor", "cholesky_jittered", "cholesky",
+             "triangular_inverse_lower", "solve_triangular_batched",
+             "cholesky_pullback", "cholesky_logdet", "cholesky_inv_logdet")
+KERNEL_SYMBOLS = ("leaf_factor_kernel", "chol_jittered_", "cholesky_kernel",
+                  "tri_inv_kernel", "tri_solve_kernel", "chol_pullback_",
+                  "chol_logdet_kernel", "chol_inv_logdet_kernel")
+
+
+def _wrapper_launches() -> int:
+    from pymra_torch.ops import linalg as tl
+
+    return sum(getattr(tl, n).launches for n in LAUNCHING)
+
+
+def device_ms(fn, reps: int = 10,
+              tries: int = 3) -> tuple[float | None, float]:
+    """Device time per call without the host's share: the summed durations
+    of the device activities (kernels, copies, fills) ``torch.profiler``
+    records over ``reps`` calls after one warm-up, and how many there were
+    per call. The profiler can miss activities (on an H100 it recorded
+    half of one kernel's launches in some sessions), so a profile that
+    recorded fewer of the port's kernels than its wrappers launched is
+    taken again, ``tries`` times in all; then, or when it recorded no device
+    activity, the time is not measured: ``None``. Library kernels have no
+    such count to check against."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    count = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _spin()
+            before = _wrapper_launches()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            launched = _wrapper_launches() - before
+            _spin()
+        us = count = own = 0
+        for evt in prof.key_averages():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" not in evt.key):
+                us += getattr(evt, "self_device_time_total", 0.0)
+                count += evt.count
+                if any(k in evt.key for k in KERNEL_SYMBOLS):
+                    own += evt.count
+        if count and own == launched:
+            return us / 1e3 / reps, count / reps
+    return None, count / reps
 
 
 # ---------------------------------------------------------------------------
@@ -326,10 +408,12 @@ def work(name, inputs, outputs) -> tuple[float, float]:
     escalation really took. Of a symmetric input (K1's C and A_oo, K2's
     and K4's matrix) or a lower-triangular one (K3's and K5's L) only the
     lower triangle, P(P+1)/2 entries of each matrix, has to be read;
-    outputs are written whole. Cholesky and a triangular inverse are P^3/3
-    flops each, a solve with Q columns P^2 Q."""
+    outputs are written whole; the Cholesky pullback's phi(L^T Lbar) needs
+    only Lbar's lower triangle too. Cholesky and a triangular inverse are
+    P^3/3 flops each, a solve with Q columns P^2 Q."""
     b, p = inputs[0].shape[0], inputs[0].shape[-1]
-    triangular = (0, 2) if name == "leaf_factor" else (0,)
+    triangular = {"leaf_factor": (0, 2),
+                  "cholesky_pullback": (0, 1)}.get(name, (0,))
     nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
         b * p * (p + 1) // 2 if i in triangular else t.numel()
         for i, t in enumerate(inputs)))
@@ -346,24 +430,42 @@ def work(name, inputs, outputs) -> tuple[float, float]:
             * p ** 3 / 3
     elif name == "solve_triangular_batched":
         flops = b * p * p * inputs[1].shape[-1]
+    elif name == "cholesky_pullback":
+        # L^T Lbar' on the lower triangle, then two solves with P columns
+        flops = b * (p ** 3 / 3 + 2 * p ** 3)
     else:
         flops = b * p ** 3 / 3
     return nbytes, flops
 
 
-def timed(times, key, timer, run, plain, library, inputs):
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def timed(times, key, timer, dev_timer, run, plain, library, inputs):
     """Time kernel, twin and library call at one main-path shape; record
-    them with the bound of the work; return the line's tail."""
+    them with the bound of the work; return the line's tail. ``ms`` and
+    ``library_ms`` are per Python call (CUDA events, the host's share
+    included); ``device_ms`` and ``library_device_ms`` only the device's
+    activities, with their count per call."""
     out = run()
     out = out if isinstance(out, tuple) else (out,)
     ms, ms_ref = timer(run), timer(plain)
-    ms_lib = timer(library) if library is not None else None
+    dev, n_dev = dev_timer(run)
+    ms_lib = lib_dev = n_lib = None
+    if library is not None:
+        ms_lib = timer(library)
+        lib_dev, n_lib = dev_timer(library)
     b_ms, b_by = bound_ms(*work(key[0], inputs, list(out)))
     times[key] = {"ms": ms, "plain_ms": ms_ref, "library_ms": ms_lib,
-                  "bound_ms": b_ms, "bound_by": b_by}
-    lib = f"{ms_lib:.4f} ms" if ms_lib is not None else "none"
-    return (f"; kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, library {lib}, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+                  "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev,
+                  "device_launches": n_dev, "library_device_ms": lib_dev,
+                  "library_device_launches": n_lib}
+    lib = (f"{_ms(ms_lib)} (device {_ms(lib_dev)}, {n_lib:g} launches)"
+           if library is not None else "none")
+    return (f"; kernel {ms:.4f} ms (device {_ms(dev)}, {n_dev:g} launches), "
+            f"twin {ms_ref:.4f} ms, library {lib}, bound {b_ms:.4f} ms "
+            f"({b_by})")
 
 
 def _check_escalation(name, f):
@@ -378,7 +480,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   leaf_main=LEAF_MAIN, tri_main=TRI_MAIN,
                   solve_main=SOLVE_MAIN, logdet_main=LOGDET_MAIN,
                   wide_widths=WIDE_WIDTHS, wide_main=WIDE_MAIN,
-                  timer=time_ms):
+                  timer=time_ms, dev_timer=device_ms):
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -387,13 +489,13 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
           f"(tolerance max|diff| <= {ATOL} + {RTOL} max|twin|)")
     rng = np.random.default_rng(0)
     dev = torch.device(device)
-    err = dict.fromkeys(KERNEL_NAMES, 0.0)
+    err = {n: 0.0 for n in KERNEL_NAMES if n not in BACKWARD_KERNELS}
     times = {}
 
     def dv(x):
         return torch.as_tensor(x, device=dev)
 
-    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(chol_main)
+    shapes = [(ragged, p) for p in SUBWARP_WIDTHS] + list(chol_main)
     for b, p in shapes:
         m, jit = chol_case(rng, b, p)
         mt, jt = dv(m), dv(jit)
@@ -410,7 +512,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         if (b, p) in chol_main:
             eye = torch.eye(p, device=dev)
             line += timed(
-                times, ("cholesky_jittered", b, p), timer,
+                times, ("cholesky_jittered", b, p), timer, dev_timer,
                 lambda: tl.cholesky_jittered(mt, jt),
                 lambda: tl.cholesky_jittered_ref(mt, jt),
                 lambda: torch.linalg.cholesky_ex(mt + jt[:, None, None] * eye),
@@ -446,7 +548,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                     f"max|diff| {e:.3g}")
             if escalate and (b, p) in leaf_main:
                 line += timed(
-                    times, ("leaf_factor", b, p), timer,
+                    times, ("leaf_factor", b, p), timer, dev_timer,
                     lambda: tl.leaf_factor(c, k, a, jitter),
                     lambda: tl.leaf_factor_ref(c, k, a, jitter), None,
                     [c, k, a])
@@ -467,7 +569,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   "member's first column not NaN")
         line = f"cholesky B={b} P={p}: max|diff| {e:.3g}"
         if (b, p) in tri_main:
-            line += timed(times, ("cholesky", b, p), timer,
+            line += timed(times, ("cholesky", b, p), timer, dev_timer,
                           lambda: tl.cholesky(mt),
                           lambda: tl.cholesky_ref(mt),
                           lambda: torch.linalg.cholesky_ex(mt), [mt])
@@ -484,15 +586,15 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         if (b, p) in tri_main:
             eye = torch.eye(p, device=dev).expand_as(lt)
             line += timed(
-                times, ("triangular_inverse_lower", b, p), timer,
+                times, ("triangular_inverse_lower", b, p), timer, dev_timer,
                 lambda: tl.triangular_inverse_lower(lt),
                 lambda: tl.triangular_inverse_lower_ref(lt),
                 lambda: torch.linalg.solve_triangular(lt, eye, upper=False),
                 [lt])
         print(line)
 
-    # K5 with Q = P, both directions; the main path (the Cholesky
-    # pullback) solves with the transpose
+    # K5 with Q = P, both directions; the dense-R whitening solves forward,
+    # the Cholesky pullback solved with the transpose
     shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(solve_main)
     for b, p in shapes:
         lt = dv(lower_case(rng, b, p))
@@ -510,6 +612,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 lt_t = lt.transpose(-1, -2)
                 line += timed(
                     times, ("solve_triangular_batched", b, p), timer,
+                    dev_timer,
                     lambda: tl.solve_triangular_batched(lt, rhs, True),
                     lambda: tl.solve_triangular_batched_ref(lt, rhs, True),
                     lambda: torch.linalg.solve_triangular(lt_t, rhs,
@@ -545,7 +648,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                             mt + jt[:, None, None] * eye)[0]
                         return torch.linalg.solve_triangular(
                             lc, eye.expand_as(lc), upper=False)
-                line += timed(times, (name, b, p), timer,
+                line += timed(times, (name, b, p), timer, dev_timer,
                               lambda: fn(mt, jt), lambda: twin(mt, jt),
                               library, [mt, jt])
             print(line)
@@ -569,7 +672,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
               "member's first column not NaN")
         line = f"cholesky_blocked B={b} P={p}: max|diff| {e:.3g}"
         if main:
-            line += timed(times, ("cholesky_blocked", b, p), timer,
+            line += timed(times, ("cholesky_blocked", b, p), timer, dev_timer,
                           lambda: tl.cholesky_blocked(mt),
                           lambda: tl.cholesky_blocked_ref(mt),
                           lambda: torch.linalg.cholesky_ex(mt), [mt])
@@ -584,7 +687,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         line = f"cholesky_cascade B={b} P={p}: max|diff| {e:.3g}"
         if main:
             line += timed(
-                times, ("cholesky_cascade", b, p), timer,
+                times, ("cholesky_cascade", b, p), timer, dev_timer,
                 lambda: tl.cholesky_cascade(mt, jt),
                 lambda: tl.cholesky_cascade_ref(mt, jt),
                 lambda: torch.linalg.cholesky_ex(
@@ -602,7 +705,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 f"max|diff| {e:.3g}")
         if main:
             line += timed(
-                times, ("triangular_inverse_lower", b, p), timer,
+                times, ("triangular_inverse_lower", b, p), timer, dev_timer,
                 lambda: tl.triangular_inverse_lower(lt),
                 lambda: tl.triangular_inverse_lower_ref(lt),
                 lambda: torch.linalg.solve_triangular(
@@ -628,21 +731,70 @@ def _backward(fn, inputs, cotangents, device):
         outs, xs, [torch.tensor(c, device=device) for c in cotangents])
 
 
-def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
-                   logdet_main=LOGDET_MAIN, wide_main=WIDE_MAIN[:1]):
+def time_backward(m, jit, lbar, device, timer, dev_timer) -> dict:
+    """Per-call and device time of ``cholesky_jittered``'s backward as the
+    sweep runs it: the factor's cotangent only, the jitter structural (no
+    gradient)."""
+    import torch
+
     from pymra_torch.ops import linalg as tl
 
-    print("== phase 3b: backward on the card against CPU copies "
-          f"(tolerance |diff| <= {ATOL} + {RTOL} max|cpu| of each member)")
-    rng = np.random.default_rng(1)
-    err = dict.fromkeys(["cholesky_jittered", "leaf_factor",
-                         "cholesky_logdet", "cholesky_inv_logdet",
-                         "cholesky_cascade"], 0.0)
+    mt = torch.tensor(m, device=device, requires_grad=True)
+    l = tl.cholesky_jittered(mt, torch.as_tensor(jit, device=device))[0]
+    lb = torch.as_tensor(lbar, device=device)
+
+    def run():
+        return torch.autograd.grad(l, mt, lb, retain_graph=True)
+
+    ms = timer(run)
+    dev, n_dev = dev_timer(run)
+    return {"ms": ms, "device_ms": dev, "device_launches": n_dev}
+
+
+def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
+                   logdet_main=LOGDET_MAIN, wide_main=WIDE_MAIN[:1],
+                   pullback_shapes=PULLBACK_SHAPES, timer=time_ms,
+                   dev_timer=device_ms):
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    print("== phase 3b: backward on the card against CPU copies, the fused "
+          f"pullback against its twin (tolerance |diff| <= {ATOL} + {RTOL} "
+          "max|cpu| of each member)")
+    err = dict.fromkeys(["cholesky_pullback", "cholesky_jittered",
+                         "leaf_factor", "cholesky_logdet",
+                         "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
+    times = {}
     f32 = np.float32
+
+    # the fused pullback at K2's factors (escalated and all-fail members
+    # included) against the composition it fuses, on the same tensors; its
+    # own draws, so that the checks below keep their inputs
+    rng = np.random.default_rng(11)
+    for b, p in pullback_shapes:
+        m, jit = chol_case(rng, b, p)
+        l, _, f = tl.cholesky_jittered(torch.as_tensor(m, device=device),
+                                       torch.as_tensor(jit, device=device))
+        lbar, ldbar = (torch.as_tensor(rng.standard_normal(s).astype(f32),
+                                       device=device)
+                       for s in (m.shape, (b,)))
+        args = (l, lbar, ldbar, f)
+        e = compare(f"cholesky_pullback {b}x{p}", tl.cholesky_pullback(*args),
+                    tl.cholesky_pullback_ref(*args), per_member=True)
+        err["cholesky_pullback"] = max(err["cholesky_pullback"], e)
+        line = f"cholesky_pullback B={b} P={p}: max|diff| {e:.3g}"
+        if (b, p) in chol_main:
+            line += timed(times, ("cholesky_pullback", b, p), timer,
+                          dev_timer, lambda: tl.cholesky_pullback(*args),
+                          lambda: tl.cholesky_pullback_ref(*args), None,
+                          list(args))
+        print(line)
 
     def chol(m, jit):
         return tl.cholesky_jittered(m, jit)[:2]
 
+    rng = np.random.default_rng(1)
     for b, p in chol_main:
         m, jit = chol_case(rng, b, p)
         cot = [rng.standard_normal(m.shape).astype(f32),
@@ -651,7 +803,11 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                     _backward(chol, [m, jit], cot, device),
                     _backward(chol, [m, jit], cot, "cpu"), per_member=True)
         err["cholesky_jittered"] = max(err["cholesky_jittered"], e)
-        print(f"cholesky_jittered backward B={b} P={p}: max|diff| {e:.3g}")
+        t = time_backward(m, jit, cot[0], device, timer, dev_timer)
+        times[("cholesky_jittered_backward", b, p)] = t
+        print(f"cholesky_jittered backward B={b} P={p}: max|diff| {e:.3g}; "
+              f"as the sweep calls it {t['ms']:.4f} ms per call (device "
+              f"{_ms(t['device_ms'])}, {t['device_launches']:g} launches)")
 
     for b, p in leaf_main:
         c, k, a = leaf_case(rng, b, p, escalate=True)
@@ -695,7 +851,7 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                     _backward(fn, [m, jit], cot, "cpu"), per_member=True)
         err[name] = max(err[name], e)
         print(f"{name} backward B={b} P={p}: max|diff| {e:.3g}")
-    return err
+    return err, times
 
 
 # ---------------------------------------------------------------------------
@@ -1127,6 +1283,8 @@ KERNELS = (
      TRI_MAIN[-1]),
     ("solve_triangular_batched", "tri_solve.cu",
      "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1]),
+    ("cholesky_pullback", "tri_solve.cu",
+     "pymra_tpu/ops/pallas/linalg.py:1161", PULLBACK_SHAPES[1]),
     ("cholesky_logdet", "chol_logdet.cu",
      "pymra_tpu/ops/pallas/linalg.py:394", LOGDET_MAIN[-1]),
     ("cholesky_inv_logdet", "chol_inv_logdet.cu",
@@ -1141,9 +1299,13 @@ KERNELS = (
 )
 KERNEL_NAMES = tuple(n for n, *_ in KERNELS)
 COMPOSITIONS = ("cholesky_blocked", "cholesky_cascade")
+#: kernels that run only in backward passes (checked in phase 3b)
+BACKWARD_KERNELS = ("cholesky_pullback",)
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
+#: the pullback does the Cholesky backward's solves, so K5 runs only on the
+#: dense-R path (phase 10's whitening)
 GRADIENT_KERNELS = FORWARD_KERNELS + ("triangular_inverse_lower", "cholesky",
-                                      "solve_triangular_batched")
+                                      "cholesky_pullback")
 #: the dense-R and wide-leaf paths (phases 10-11) leave K1
 SLICE3_KERNELS = KERNEL_NAMES[1:]
 
@@ -1181,7 +1343,9 @@ def main() -> int:
     phase_device()
     phase_build()
     err, times = phase_kernels()
-    err_bwd = phase_backward()
+    err_bwd, bwd_times = phase_backward()
+    err["cholesky_pullback"] = err_bwd["cholesky_pullback"]
+    times.update(bwd_times)
 
     reset_counters(tl)
     phase_n10k()
@@ -1211,6 +1375,14 @@ def main() -> int:
         source = (f"pymra_torch/ops/cuda/csrc/{src}"
                   if name not in COMPOSITIONS else "pymra_torch/ops/linalg.py")
         extra = {"composition": src} if name in COMPOSITIONS else {}
+        if name == "cholesky_jittered":
+            extra = {"backward": {f"{bb}x{bp}x{bp}": t for (k, bb, bp), t
+                                  in bwd_times.items()
+                                  if k == "cholesky_jittered_backward"}}
+        if name == "cholesky_pullback":
+            extra = {"fuses": "_cholesky_bwd: the L^T Lbar product, K5 "
+                              "_tri_solve_kernel (:366) twice and the "
+                              "symmetrization"}
         if name == "triangular_inverse_lower":
             wb, wp = WIDE_MAIN[-1]
             extra = {"blocked": {"shape": f"{wb}x{wp}x{wp}",

@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, all sources
-at once in parallel, and loaded with ctypes (on an 8-core host with an
-H100 about 3 s cold, against 10 s for one ``nvcc`` over every source:
-``tools/build_time.py``). The build happens at first
-use, into the git-ignored ``pymra_torch/_build`` directory, so a fresh
-checkout builds everything on its first call. There is no fast-math and no
-flush-to-zero: the kernels' jitter escalation relies on IEEE
-``sqrtf``/``logf`` producing NaN and -inf. ``build_log`` keeps the
-compiler's register / shared-memory report (``-Xptxas=-v``).
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
+compiled by its own ``nvcc`` for Hopper (``sm_90a``) into a shared library
+with a plain C interface, all sources at once in parallel, and loaded with
+ctypes (on an 8-core host with an H100 about 3 s cold, against 10 s for
+one ``nvcc`` over every source: ``tools/build_time.py``). The build
+happens at first use, into the git-ignored ``pymra_torch/_build``
+directory, so a fresh checkout builds everything on its first call.
+There is no fast-math and no flush-to-zero: the kernels' jitter
+escalation relies on IEEE ``sqrtf``/``logf`` producing NaN and -inf.
+``build_log`` keeps the compiler's register / shared-memory report
+(``-Xptxas=-v``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "pymra_tri_inv": [_P, _P, _I, _I, _I, _P],
     # l, b, x, batch, p, q, transpose, device, stream
     "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, device,
+    # stream
+    "pymra_chol_pullback": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # a, jit, ld, f, batch, p, f0, f1, f2, device, stream
     "pymra_chol_logdet": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
     # a, jit, x, ld, f, batch, p, f0, f1, f2, device, stream
@@ -72,15 +76,25 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources() -> list[str]:
+def _sources(pattern: str = "*.cu") -> list[str]:
     here = os.path.dirname(os.path.abspath(__file__))
-    return sorted(glob.glob(os.path.join(here, "csrc", "*.cu")))
+    return sorted(glob.glob(os.path.join(here, "csrc", pattern)))
+
+
+def _headers_key() -> str:
+    """The shared headers' bytes, part of every library's digest: a source
+    that includes an edited header is built anew."""
+    key = ""
+    for hdr in _sources("*.cuh"):
+        with open(hdr) as fh:
+            key += fh.read()
+    return key
 
 
 def _build_one(src: str) -> tuple[ctypes.CDLL, str]:
     name = "libpymra_" + os.path.splitext(os.path.basename(src))[0]
     so, log = build_shared_library(name, [src], [nvcc_path()] + NVCC_FLAGS,
-                                   timeout=900)
+                                   timeout=900, key=_headers_key())
     try:
         return ctypes.CDLL(so), log
     except OSError as e:
@@ -95,6 +109,8 @@ def load_library() -> types.SimpleNamespace:
     a caller that holds a CUDA tensor gets an error, never a fallback.
     """
     global _LIB, build_log
+    if _LIB is not None:  # every launch asks: no lock once loaded
+        return _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB

@@ -13,6 +13,10 @@ custom VJP, or a composition of such):
   for the off-diagonal ones (the JAX package's ``_tri_inv_recursive``).
 * :func:`solve_triangular_batched` — ``L x = b`` or ``L^T x = b``
   (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``.
+* :func:`cholesky_pullback` — the Cholesky pullback of K2 and K4 (and KC
+  up to P = 64) in one launch: product, both K5 substitutions and the
+  symmetrization of the JAX package's ``_cholesky_bwd``;
+  ``ops/cuda/csrc/tri_solve.cu``.
 * :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I``
   with per-member jitter escalation (replaces K2,
   ``_chol_jittered_kernel``); ``ops/cuda/csrc/cholesky_jittered.cu``.
@@ -42,10 +46,10 @@ the calls it gets with CUDA tensors in ``.cuda_calls`` (only
 kernel-versus-twin comparisons make any). The twins update in place, so the
 Functions run them (and the kernels) without autograd and differentiate by
 their own backward, which calls the other wrappers: on the card every
-backward factorization, inverse and solve is a kernel (KC's solves above
-P = 64: ``torch.linalg.solve_triangular``, as the JAX package's XLA solve
-there), and its products are full-float32 ``torch.matmul`` (TF32 off,
-:func:`set_matmul_precision`).
+backward factorization, inverse, solve and Cholesky pullback is a kernel
+(KC's pullback above P = 64 solves with ``torch.linalg.solve_triangular``,
+as the JAX package's XLA solve there), and the other products are
+full-float32 ``torch.matmul`` (TF32 off, :func:`set_matmul_precision`).
 
 Escalation contract (K1, K2, K6, K7, KC): a member is retried at the next
 factor of ``factors`` while its log-pivot sum (KC: its factor) is
@@ -69,6 +73,7 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "cholesky",
            "cholesky_ref", "triangular_inverse_lower",
            "triangular_inverse_lower_ref", "solve_triangular_batched",
            "solve_triangular_batched_ref", "cholesky_pullback",
+           "cholesky_pullback_ref",
            "cholesky_jittered", "cholesky_jittered_ref", "leaf_factor",
            "leaf_factor_ref", "cholesky_logdet", "cholesky_logdet_ref",
            "cholesky_inv_logdet", "cholesky_inv_logdet_ref",
@@ -235,6 +240,40 @@ def solve_triangular_batched_ref(l: torch.Tensor, b: torch.Tensor,
 
 
 solve_triangular_batched_ref.cuda_calls = 0
+
+
+def _pullback(l, lbar, ldbar, f, solve):
+    """The Cholesky pullback as a composition (the JAX package's
+    ``_cholesky_bwd``, with the log-determinant cotangent and the jitter
+    gradient of ``_cholesky_jittered_bwd``): ``Lbar' = Lbar + diag(ldbar /
+    diag L)``, ``raw = L^-T phi(L^T Lbar') L^-1`` by two ``solve(L, B,
+    True)`` (``L^T X = B``), ``Abar = (raw + raw^T) / 2`` and ``jbar = f
+    trace(Abar)`` (None without ``f``)."""
+    if ldbar is not None:
+        # ld = sum_j log L_jj
+        lbar = lbar + torch.diag_embed(
+            ldbar[..., None] / torch.diagonal(l, dim1=-2, dim2=-1))
+    w = _phi(_mt(l) @ lbar)
+    x = solve(l, w, True)  # L^-T w
+    raw = _mt(solve(l, _mt(x), True))  # x L^-1
+    abar = 0.5 * (raw + _mt(raw))
+    return abar, (None if f is None else f * _trace(abar))
+
+
+def cholesky_pullback_ref(l: torch.Tensor, lbar: torch.Tensor,
+                          ldbar: torch.Tensor | None = None,
+                          f: torch.Tensor | None = None,
+                          solve: Callable | None = None):
+    """Plain twin of :func:`cholesky_pullback`: the composition over
+    :func:`solve_triangular_batched_ref` (or ``solve(L, B, trans)``, any
+    solve of ``L X = B`` / ``L^T X = B``); any dtype, any width."""
+    if l.is_cuda:
+        cholesky_pullback_ref.cuda_calls += 1
+    return _pullback(l, lbar, ldbar, f,
+                     solve or solve_triangular_batched_ref)
+
+
+cholesky_pullback_ref.cuda_calls = 0
 
 
 def cholesky_jittered_ref(mat: torch.Tensor, jit: torch.Tensor,
@@ -531,8 +570,7 @@ def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     _check("cholesky_jittered: jit", jit, batch, mat.device)
     f0, f1, f2 = _factors(factors)
     out = torch.empty_like(mat)
-    ld = torch.empty(batch, dtype=mat.dtype, device=mat.device)
-    f = torch.empty(batch, dtype=mat.dtype, device=mat.device)
+    ld, f = torch.empty((2,) + batch, dtype=mat.dtype, device=mat.device)
     n = out.numel() // (p * p)
     if n:
         _launched("cholesky_jittered", lib.pymra_cholesky_jittered(
@@ -540,6 +578,48 @@ def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
             f.data_ptr(), n, p, f0, f1, f2, *_where(mat)))
         cholesky_jittered.launches += 1
     return out, ld, f
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
+                      ldbar: torch.Tensor | None = None,
+                      f: torch.Tensor | None = None):
+    """The Cholesky pullback at the factor ``l [..., P, P]`` with the
+    factor's cotangent ``lbar``, and optionally the cotangent ``ldbar
+    [...]`` of its log-diagonal sum and the selected escalation factors
+    ``f [...]``: returns ``(Abar, jbar)``, ``Abar = (raw + raw^T) / 2``
+    with ``raw = L^-T phi(L^T Lbar') L^-1``, ``Lbar' = Lbar + diag(ldbar /
+    diag L)``, and ``jbar = f trace(Abar)`` (None without ``f``) — the
+    JAX package's ``_cholesky_bwd`` and ``_cholesky_jittered_bwd``.
+
+    On the card one launch for P <= 64 (the backward passes call it under
+    ``once_differentiable``; it is not differentiable itself); on the CPU
+    the twin :func:`cholesky_pullback_ref`."""
+    if l.device.type == "cpu":
+        return cholesky_pullback_ref(l, lbar, ldbar, f)
+    lib = build.load_library()
+    p = _check_square("cholesky_pullback: l", l)
+    batch = l.shape[:-2]
+    _check("cholesky_pullback: l", l, l.shape, l.device)
+    _check("cholesky_pullback: lbar", lbar, l.shape, l.device)
+    for name, t in (("ldbar", ldbar), ("f", f)):
+        if t is not None:
+            _check(f"cholesky_pullback: {name}", t, batch, l.device)
+    abar = torch.empty_like(l)
+    jbar = None if f is None else torch.empty_like(f)
+    n = abar.numel() // (p * p)
+    if n:
+        _launched("cholesky_pullback", lib.pymra_chol_pullback(
+            l.data_ptr(), lbar.data_ptr(), _ptr(ldbar), _ptr(f),
+            abar.data_ptr(), _ptr(jbar), n, p, *_where(l)))
+        cholesky_pullback.launches += 1
+    return abar, jbar
+
+
+cholesky_pullback.launches = 0
 
 
 def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
@@ -655,18 +735,6 @@ def _kernel_solve(l, b, trans):
     return solve_triangular_batched(l, b.contiguous(), trans)
 
 
-def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
-                      solve: Callable = _kernel_solve) -> torch.Tensor:
-    """Standard Cholesky pullback (Murray 2016) at the factor ``l``:
-    ``raw = L^-T phi(L^T Lbar) L^-1``, returned symmetrized — the JAX
-    package's ``_cholesky_bwd``. ``solve(L, B, trans)`` solves ``L X = B``
-    (``L^T X = B``); by default K5, :func:`solve_triangular_batched`."""
-    w = _phi(_mt(l) @ lbar)
-    x = solve(l, w, True)  # L^-T w
-    raw = _mt(solve(l, _mt(x), True))  # x L^-1
-    return 0.5 * (raw + _mt(raw))
-
-
 class _Cholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mat):
@@ -677,9 +745,8 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, lbar):
-        set_matmul_precision()
         l, = ctx.saved_tensors
-        return cholesky_pullback(l, lbar)
+        return cholesky_pullback(l, lbar.contiguous())[0]
 
 
 class _TriInv(torch.autograd.Function):
@@ -727,19 +794,21 @@ def _torch_solve(l, b, trans):
     return torch.linalg.solve_triangular(l, b, upper=False)
 
 
-def _jittered_cholesky_backward(ctx, lbar, ldbar, solve):
+def _jittered_cholesky_backward(ctx, lbar, ldbar):
     """Backward of a jittered factorization ``(L, ld, f)`` of ``mat + f jit
-    I``, linearized at the selected factor (K2, KC)."""
-    set_matmul_precision()
+    I``, linearized at the selected factor (K2, KC): one
+    :func:`cholesky_pullback` up to P = 64; wider (KC only) the composition
+    with torch's solve (cuBLAS on the card), as the JAX cascade's JVP
+    solves with XLA there."""
     l, f = ctx.saved_tensors
-    if lbar is None:
-        lbar = torch.zeros_like(l)
-    if ldbar is not None:
-        # ld = sum_j log L_jj
-        lbar = lbar + torch.diag_embed(
-            ldbar[..., None] / torch.diagonal(l, dim1=-2, dim2=-1))
-    abar = cholesky_pullback(l, lbar, solve)
-    jbar = f * _trace(abar) if ctx.needs_input_grad[1] else None
+    lbar = torch.zeros_like(l) if lbar is None else lbar.contiguous()
+    ldbar = None if ldbar is None else ldbar.contiguous()
+    f = f if ctx.needs_input_grad[1] else None
+    if l.shape[-1] <= MAX_P:
+        abar, jbar = cholesky_pullback(l, lbar, ldbar, f)
+    else:
+        set_matmul_precision()
+        abar, jbar = _pullback(l, lbar, ldbar, f, _torch_solve)
     return abar, jbar, None
 
 
@@ -755,7 +824,7 @@ class _CholeskyJittered(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, lbar, ldbar, _fbar):
-        return _jittered_cholesky_backward(ctx, lbar, ldbar, _kernel_solve)
+        return _jittered_cholesky_backward(ctx, lbar, ldbar)
 
 
 class _CholeskyCascade(torch.autograd.Function):
@@ -770,11 +839,7 @@ class _CholeskyCascade(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, lbar, ldbar, _fbar):
-        # the JAX cascade's JVP solves with XLA above P = 64: here torch's
-        # solve (cuBLAS on the card), K5 up to 64
-        solve = _kernel_solve if ctx.saved_tensors[0].shape[-1] <= MAX_P \
-            else _torch_solve
-        return _jittered_cholesky_backward(ctx, lbar, ldbar, solve)
+        return _jittered_cholesky_backward(ctx, lbar, ldbar)
 
 
 def _leaf_posterior_pullback(x, libar, ldqbar):

@@ -72,7 +72,7 @@ from pymra_torch.ops.linalg import (
     cholesky_inv_logdet,
     cholesky_jittered,
     cholesky_logdet,
-    cholesky_pullback,
+    cholesky_pullback_ref,
     leaf_factor,
     set_matmul_precision,
     solve_triangular_batched,
@@ -184,7 +184,7 @@ def plan_post_inv(plan: TreePlan) -> np.ndarray | None:
 
 
 def make_device_plan(plan: TreePlan, dtype=torch.float32,
-                     device="cpu") -> DevicePlan:
+                     device="cuda") -> DevicePlan:
     """Upload a host :class:`TreePlan` as static tensors on ``device``.
 
     Coordinates are pre-gathered per node; padded leaf slots point at the
@@ -213,7 +213,7 @@ def make_device_plan(plan: TreePlan, dtype=torch.float32,
 
 def device_plan_from_numpy(levels, n_locs: int, r: int, M: int, groups,
                            post_inv, iota_groups: bool, dtype=torch.float32,
-                           device="cpu") -> DevicePlan:
+                           device="cuda") -> DevicePlan:
     """Build a :class:`DevicePlan` from numpy arrays: ``levels`` holds, per
     level, ``{field: array}`` keyed by the :class:`DeviceLevel` field names
     (e.g. ``{k: np.asarray(v) for k, v in jax_level._asdict().items()}``);
@@ -339,7 +339,7 @@ class _CholCascade(torch.autograd.Function):
     @staticmethod
     def backward(ctx, lbar):
         c, = ctx.saved_tensors
-        return cholesky_pullback(c, lbar, _tri_solve), None
+        return cholesky_pullback_ref(c, lbar, solve=_tri_solve)[0], None
 
 
 def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False,

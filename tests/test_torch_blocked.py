@@ -26,6 +26,7 @@ from pymra_tpu.tree import sweep as jsweep
 from pymra_torch.ops import linalg as tl
 
 from tests.test_torch_grad import _close, _t, one_torch_thread  # noqa: F401
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64
 SHAPES = [(4, 96), (2, 150), (3, 64), (2, 130)]

@@ -33,17 +33,25 @@ def _host_timer(fn, reps=10):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _no_device_timer(fn, reps=10):
+    # the profiler's device timer needs a card; here only the call runs
+    fn()
+    return None, 0
+
+
 def test_kernel_phase_passes_with_twins():
     err, times = chip_smoke.phase_kernels(
         "cpu", ragged=9, chol_main=((8, 4),), leaf_main=((6, 17),),
         tri_main=((5, 17),), solve_main=((8, 4),), logdet_main=((7, 9),),
-        wide_widths=(70,), wide_main=((5, 96),), timer=_host_timer)
+        wide_widths=(70,), wide_main=((5, 96),), timer=_host_timer,
+        dev_timer=_no_device_timer)
     # on the CPU each wrapper runs its twin, so kernel and twin agree
     # exactly — but the blocked inverse (P > 64), which is K3 on blocks
     # and matmuls against plain forward substitution over the whole width
     blocked = err.pop("triangular_inverse_lower")
     assert err == dict.fromkeys(set(chip_smoke.KERNEL_NAMES)
-                                - {"triangular_inverse_lower"}, 0.0)
+                                - {"triangular_inverse_lower"}
+                                - set(chip_smoke.BACKWARD_KERNELS), 0.0)
     assert 0 < blocked < 1e-6
     assert set(times) == {("cholesky_jittered", 8, 4), ("leaf_factor", 6, 17),
                           ("cholesky", 5, 17),
@@ -58,6 +66,7 @@ def test_kernel_phase_passes_with_twins():
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                            "operations")
         assert (rec["library_ms"] is None) == (key[0] == "leaf_factor")
+        assert rec["device_ms"] is None and rec["device_launches"] == 0
 
 
 def test_work_counts_bytes_and_escalated_attempts():
@@ -101,18 +110,33 @@ def test_work_counts_bytes_and_escalated_attempts():
         (5 + 1 + 1 + 2) * 4 ** 3 / 3)
     assert chip_smoke.work("cholesky_blocked", [m], [m]) == (
         4 * (5 * 10 + 5 * 16), 5 * 4 ** 3 / 3)
+    # the fused pullback reads the lower triangles of L and Lbar (phi(L^T
+    # Lbar) needs no more of Lbar) and two [B] vectors and writes Abar and
+    # jbar; its product and two solves are P^3/3 + 2 P^3 flops a member
+    l, _, f = tl.cholesky_jittered(m, jit)
+    lbar, ldbar = torch.zeros_like(l), torch.zeros_like(f)
+    out = tl.cholesky_pullback(l, lbar, ldbar, f)
+    assert chip_smoke.work("cholesky_pullback", [l, lbar, ldbar, f],
+                           list(out)) == (
+        4 * (5 * 10 + 5 * 10 + 5 + 5 + 5 * 16 + 5),
+        5 * (4 ** 3 / 3 + 2 * 4 ** 3))
     assert chip_smoke.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
     assert chip_smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
 
 
 def test_backward_phase_passes_with_twins():
-    err = chip_smoke.phase_backward("cpu", chol_main=((8, 4),),
-                                    leaf_main=((6, 17),),
-                                    logdet_main=((7, 9),),
-                                    wide_main=((5, 70),))
+    err, times = chip_smoke.phase_backward(
+        "cpu", chol_main=((8, 4),), leaf_main=((6, 17),),
+        logdet_main=((7, 9),), wide_main=((5, 70),),
+        pullback_shapes=((8, 4), (9, 49)), timer=_host_timer,
+        dev_timer=_no_device_timer)
     assert err == dict.fromkeys(
-        ["cholesky_jittered", "leaf_factor", "cholesky_logdet",
-         "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
+        ["cholesky_pullback", "cholesky_jittered", "leaf_factor",
+         "cholesky_logdet", "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
+    assert set(times) == {("cholesky_jittered_backward", 8, 4),
+                          ("cholesky_pullback", 8, 4)}
+    assert times["cholesky_jittered_backward", 8, 4]["ms"] > 0
+    assert times["cholesky_pullback", 8, 4]["library_ms"] is None
 
 
 def test_compare_refuses_differing_factors_and_nan_patterns():

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64
 WIDTHS = [4, 8, 17, 49, 64]

@@ -18,6 +18,7 @@ from pymra_tpu import kernels as jk
 from pymra_tpu.ops import distances as jd
 from pymra_torch import kernels as tk
 from pymra_torch.ops import distances as td
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 RTOL, ATOL = 1e-12, 1e-15
 

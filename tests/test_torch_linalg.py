@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
 from pymra_torch.ops.cuda import build
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 WIDTHS = [5, 17, 49]

@@ -21,6 +21,7 @@ from pymra_torch.utils import gen_locations
 
 from tests.test_torch_grad import one_torch_thread  # noqa: F401
 from tests.test_torch_loglik import _grf
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 
 def _problem():

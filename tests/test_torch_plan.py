@@ -6,6 +6,9 @@ five configurations that exercise the 2-D k-means (sklearn and native
 C++), the 1-D exact-screening splits and leaves at several depths.
 """
 import dataclasses
+import glob
+import os
+import re
 
 import numpy as np
 import pytest
@@ -21,34 +24,7 @@ from pymra_torch.tree.plan import LevelGroup, PlanConfig, build_plan
 from pymra_torch.tree.sweep import plan_groups, plan_post_inv
 from pymra_torch.utils import gen_locations, gen_locations_2d
 
-
-@pytest.fixture(scope="module", autouse=True)
-def jax_native_planner():
-    """Load the JAX package's native planner before it plans a reference.
-
-    Its binding compiles ``csrc/planner.cpp`` with ``g++ -o`` straight to
-    its final path and gives up for good after one failed load, silently
-    planning with the numpy Lloyd instead (another tree). Under parallel
-    test workers, one worker can load the half-written file another
-    worker's compiler is still writing. So when the binding has no library
-    yet, point it at the port's library of the same source and flags,
-    which is built under a private name and renamed into place, and retry.
-    """
-    from pymra_tpu.ops import native as jax_native
-    from pymra_torch.ops import native
-
-    if jax_native._LIB is None:
-        with pytest.MonkeyPatch.context() as mp:
-            so = native.load_library()._name
-            mp.setattr(jax_native, "_lib_path", lambda: so)
-            # no mtime-based rebuild: the port's library name already
-            # carries a digest of the source
-            mp.setattr(jax_native, "_source_path", lambda: "")
-            mp.setattr(jax_native, "_TRIED", False)
-            jax_native.available()
-    assert jax_native.available(), (
-        "the JAX package's native planner did not load; its reference plans "
-        "would silently use the numpy k-means")
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 
 def clustered_locs():
@@ -136,3 +112,26 @@ def test_native_kmeans_raises_without_library(monkeypatch):
     with pytest.raises(RuntimeError, match="no compiler"):
         build_plan(gen_locations_2d(12), 4,
                    config=PlanConfig(r=4, kmeans_impl="native"))
+
+
+def test_port_test_modules_pin_the_jax_planner():
+    # a port test module that imports the JAX package may plan a reference
+    # with its native binding, whose own build races under parallel
+    # workers and then silently plans with numpy: each takes the fixture
+    here = os.path.dirname(os.path.abspath(__file__))
+    missing = []
+    for path in sorted(glob.glob(os.path.join(here, "test_torch_*.py"))):
+        with open(path) as fh:
+            src = fh.read()
+        if (re.search(r"^\s*(from|import) pymra_tpu\b", src, re.M)
+                and not re.search(r"^from tests\.torch_fixtures import .*"
+                                  r"\bjax_native_planner\b", src, re.M)):
+            missing.append(os.path.basename(path))
+    assert not missing, f"without the jax_native_planner fixture: {missing}"
+    # and in this module, past the fixture, the binding holds the port's
+    # library
+    from pymra_tpu.ops import native as jax_native
+    from pymra_torch.ops import native
+
+    assert jax_native._LIB is not None
+    assert jax_native._LIB._name == native.load_library()._name

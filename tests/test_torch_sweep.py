@@ -41,6 +41,7 @@ from tests.test_golden_anchors import (
     _readme_1d_data,
 )
 from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,7 +99,7 @@ def test_250k_golden_objective_and_posterior():
         [{k: np.asarray(v) for k, v in lvl._asdict().items()}
          for lvl in jd.levels],
         jd.n_locs, jd.r, jd.M, jd.groups, np.asarray(jd.post_inv),
-        jd.iota_groups, dtype=F64)
+        jd.iota_groups, dtype=F64, device="cpu")
     res = mra_sweep(dplan, Kernel("exponential", l=0.05), y, 1e-2,
                     compute_posterior=True)
     np.testing.assert_allclose(float(res.objective), float(ref.objective),
@@ -202,7 +203,7 @@ def test_port_on_jax_plan_equals_port_on_own_plan(dtype):
         [{k: np.asarray(v) for k, v in lvl._asdict().items()}
          for lvl in jd.levels],
         jd.n_locs, jd.r, jd.M, jd.groups, np.asarray(jd.post_inv),
-        jd.iota_groups, dtype=tdt)
+        jd.iota_groups, dtype=tdt, device="cpu")
     jkern = jk.Kernel("matern52", l=0.15, sig=1.3)
     kern = kernel_from_numpy(jkern.name, {k: np.asarray(v) for k, v in
                                           jkern.params.items()},

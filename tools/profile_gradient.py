@@ -15,7 +15,9 @@ around 0.05), ``dense`` (the ``n10k`` tree under phase 10's correlated
   the value-and-gradient both with the parameters in a dict (copied to
   the card by ``loglik_fn``) and in a tuple (left on the host, so each
   covariance call's parameter gradient goes back to the host);
-* kernel launches per evaluation, forward and value-and-gradient;
+* the port's kernel launches per evaluation, forward and
+  value-and-gradient, and every device launch (kernels, copies, fills)
+  per profiled value-and-gradient evaluation;
 * peak device memory of one value-and-gradient evaluation;
 * a ``torch.profiler`` trace of three value-and-gradient evaluations:
   device time by kernel name, and the device's busy share of the wall
@@ -83,17 +85,22 @@ def quartiles(xs):
 
 
 def device_times(prof, n_evals):
-    """Self device ms per evaluation by kernel name, and their sum."""
+    """Self device ms per evaluation by kernel name, their sum, and the
+    device activities (kernels, copies, fills) launched per evaluation."""
     by_name = {}
+    count = 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in evt.key):
+            count += evt.count
+            if us:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
     total = sum(by_name.values()) / n_evals
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return total, [(k, v / n_evals) for k, v in top]
+    return total, [(k, v / n_evals) for k, v in top], count / n_evals
 
 
 def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
@@ -156,14 +163,17 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
             torch.profiler.ProfilerActivity.CUDA]
     n_prof = 3
     with torch.profiler.profile(activities=acts) as prof:
+        cs._spin()
         t0 = time.perf_counter()
         for l in ls[:n_prof]:
             cs.value_and_grad(f, float(l), 1.0)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_prof
-    busy, top = device_times(prof, n_prof)
+        cs._spin()
+    busy, top, n_dev = device_times(prof, n_prof)
     out["profile"] = {"wall_ms": wall, "device_kernel_ms": busy,
-                      "busy_share": busy / wall, "top": top[:15]}
+                      "busy_share": busy / wall, "device_launches": n_dev,
+                      "top": top[:15]}
 
     print(f"== {name}")
     print(f"launches per forward {out['launches_forward']}")
@@ -177,7 +187,7 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
     print(f"peak memory of one value-and-gradient: "
           f"{out['peak_gib_value_and_grad']:.2f} GiB")
     print(f"profiled: wall {wall:.3f} ms/eval, device kernels {busy:.3f} "
-          f"ms/eval, busy {busy / wall:.1%}")
+          f"ms/eval, busy {busy / wall:.1%}, {n_dev:g} device launches/eval")
     for k, v in top[:15]:
         print(f"  {v:9.3f} ms/eval  {k[:110]}")
     return out
