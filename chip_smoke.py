@@ -20,7 +20,7 @@ non-zero exit code and no result line:
    cases included, and kernel, twin and one PyTorch library call (a
    yardstick the port never calls) timed at the paths' shapes, per call
    (CUDA events) and on the device alone (``torch.profiler``), beside the
-   roofline bound of the same work;
+   roofline bound of the same work and the share of it each time reaches;
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
    the same tensors, member by member, timed as in phase 3; the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
@@ -321,11 +321,14 @@ def chol_case(rng, b, p):
     return m.astype(np.float32), jit.astype(np.float32)
 
 
-def leaf_case(rng, b, p, escalate: bool):
-    """Random SPD C, a 70% knot mask with one fully masked leaf and a
-    knot-masked Gram A_oo. With ``escalate`` one member is indefinite enough
-    to need the 1e2 factor at jitter 1e-3 (both halves); otherwise one has
-    an exactly zero pivot, which at jitter 0 fails every factor."""
+def leaf_case(rng, b, p, escalate: bool, hard: bool = False):
+    """Random SPD C, a 70% knot mask with one fully masked leaf (member 0)
+    and a knot-masked Gram A_oo. With ``escalate`` member 1 is indefinite
+    enough to need the 1e2 factor at jitter 1e-3 (both halves); otherwise
+    it has an exactly zero pivot, which at jitter 0 fails every factor.
+    With ``hard`` too (and b >= 4), member 2 needs the 1e4 factor (an
+    eigenvalue of -1) and member 3 fails all three (a [[0, 100], [100, 0]]
+    block: its second pivot stays below zero at every factor)."""
     c = _spd_batch(rng, b, p)
     k = (rng.random((b, p)) < 0.7).astype(np.float64)
     a2 = rng.standard_normal((b, p, p))
@@ -337,6 +340,12 @@ def leaf_case(rng, b, p, escalate: bool):
         c[1] = np.diag(np.r_[np.ones(p - 1), 0.0])
     k[1] = 1.0
     a_oo[1] = 0.0
+    if escalate and hard and b >= 4 and p >= 2:
+        c[2] = _rotate(rng, np.r_[np.linspace(1.0, 2.0, p - 1), -1.0])
+        c[3] = np.eye(p)
+        c[3][:2, :2] = [[0.0, 100.0], [100.0, 0.0]]
+        k[2:4] = 1.0
+        a_oo[2:4] = 0.0
     a_oo = a_oo * k[:, :, None] * k[:, None, :]
     f32 = np.float32
     return c.astype(f32), k.astype(f32), a_oo.astype(f32)
@@ -457,15 +466,21 @@ def timed(times, key, timer, dev_timer, run, plain, library, inputs):
         ms_lib = timer(library)
         lib_dev, n_lib = dev_timer(library)
     b_ms, b_by = bound_ms(*work(key[0], inputs, list(out)))
+    share = b_ms / ms
+    dev_share = None if dev is None else b_ms / dev
     times[key] = {"ms": ms, "plain_ms": ms_ref, "library_ms": ms_lib,
-                  "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev,
-                  "device_launches": n_dev, "library_device_ms": lib_dev,
+                  "bound_ms": b_ms, "bound_by": b_by, "bound_share": share,
+                  "device_ms": dev, "device_launches": n_dev,
+                  "device_bound_share": dev_share,
+                  "library_device_ms": lib_dev,
                   "library_device_launches": n_lib}
     lib = (f"{_ms(ms_lib)} (device {_ms(lib_dev)}, {n_lib:g} launches)"
            if library is not None else "none")
+    dev_pct = "n/m" if dev_share is None else f"{100 * dev_share:.1f}%"
     return (f"; kernel {ms:.4f} ms (device {_ms(dev)}, {n_dev:g} launches), "
             f"twin {ms_ref:.4f} ms, library {lib}, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}; {100 * share:.1f}% of the call, {dev_pct} of the "
+            "device time)")
 
 
 def _check_escalation(name, f):
@@ -523,7 +538,8 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
     for b, p in shapes:
         for escalate in (True, False):
             jitter = 1e-3 if escalate else 0.0
-            c, k, a = (dv(x) for x in leaf_case(rng, b, p, escalate))
+            c, k, a = (dv(x) for x in leaf_case(rng, b, p, escalate,
+                                                  hard=True))
             got = tl.leaf_factor(c, k, a, jitter)
             want = tl.leaf_factor_ref(c, k, a, jitter)
             e = compare(f"leaf_factor {b}x{p} jitter={jitter}", got, want,
@@ -531,9 +547,14 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
             err["leaf_factor"] = max(err["leaf_factor"], e)
             fp, fq = got[3].tolist(), got[4].tolist()
             if escalate:
-                check(fp[1] == 1e2 and fq[1] == 1e2,
+                # members 1-3: 1e2, 1e4, and 1e4 with every attempt failed
+                want_f = [1e2, 1e4, 1e4]
+                failed = not any(np.isfinite(got[i][3].item())
+                                 for i in (1, 2))
+                check(fp[1:4] == want_f and fq[1:4] == want_f and failed,
                       f"leaf_factor {b}x{p}: escalation factors "
-                      f"{fp[1]}, {fq[1]}, expected 100")
+                      f"{fp[1:4]}, {fq[1:4]}, expected [100, 10000, 10000] "
+                      "with member 3 failing")
                 # masked leaf: K_leaf = I, jitter scale 2
                 want0 = torch.eye(p, device=dev) / (1.0 + 2.0 * jitter) ** 0.5
                 check(float((got[0][0] - want0).abs().max()) <= 1e-6,
@@ -558,7 +579,15 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
     # chol_case come out NaN from their failing column on, in both
     shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(tri_main)
     for b, p in shapes:
-        mt = dv(chol_case(rng, b, p)[0])
+        m = chol_case(rng, b, p)[0]
+        if b >= 5 and p >= 4:
+            # an exactly zero pivot mid-way with a coupling below it: L gets
+            # 0/0 on the diagonal and x/0 = inf under it
+            z = p // 2
+            m[4] = np.eye(p)
+            m[4][z, z] = 0.0
+            m[4][z + 1, z] = m[4][z, z + 1] = 0.5
+        mt = dv(m)
         got = tl.cholesky(mt)
         e = compare(f"cholesky {b}x{p}", (got,), (tl.cholesky_ref(mt),))
         err["cholesky"] = max(err["cholesky"], e)

@@ -42,12 +42,12 @@ _SIGNATURES = {
     # a, jit, l, ld, f, batch, p, f0, f1, f2, device, stream
     "pymra_cholesky_jittered": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                                 _P],
-    # c, kmask, a_oo, jitter, li, ldp, ldq, fp, fq, batch, p, f0, f1, f2,
-    # device, stream
-    "pymra_leaf_factor": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _F,
-                          _F, _F, _I, _P],
-    # a, l, batch, p, device, stream
-    "pymra_cholesky": [_P, _P, _I, _I, _I, _P],
+    # c, kmask, a_oo, jitter, li, ldp, ldq, fp, fq, batch, p, tier, f0, f1,
+    # f2, device, stream
+    "pymra_leaf_factor": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _F, _F, _I, _P],
+    # a, l, batch, p, tier, device, stream
+    "pymra_cholesky": [_P, _P, _I, _I, _I, _I, _P],
     # l, x, batch, p, device, stream
     "pymra_tri_inv": [_P, _P, _I, _I, _I, _P],
     # l, b, x, batch, p, q, transpose, device, stream

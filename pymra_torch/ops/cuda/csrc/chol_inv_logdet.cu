@@ -23,14 +23,15 @@
 // about P/9 flops per byte; this version is bound by the serial column
 // loop, P dependent steps with two block barriers each.
 //
-// Design: K1's posterior half (leaf_factor.cu) on a plain input: one block
-// per member, the working matrix and X in shared memory with an odd row
-// stride (2 x 16.6 KB at P = 64). Step j scales column j of L and row j of
-// X by 1/L_jj, then warp w takes rows i = j+1+w, j+1+w+W, ... and its lanes
-// sweep the i + 1 contiguous entries X[i][0..j] and S[i][j+1..i]. The block
-// has W = ceil(P / 8) warps (at most 8). The escalation loop is
-// block-uniform (every thread sums the same pivots). Built without
-// fast-math: the escalation relies on IEEE sqrtf/logf giving NaN and -inf.
+// Design: the shared-memory column loop K1's posterior had before
+// chol_tile.cuh, on a plain input: one block per member, the working matrix
+// and X in shared memory with an odd row stride (2 x 16.6 KB at P = 64). Step
+// j scales column j of L and row j of X by 1/L_jj, then warp w takes rows i =
+// j+1+w, j+1+w+W, ... and its lanes sweep the i + 1 contiguous entries
+// X[i][0..j] and S[i][j+1..i]. The block has W = ceil(P / 8) warps (at most
+// 8). The escalation loop is block-uniform (every thread sums the same
+// pivots). Built without fast-math: the escalation relies on IEEE sqrtf/logf
+// giving NaN and -inf.
 
 #include <cuda_runtime.h>
 

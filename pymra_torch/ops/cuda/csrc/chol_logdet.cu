@@ -21,13 +21,13 @@
 // perfect kernel; this one is bound by the serial column loop, P dependent
 // steps each ending in a block barrier.
 //
-// Design: K1's prior half (leaf_factor.cu) on a plain input: one block per
-// member, the lower triangle in shared memory with an odd row stride; at
-// step j warp w updates rows j+1+w, j+1+w+W, ... of the trailing triangle
-// with its lanes sweeping the row, dividing once per row. The block has
-// W = ceil(P / 8) warps (at most 8), so narrow members do not hold idle
-// warps. The escalation loop is block-uniform: every thread sums the same
-// pivots. Built without fast-math: the escalation relies on IEEE logf
+// Design: the shared-memory column loop K1's prior had before chol_tile.cuh,
+// on a plain input: one block per member, the lower triangle in shared memory
+// with an odd row stride; at step j warp w updates rows j+1+w, j+1+w+W, ... of
+// the trailing triangle with its lanes sweeping the row, dividing once per
+// row. The block has W = ceil(P / 8) warps (at most 8), so narrow members do
+// not hold idle warps. The escalation loop is block-uniform: every thread sums
+// the same pivots. Built without fast-math: the escalation relies on IEEE logf
 // giving NaN and -inf.
 
 #include <cuda_runtime.h>

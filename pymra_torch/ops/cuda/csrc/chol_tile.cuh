@@ -1,0 +1,263 @@
+// Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
+// shared by K1 leaf_factor.cu and K4 cholesky.cu.
+//
+// Replaces the column loops of the TPU kernels _chol_kernel (K4) and
+// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1) in
+// pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one member,
+// in three modes: the half log-pivot sum alone (K1's prior), the factor
+// (K4), and the factor's inverse formed alongside it (K1's posterior).
+//
+// What bounds it on this card: not HBM (a 64 x 64 member reads ~8 KB and
+// does ~87 KFLOP), but the serial column loop. The first kernels (one
+// 256-thread block a member, the matrix in shared memory, warp w sweeping
+// rows j+1+w, j+1+w+8, ... a step) took 6.2 ms for K1 and 1.5 ms for K4 at
+// 16384 x 64 against bounds of 0.16 and 0.12 ms: every multiply-subtract
+// loaded two shared operands and stored one, short rows left most lanes
+// idle, and each of K1's 192 steps ended at a block barrier that waited
+// for the warp with the longest rows (PERF.md).
+//
+// The tiling: a member is owned by kThreads = 64 threads in an 8 x 8 grid,
+// thread (r, c) holding entry (r + 8a, c + 8b) of the working matrix S
+// (and of the inverse X) in registers, for a, b < NB = tier / 8 and only
+// b <= a: the tile map is the lower triangle. The distribution is cyclic,
+// so the shrinking trailing triangle stays spread over all 64 threads to
+// the last steps. Column j of S (and row j of X) is broadcast once per step
+// through a small shared buffer that its owners write after their own
+// update: each thread reads its NB row and NB column values of that step
+// and does up to NB (NB + 1) / 2 multiply-subtracts of S on registers (and
+// in K1's posterior as many of X for NB more loads): one shared load now
+// serves up to (NB + 1) / 4 of them, where it served one third. The
+// buffer is double-buffered by the parity of j, so a step is one barrier,
+// at its start. The reciprocal of the pivot (or of its root) is taken once
+// per step by every thread: no division per row. In the buffers entry g +
+// 8m of a column sits at g * NB + m, so a thread's rows and its columns are
+// each NB contiguous floats, read by every thread of its grid row or column
+// at once (broadcasts).
+//
+// The step loop is unrolled over the column block b = j / 8 (NB copies) and
+// runs the column jc = j % 8 within it: every register index is static,
+// and the active part of the tile map for block b (rows a >= b, columns
+// b..a of S; rows a >= b, columns <= b of X) is static too; only the
+// entries of block b's own row and column take a predicate on jc.
+//
+// Widths: NB is a compile-time tier (2, 4, 6 or 8: P <= 16, 32, 48, 64),
+// chosen by the host wrapper from P. Rows and columns P..8 NB - 1 are
+// padding: they are set to the identity (no jitter) and no step j >= P
+// runs, so no pivot of theirs ever reaches a log-determinant, and a real
+// entry never reads a padded row or column (an update of entry (i, k)
+// reads rows i and k of column j only). Their values are never stored.
+//
+// Exactness: every thread reads the same pivots from the buffer and sums
+// their logs in the same order, so the log-pivot sum — the escalation test
+// of K1 — is uniform over the block without a reduction, and a member's
+// result depends on its own inputs only. The arithmetic is the twins'
+// (no fast-math, IEEE sqrtf / logf / division for the reciprocals): an
+// exactly zero pivot gives -inf, a negative one NaN, and a zero or NaN
+// pivot spreads NaN (0 * inf) through its column and the trailing block as
+// the twins' division does.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_timing.py,
+// 16384 x 64, device time): K4 0.260 ms, 47% of its bound; K1 0.954 ms,
+// 17% (PERF.md). Both scale as ~P^1.2-1.5 and stay latency-bound on
+// the step chain (tools/kernel_scaling.py); K1 runs at at most 85
+// registers a thread for the occupancy (tools/tile_variants.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace chol_tile {
+
+constexpr int kGrid = 8;                  // thread grid kGrid x kGrid
+constexpr int kThreads = kGrid * kGrid;   // threads per member
+
+enum class Mode {
+  kLogdet,   // sum_j log d_j of the downdated pivots (the caller halves it)
+  kFactor,   // S becomes L (column j: S'[j:, j] / sqrt(S'[j, j]))
+  kInverse,  // X becomes L^-1 (set up by the core); returns sum_j log L_jj
+};
+
+// a thread's place in the member's grid
+struct Place {
+  int r, c;
+};
+
+__device__ __forceinline__ Place place() {
+  return {(int)threadIdx.x / kGrid, (int)threadIdx.x % kGrid};
+}
+
+// true where (r + 8a, c + 8b) lies on or below the diagonal (b <= a)
+__device__ __forceinline__ bool lower(int a, int b, Place t) {
+  return b < a || (b == a && t.c <= t.r);
+}
+
+// Fill the tile map: entry(i, k) for real lower entries (i, k < p), the
+// identity for padding; upper entries of the diagonal tiles are zeros.
+template <int NB, class Entry>
+__device__ __forceinline__ void assemble(float (&s)[NB][NB], int p,
+                                         Place t, Entry entry) {
+#pragma unroll
+  for (int a = 0; a < NB; ++a) {
+#pragma unroll
+    for (int b = 0; b <= a; ++b) {
+      const int i = t.r + kGrid * a, k = t.c + kGrid * b;
+      float v = 0.f;
+      if (lower(a, b, t)) v = (i < p && k < p) ? entry(i, k) : (i == k);
+      s[a][b] = v;
+    }
+  }
+}
+
+// Store the whole [p, p] matrix: the tile map's lower entries, zeros above
+// the diagonal.
+template <int NB>
+__device__ __forceinline__ void store(const float (&s)[NB][NB],
+                                      float* __restrict__ out, int p,
+                                      Place t) {
+#pragma unroll
+  for (int a = 0; a < NB; ++a) {
+    const int i = t.r + kGrid * a;
+    if (i >= p) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int k = t.c + kGrid * b;
+      if (k >= p) continue;
+      float v = 0.f;
+      if (lower(a, b, t)) v = s[a][b];
+      out[i * p + k] = v;
+    }
+  }
+}
+
+// The owners of column 8 bn + jn of S (and of row 8 bn + jn of X) put it
+// into the step's buffers: rows a >= bn of S, columns b <= bn of X.
+template <int NB, Mode M>
+__device__ __forceinline__ void put(const float (&s)[NB][NB],
+                                    const float (&x)[NB][NB], float* col,
+                                    float* xrow, int bn, int jn, Place t) {
+  if (t.c == jn) {
+#pragma unroll
+    for (int a = 0; a < NB; ++a)
+      if (a >= bn) col[t.r * NB + a] = s[a][bn];
+  }
+  if (M == Mode::kInverse && t.r == jn) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b <= bn) xrow[t.c * NB + b] = x[bn][b];
+  }
+}
+
+// Factor the member held in `s` of width p <= 8 NB (kInverse: into `x`,
+// which it starts from the identity itself); `col` and `xrow` are 2 * 8 *
+// NB floats of shared memory each (xrow unused but for kInverse). Every
+// thread returns the same log-pivot sum. Block-wide barriers: the
+// caller's threads are exactly the member's kThreads.
+template <int NB, Mode M>
+__device__ __forceinline__ float factor(float (&s)[NB][NB],
+                                        float (&x)[NB][NB], float* col,
+                                        float* xrow, int p, Place t) {
+  constexpr int kBuf = kGrid * NB;
+  __syncthreads();  // the buffers' last readers (an earlier call) are done
+  float acc = 0.f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (M == Mode::kInverse) {
+      // X's column block q is the identity until block q's steps: set it
+      // one block ahead (row 8q of X is put at the end of block q - 1), so
+      // that it takes no register earlier
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        if (q != b + 1 && !(b == 0 && q == 0)) continue;
+#pragma unroll
+        for (int a = 0; a < NB; ++a)
+          if (a >= q) x[a][q] = (a == q && t.r == t.c) ? 1.f : 0.f;
+      }
+    }
+    if (b == 0) put<NB, M>(s, x, col, xrow, 0, 0, t);
+    for (int jc = 0; jc < kGrid; ++jc) {
+      const int j = kGrid * b + jc;
+      if (j >= p) break;  // uniform
+      __syncthreads();
+      const float* cb = col + (j & 1) * kBuf;
+      const float d = cb[jc * NB + b];
+      float rs;  // kLogdet: 1 / d; else 1 / sqrt(d)
+      if (M == Mode::kLogdet) {
+        acc += logf(d);
+        rs = 1.f / d;
+      } else {
+        const float piv = sqrtf(d);
+        acc += logf(piv);
+        rs = 1.f / piv;
+      }
+      // rows: S[i][j] / d (kLogdet) or L[i][j]; columns: S[k][j] or L[k][j]
+      float rv[NB], cv[NB];
+#pragma unroll
+      for (int a = 0; a < NB; ++a) {
+        if (a < b) continue;
+        rv[a] = cb[t.r * NB + a] * rs;
+        const float v = cb[t.c * NB + a];
+        cv[a] = M == Mode::kLogdet ? v : v * rs;
+      }
+      if (M == Mode::kFactor && t.c == jc) {
+        // column j of L, the diagonal included
+#pragma unroll
+        for (int a = 0; a < NB; ++a)
+          if (a > b || (a == b && t.r >= jc)) s[a][b] = rv[a];
+      }
+      if (M == Mode::kInverse) {
+        // row j of X scaled by 1 / L_jj, then X[i][q] -= L[i][j] X[j][q]
+        // for i > j, q <= j
+        const float* xb = xrow + (j & 1) * kBuf;
+        float xv[NB];
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+          if (q <= b) xv[q] = xb[t.c * NB + q] * rs;
+        const bool qdone = t.c <= jc;
+        if (t.r == jc) {
+#pragma unroll
+          for (int q = 0; q < NB; ++q)
+            if (q < b || (q == b && qdone)) x[b][q] = xv[q];
+        }
+        const bool rpast = t.r > jc;
+#pragma unroll
+        for (int a = 0; a < NB; ++a) {
+          if (a < b) continue;
+#pragma unroll
+          for (int q = 0; q < NB; ++q) {
+            if (q > b) continue;
+            if ((a > b || rpast) && (q < b || qdone)) x[a][q] -= rv[a] * xv[q];
+          }
+        }
+      }
+      // trailing triangle j < k <= i
+      const bool cpast = t.c > jc, low = t.c <= t.r;
+#pragma unroll
+      for (int a = 0; a < NB; ++a) {
+        if (a < b) continue;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          if (k < b || k > a) continue;
+          if ((k > b || cpast) && (k < a || low)) s[a][k] -= rv[a] * cv[k];
+        }
+      }
+      // the next step's column (and row of X) into the other buffers
+      if (j + 1 < p) {
+        float* cn = col + ((j + 1) & 1) * kBuf;
+        float* xn = M == Mode::kInverse ? xrow + ((j + 1) & 1) * kBuf
+                                        : xrow;
+        if (jc + 1 < kGrid)
+          put<NB, M>(s, x, cn, xn, b, jc + 1, t);
+        else if (b + 1 < NB)
+          put<NB, M>(s, x, cn, xn, b + 1 < NB ? b + 1 : b, 0, t);
+      }
+    }
+  }
+  return acc;
+}
+
+// the tier's NB from the host's width tier (16, 32, 48 or 64), 0 if none
+inline int tier_nb(int tier) {
+  return (tier == 16 || tier == 32 || tier == 48 || tier == 64) ? tier / 8
+                                                                : 0;
+}
+
+}  // namespace chol_tile

@@ -8,78 +8,76 @@
 // negative or zero pivot turns its column and the trailing block NaN, the
 // same pattern as the plain twin `cholesky_ref` and the JAX kernel. The
 // MRA sweep calls it in the backward pass of the leaf stage, to refactor
-// the prior block K_leaf + fp * jitter * s * I at its selected factor.
+// the prior block K_leaf + fp * jitter * s * I at its selected factor, and
+// K8 on its 64-wide diagonal blocks.
 //
 // What bounds it on the card: at the N=10^6 leaf shape (16,384 blocks of
 // 64 x 64) it reads the lower triangle, 136 MB, and writes the whole
 // factor, 268 MB (0.12 ms at 3.35 TB/s), for ~1.4 GFLOP (P^3/3 per block,
-// 0.02 ms at 67 TFLOP/s), so HBM is the roofline bound. The first version is bound by the serial column loop
-// instead: P dependent steps per block, each a shared-memory update of the
-// trailing triangle and a block barrier.
+// 0.02 ms at 67 TFLOP/s), so HBM is the roofline bound. The first kernel
+// was bound by its serial column loop instead: 64 steps a member, each a
+// shared-memory downdate (three shared accesses per multiply-subtract)
+// and a block barrier (1.5 ms, 8% of the bound, on an H100 80GB HBM3 at
+// 700 W; PERF.md).
 //
-// Design: the row layout of leaf_factor.cu (K1): one 256-thread block per
-// matrix, the matrix in shared memory with an odd row stride (P | 1), warp
-// w updating rows j+1+w, j+1+w+8, ... of the trailing triangle with its
-// lanes sweeping the row (contiguous, no bank conflicts; column-j reads
-// are broadcasts). The scaled diagonal is kept in its own array, so the
-// pivot entry every thread reads is never written during the step. Built
-// without fast-math: NaN must come out of sqrtf of a negative pivot.
+// Design: the register-tiled core of chol_tile.cuh in its factor mode, one
+// 64-thread block per member: the lower triangle lives in registers, column
+// j goes through a shared double buffer once a step (one barrier), the
+// column's owners keep L[:, j] in place and the factor is stored straight
+// from registers. The host picks the width tier (16, 32, 48 or 64) from P;
+// padding is the identity and never factored. The NaN of a failing pivot
+// spreads as the twin's division spreads it (x * (1 / 0) is x / 0). Built
+// without fast-math. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/kernel_timing.py): 0.268 ms a call at 16384 x 64, 0.260 ms on the
+// device, 47% of the bound (the first kernel 1.51 ms; `cholesky_ex` 2.05).
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kWarp;
+using chol_tile::kGrid;
+using chol_tile::kThreads;
+using chol_tile::Mode;
 
-__global__ void cholesky_kernel(const float* __restrict__ a,
-                                float* __restrict__ l, int p) {
-  extern __shared__ float smem[];
-  const int st = p | 1;
-  float* s = smem;          // working matrix, lower triangle
-  float* dg = s + p * st;   // L_jj = A'_jj / sqrt(A'_jj)
-  const int t = threadIdx.x;
-  const int warp = t / kWarp, lane = t % kWarp;
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+    cholesky_kernel(const float* __restrict__ a, float* __restrict__ l,
+                    int p) {
+  constexpr int kBuf = kGrid * NB;
+  __shared__ __align__(16) float col[2 * kBuf];
+  const chol_tile::Place t = chol_tile::place();
   const size_t off = (size_t)blockIdx.x * p * p;
-
-  for (int e = t; e < p * p; e += kThreads) {
-    const int i = e / p, col = e - i * p;
-    if (col <= i) s[i * st + col] = a[off + e];
-  }
-  __syncthreads();
-  for (int j = 0; j < p; ++j) {
-    const float d = s[j * st + j];
-    const float piv = sqrtf(d);
-    // column j below the diagonal and the diagonal itself, scaled
-    for (int i = j + t; i < p; i += kThreads) {
-      if (i == j) dg[j] = d / piv;
-      else s[i * st + j] /= piv;
-    }
-    __syncthreads();
-    // trailing triangle j < col <= i
-    for (int i = j + 1 + warp; i < p; i += kWarps) {
-      const float ci = s[i * st + j];
-      for (int col = j + 1 + lane; col <= i; col += kWarp)
-        s[i * st + col] -= ci * s[col * st + j];
-    }
-    __syncthreads();
-  }
-  for (int e = t; e < p * p; e += kThreads) {
-    const int i = e / p, col = e - i * p;
-    l[off + e] = col < i ? s[i * st + col] : (col == i ? dg[i] : 0.f);
-  }
+  const float* src = a + off;
+  float s[NB][NB], unused[NB][NB];
+  chol_tile::assemble<NB>(s, p, t, [&](int i, int k) {
+    return src[i * p + k];
+  });
+  chol_tile::factor<NB, Mode::kFactor>(s, unused, col, nullptr, p, t);
+  chol_tile::store<NB>(s, l + off, p, t);
 }
 
 }  // namespace
 
-// Launches on `stream`; allocates nothing. Returns cudaGetLastError().
+// Launches on `stream`; allocates nothing. `tier` is the width tier the
+// host chose for p (16, 32, 48 or 64, at least p). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a tier it does not have.
 extern "C" int pymra_cholesky(const void* a, void* l, int batch, int p,
-                              int device, void* stream) {
+                              int tier, int device, void* stream) {
+  const int nb = chol_tile::tier_nb(tier);
+  if (nb == 0 || p < 1 || p > tier) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t shmem = ((size_t)p * (p | 1) + p) * sizeof(float);
-  cholesky_kernel<<<batch, kThreads, shmem, (cudaStream_t)stream>>>(
-      (const float*)a, (float*)l, p);
+  auto launch = [&](auto kernel) {
+    kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (float*)l, p);
+  };
+  switch (nb) {
+    case 2: launch(cholesky_kernel<2>); break;
+    case 4: launch(cholesky_kernel<4>); break;
+    case 6: launch(cholesky_kernel<6>); break;
+    default: launch(cholesky_kernel<8>); break;
+  }
   return (int)cudaGetLastError();
 }

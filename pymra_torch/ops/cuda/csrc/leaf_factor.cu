@@ -16,159 +16,139 @@
 // log-pivot sum is non-finite (NaN for a negative pivot, -inf for an exact
 // zero). A member that fails all three keeps its NaN outputs.
 //
-// What bounds it on the card: the N=10^6 leaf level is 16,384 blocks of
-// 64 x 64; each block is ~P^3/3 flops for the prior and ~2 P^3/3 for the
-// posterior with its inverse, against 3 P^2 floats read and P^2 written —
-// about 25 flops per byte, so the column loop (P dependent steps, each a
-// shared-memory update and a block barrier) bounds it, not HBM.
+// What bounds it on the card: at the N=10^6 leaf level (16,384 blocks of
+// 64 x 64) it must read C's and A_oo's lower triangles and the mask and
+// write X, 0.16 ms at 3.35 TB/s, for P^3 flops a member (0.07 ms at 67
+// TFLOP/s). What bounded the first kernel was its serial column loop: 192
+// dependent steps a member, each a shared-memory update with three shared
+// accesses per multiply-subtract and a barrier for the longest row (6.2
+// ms, 2.6% of the bound, on an H100 80GB HBM3 at 700 W; PERF.md).
 //
-// Design: one 256-thread block (8 warps) per leaf; the working matrix and
-// X live in shared memory with an odd row stride (2 x 16.6 KB at P = 64,
-// so six leaves share an SM). Each column step spreads its update over
-// rows and lanes: warp w takes rows j+1+w, j+1+w+8, ... and its lanes
-// sweep the row's entries — at step j of the posterior, X[i][0..j] and
-// S[i][j+1..i], i + 1 contiguous entries; in the prior, S[i][j+1..i]. A
-// thread per row (the first version) left short rows idle while the
-// longest ran P dependent steps; this mapping keeps every warp on a row
-// and needs no index arithmetic. Row entries are contiguous (no bank
-// conflicts), column-j reads are broadcasts or stride-odd. The jitter
-// scale is a diagonal sum that every thread computes itself (no barrier;
-// the TPU version computed it outside the kernel only because Mosaic could
-// not relayout the reduction). The working matrix is assembled straight
-// from C_own, k and A_oo on every attempt: K_leaf and K_leaf + A_oo never
-// exist in global memory. The escalation loops are block-uniform because
-// every thread sums the same pivots. Built without fast-math: the
-// escalation relies on IEEE sqrtf/logf giving NaN and -inf.
+// Design: the register-tiled core of chol_tile.cuh, one 64-thread block
+// per leaf. The prior runs the core's pivot-only mode on K_leaf, the
+// posterior its inverse mode (S and X both in registers, column j of S and
+// row j of X broadcast through the core's double buffers, one barrier a
+// step). The knot mask and the jitter scale come in through shared memory
+// once; the working matrix is assembled in registers straight from C, k and
+// A_oo on every attempt, so K_leaf and K_leaf + A_oo never exist in device
+// memory and a retry needs nothing kept. The host picks the width tier
+// (16, 32, 48 or 64) from P; padding is the identity without jitter and no
+// padded pivot is ever taken, so it adds exactly nothing to a
+// log-determinant. Escalation is per block, so per member: every thread
+// sums the same pivots, the loop is block-uniform, and a member's bits do
+// not depend on its neighbours. Built without fast-math: the escalation
+// relies on IEEE sqrtf/logf giving NaN and -inf. Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (tools/kernel_timing.py): 0.972 ms a call at
+// 16384 x 64, 0.954 ms on the device, 17% of the bound (the first kernel
+// 6.19 ms); at 256 x 49 0.126 ms a call, a launch's worth of host time.
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kWarp;
+using chol_tile::kGrid;
+using chol_tile::kThreads;
+using chol_tile::Mode;
 
-__global__ void leaf_factor_kernel(const float* __restrict__ c,
-                                   const float* __restrict__ kmask,
-                                   const float* __restrict__ a_oo,
-                                   float jitter,
-                                   float* __restrict__ li,
-                                   float* __restrict__ ldp,
-                                   float* __restrict__ ldq,
-                                   float* __restrict__ fp,
-                                   float* __restrict__ fq,
-                                   int p, float f0, float f1, float f2) {
-  extern __shared__ float smem[];
-  const int st = p | 1;      // odd stride: a column access hits P banks
-  float* s = smem;           // working matrix, lower triangle
-  float* x = s + p * st;     // inverse factor
-  float* k = x + p * st;     // knot mask
-  const int t = threadIdx.x;
-  const int warp = t / kWarp, lane = t % kWarp;
+// At least 12 blocks an SM (at most 85 registers a thread): the 64-wide
+// tier would take 164 and fit 6 blocks; at 12, with 120 bytes spilled, it
+// ran 0.958 against 1.353 ms at 16384 x 64 (tools/tile_variants.py, H100
+// 80GB HBM3, 700 W): the step loop is latency-bound and wants the warps.
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 12)
+    leaf_factor_kernel(const float* __restrict__ c,
+                       const float* __restrict__ kmask,
+                       const float* __restrict__ a_oo, float jitter,
+                       float* __restrict__ li, float* __restrict__ ldp,
+                       float* __restrict__ ldq, float* __restrict__ fp,
+                       float* __restrict__ fq, int p, float f0, float f1,
+                       float f2) {
+  constexpr int kBuf = kGrid * NB;
+  __shared__ __align__(16) float col[2 * kBuf];
+  __shared__ __align__(16) float xrow[2 * kBuf];
+  __shared__ float km[kBuf];
+  __shared__ float dg[kBuf];
+  const int tid = threadIdx.x;
+  const chol_tile::Place t = chol_tile::place();
   const size_t off = (size_t)blockIdx.x * p * p;
   const float* cb = c + off;
   const float* ab = a_oo + off;
-  const float factors[3] = {f0, f1, f2};
 
-  for (int i = t; i < p; i += kThreads) k[i] = kmask[(size_t)blockIdx.x * p + i];
+  if (tid < p) km[tid] = kmask[(size_t)blockIdx.x * p + tid];
+  __syncthreads();
+  if (tid < p) dg[tid] = fabsf(cb[tid * p + tid] * km[tid] + (1.f - km[tid]));
   __syncthreads();
   float sum = 0.f;
-  for (int j = 0; j < p; ++j) sum += fabsf(cb[j * p + j] * k[j] + (1.f - k[j]));
+  for (int j = 0; j < p; ++j) sum += dg[j];
   const float jit_eff = jitter * (sum / (float)p + 1.f);
 
+  float s[NB][NB], x[NB][NB];
+
   // ---- prior: pivot-only log-determinant of K_leaf + f_p jit I ----
-  float acc = 0.f;
-  float fac = f0;
-  for (int a = 0; a < 3; ++a) {
-    fac = factors[a];
+  float acc = 0.f, fac = f0;
+  for (int att = 0; att < 3; ++att) {
+    fac = att == 0 ? f0 : (att == 1 ? f1 : f2);
     const float add = jit_eff * fac;
-    for (int e = t; e < p * p; e += kThreads) {
-      const int i = e / p, col = e - i * p;
-      if (col > i) continue;
-      float v = cb[e] * (k[i] * k[col]);
-      if (col == i) v = (v + (1.f - k[i])) + add;
-      s[i * st + col] = v;
-    }
-    __syncthreads();
-    acc = 0.f;
-    for (int j = 0; j < p; ++j) {
-      const float d = s[j * st + j];
-      acc += logf(d);
-      // trailing triangle j < col <= i
-      for (int i = j + 1 + warp; i < p; i += kWarps) {
-        const float aij = s[i * st + j] / d;  // one division per row
-        for (int col = j + 1 + lane; col <= i; col += kWarp)
-          s[i * st + col] -= aij * s[col * st + j];
-      }
-      __syncthreads();
-    }
-    acc *= 0.5f;
+    chol_tile::assemble<NB>(s, p, t, [&](int i, int k) {
+      float v = cb[i * p + k] * (km[i] * km[k]);
+      if (i == k) v = (v + (1.f - km[i])) + add;
+      return v;
+    });
+    acc = 0.5f * chol_tile::factor<NB, Mode::kLogdet>(s, x, col, xrow, p, t);
     if (isfinite(acc)) break;
   }
-  if (t == 0) {
+  if (tid == 0) {
     ldp[blockIdx.x] = acc;
     fp[blockIdx.x] = fac;
   }
 
-  // ---- posterior: factor and inverse of K_leaf + A_oo + f_q jit I ----
-  for (int a = 0; a < 3; ++a) {
-    fac = factors[a];
+  // ---- posterior: inverse factor of K_leaf + A_oo + f_q jit I ----
+  for (int att = 0; att < 3; ++att) {
+    fac = att == 0 ? f0 : (att == 1 ? f1 : f2);
     const float add = jit_eff * fac;
-    for (int e = t; e < p * p; e += kThreads) {
-      const int i = e / p, col = e - i * p;
-      x[i * st + col] = (col == i) ? 1.f : 0.f;
-      if (col > i) continue;
-      float v = (cb[e] + ab[e]) * (k[i] * k[col]);
-      if (col == i) v = (v + (1.f - k[i])) + add;
-      s[i * st + col] = v;
-    }
-    __syncthreads();
-    acc = 0.f;
-    for (int j = 0; j < p; ++j) {
-      const float piv = sqrtf(s[j * st + j]);
-      acc += logf(piv);
-      // column j of L below the diagonal, row j of X scaled by 1/L_jj
-      for (int e = t; e < p; e += kThreads) {
-        if (e <= j) x[j * st + e] /= piv;
-        else s[e * st + j] /= piv;
-      }
-      __syncthreads();
-      // rows i > j: X[i][q] for q <= j and S[i][q] for j < q <= i
-      for (int i = j + 1 + warp; i < p; i += kWarps) {
-        const float ci = s[i * st + j];
-        for (int q = lane; q <= i; q += kWarp) {
-          if (q <= j) x[i * st + q] -= ci * x[j * st + q];
-          else s[i * st + q] -= ci * s[q * st + j];
-        }
-      }
-      __syncthreads();
-    }
+    chol_tile::assemble<NB>(s, p, t, [&](int i, int k) {
+      float v = (cb[i * p + k] + ab[i * p + k]) * (km[i] * km[k]);
+      if (i == k) v = (v + (1.f - km[i])) + add;
+      return v;
+    });
+    acc = chol_tile::factor<NB, Mode::kInverse>(s, x, col, xrow, p, t);
     if (isfinite(acc)) break;
   }
-  if (t == 0) {
+  if (tid == 0) {
     ldq[blockIdx.x] = acc;
     fq[blockIdx.x] = fac;
   }
-  for (int e = t; e < p * p; e += kThreads) {
-    const int i = e / p;
-    li[off + e] = x[i * st + e - i * p];
-  }
+  chol_tile::store<NB>(x, li + off, p, t);
 }
 
 }  // namespace
 
-// Launches on `stream`; allocates nothing. Returns cudaGetLastError().
+// Launches on `stream`; allocates nothing. `tier` is the width tier the
+// host chose for p (16, 32, 48 or 64, at least p). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a tier it does not have.
 extern "C" int pymra_leaf_factor(const void* c, const void* kmask,
                                  const void* a_oo, float jitter, void* li,
                                  void* ldp, void* ldq, void* fp, void* fq,
-                                 int batch, int p, float f0, float f1,
-                                 float f2, int device, void* stream) {
+                                 int batch, int p, int tier, float f0,
+                                 float f1, float f2, int device,
+                                 void* stream) {
+  const int nb = chol_tile::tier_nb(tier);
+  if (nb == 0 || p < 1 || p > tier) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t shmem = ((size_t)2 * p * (p | 1) + p) * sizeof(float);
-  leaf_factor_kernel<<<batch, kThreads, shmem, (cudaStream_t)stream>>>(
-      (const float*)c, (const float*)kmask, (const float*)a_oo, jitter,
-      (float*)li, (float*)ldp, (float*)ldq, (float*)fp, (float*)fq, p, f0,
-      f1, f2);
+  auto launch = [&](auto kernel) {
+    kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)c, (const float*)kmask, (const float*)a_oo, jitter,
+        (float*)li, (float*)ldp, (float*)ldq, (float*)fp, (float*)fq, p, f0,
+        f1, f2);
+  };
+  switch (nb) {
+    case 2: launch(leaf_factor_kernel<2>); break;
+    case 4: launch(leaf_factor_kernel<4>); break;
+    case 6: launch(leaf_factor_kernel<6>); break;
+    default: launch(leaf_factor_kernel<8>); break;
+  }
   return (int)cudaGetLastError();
 }

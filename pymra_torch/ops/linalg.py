@@ -6,7 +6,9 @@ is differentiable (a ``torch.autograd.Function`` with the JAX package's
 custom VJP, or a composition of such):
 
 * :func:`cholesky` — plain lower Cholesky factor, NaN on an indefinite
-  pivot (replaces K4, ``_chol_kernel``); ``ops/cuda/csrc/cholesky.cu``.
+  pivot (replaces K4, ``_chol_kernel``); ``ops/cuda/csrc/cholesky.cu``,
+  on the register-tiled core ``chol_tile.cuh`` it shares with K1 (width
+  tier from :func:`tile_tier`).
 * :func:`triangular_inverse_lower` — explicit inverse of a lower triangle
   (replaces K3, ``_tri_inv_kernel``); ``ops/cuda/csrc/tri_inv.cu``. Wider
   than 64 it is blocked: K3 on the 64-wide diagonal blocks, ``torch.matmul``
@@ -23,7 +25,7 @@ custom VJP, or a composition of such):
 * :func:`leaf_factor` — the fused leaf stage: prior log-determinant and
   posterior inverse factor + log-determinant (replaces K1,
   ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``);
-  ``ops/cuda/csrc/leaf_factor.cu``.
+  ``ops/cuda/csrc/leaf_factor.cu``, on ``chol_tile.cuh``.
 * :func:`cholesky_logdet` — jittered log-determinant with escalation, no
   factor formed (replaces K6, ``_chol_logdet_kernel``);
   ``ops/cuda/csrc/chol_logdet.cu``.
@@ -69,8 +71,8 @@ from torch.autograd.function import once_differentiable
 
 from pymra_torch.ops.cuda import build
 
-__all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "cholesky",
-           "cholesky_ref", "triangular_inverse_lower",
+__all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
+           "cholesky", "cholesky_ref", "triangular_inverse_lower",
            "triangular_inverse_lower_ref", "solve_triangular_batched",
            "solve_triangular_batched_ref", "cholesky_pullback",
            "cholesky_pullback_ref",
@@ -486,6 +488,16 @@ def _where(t: torch.Tensor) -> tuple[int, int]:
             torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def tile_tier(p: int) -> int:
+    """Width tier of the register-tiled K1 and K4 kernels for a ``P x P``
+    member (``ops/cuda/csrc/chol_tile.cuh``): the least of 16, 32, 48 and
+    64 that holds ``p``. The kernel pads the member to it with the
+    identity."""
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"tile_tier: P={p} outside 1..{MAX_P}")
+    return 16 * -(-p // 16)
+
+
 def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     if mat.device.type == "cpu":
         return cholesky_ref(mat)
@@ -496,7 +508,8 @@ def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     n = out.numel() // (p * p)
     if n:
         _launched("cholesky", lib.pymra_cholesky(
-            mat.data_ptr(), out.data_ptr(), n, p, *_where(mat)))
+            mat.data_ptr(), out.data_ptr(), n, p, tile_tier(p),
+            *_where(mat)))
         cholesky.launches += 1
     return out
 
@@ -641,7 +654,7 @@ def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
         _launched("leaf_factor", lib.pymra_leaf_factor(
             c_own.data_ptr(), kmask.data_ptr(), a_oo.data_ptr(),
             float(jitter), li.data_ptr(), ldp.data_ptr(), ldq.data_ptr(),
-            fp.data_ptr(), fq.data_ptr(), n, p, f0, f1, f2,
+            fp.data_ptr(), fq.data_ptr(), n, p, tile_tier(p), f0, f1, f2,
             *_where(c_own)))
         leaf_factor.launches += 1
     return li, ldp, ldq, fp, fq

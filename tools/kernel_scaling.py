@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""How K1 ``leaf_factor`` and K4 ``cholesky`` scale with the width and the
+batch on the card: a profile by experiment, for cards where no hardware
+profiler runs.
+
+Times each kernel (CUDA events over 10 calls after a warm-up, as
+``chip_smoke.time_ms``) on ``chip_smoke``'s test matrices at B = 16384 and
+P in 16, 32, 48, 64, and at P = 64 for B from 1024 to 32768. A kernel
+bound by its arithmetic grows as P^3 and linearly in B; one bound by the
+latency of its serial column steps grows as the number of steps and stays
+flat in B until the card is full. Prints one line per shape, the fitted
+exponents, the per-member time and the rate of useful float32 operations
+(``chip_smoke.work``), and with ``--out`` writes them as JSON. Run from the
+root of the tree to time (its ``chip_smoke.py`` and package are the ones
+imported) on a machine with an NVIDIA GPU::
+
+    python3 tools/kernel_scaling.py [--out FILE] [--quick]
+
+``--quick`` times P = 64, B = 16384 only (for a profiler's one launch).
+"""
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import numpy as np  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+WIDTHS = (16, 32, 48, 64)
+BATCHES = (1024, 2048, 4096, 8192, 16384, 32768)
+MAIN_B = 16384
+
+
+def _cases(rng, b, p):
+    """K1's and K4's inputs on the card at (b, p)."""
+    import torch
+
+    leaf = [torch.as_tensor(x, device="cuda")
+            for x in cs.leaf_case(rng, b, p, escalate=True)]
+    chol = torch.as_tensor(cs.chol_case(rng, b, p)[0], device="cuda")
+    return leaf, chol
+
+
+def _time(b, p, leaf, chol):
+    from pymra_torch.ops import linalg as tl
+
+    c, k, a = leaf
+    out = tl.leaf_factor(c, k, a, 1e-3)
+    row = {}
+    for name, run, inputs, outs in (
+            ("leaf_factor", lambda: tl.leaf_factor(c, k, a, 1e-3), leaf,
+             list(out)),
+            ("cholesky", lambda: tl.cholesky(chol), [chol],
+             [tl.cholesky(chol)])):
+        ms = cs.time_ms(run)
+        _, flops = cs.work(name, inputs, outs)
+        row[name] = {"ms": ms, "us_per_member": ms * 1e3 / b,
+                     "gflop_per_s": flops / ms / 1e6}
+        print(f"{name} B={b} P={p}: {ms:.4f} ms, "
+              f"{ms * 1e6 / b:.1f} ns a member, "
+              f"{flops / ms / 1e6:.0f} GFLOP/s useful", flush=True)
+    return row
+
+
+def _slope(xs, ys):
+    return float(np.polyfit(np.log(xs), np.log(ys), 1)[0])
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out")
+    parser.add_argument("--quick", action="store_true")
+    args = parser.parse_args()
+    card = cs.phase_device()
+    cs.phase_build()
+    rng = np.random.default_rng(0)
+    res = {"card": card, "widths": {}, "batches": {}}
+    if args.quick:
+        _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))
+        return
+    for p in WIDTHS:
+        res["widths"][p] = _time(MAIN_B, p, *_cases(rng, MAIN_B, p))
+    leaf, chol = _cases(rng, max(BATCHES), 64)
+    for b in BATCHES:
+        res["batches"][b] = _time(b, 64, [x[:b] for x in leaf], chol[:b])
+    for name in ("leaf_factor", "cholesky"):
+        ms_p = [res["widths"][p][name]["ms"] for p in WIDTHS]
+        ms_b = [res["batches"][b][name]["ms"] for b in BATCHES]
+        res[f"{name}_exponent_in_p"] = _slope(WIDTHS, ms_p)
+        res[f"{name}_exponent_in_b"] = _slope(BATCHES[2:], ms_b[2:])
+        print(f"{name}: time ~ P^{res[f'{name}_exponent_in_p']:.2f} at "
+              f"B={MAIN_B}, ~ B^{res[f'{name}_exponent_in_b']:.2f} for B >= "
+              f"{BATCHES[2]} at P=64")
+    print(json.dumps(res))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(res, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,9 +19,9 @@ around 0.05), ``dense`` (the ``n10k`` tree under phase 10's correlated
   value-and-gradient, and every device launch (kernels, copies, fills)
   per profiled value-and-gradient evaluation;
 * peak device memory of one value-and-gradient evaluation;
-* a ``torch.profiler`` trace of three value-and-gradient evaluations:
-  device time by kernel name, and the device's busy share of the wall
-  time.
+* ``torch.profiler`` traces of three value-and-gradient and of three
+  likelihood-only evaluations: device time by kernel name, and the
+  device's busy share of the wall time.
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
@@ -159,21 +159,8 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
     torch.cuda.synchronize()
     out["peak_gib_value_and_grad"] = torch.cuda.max_memory_allocated() / 2**30
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    n_prof = 3
-    with torch.profiler.profile(activities=acts) as prof:
-        cs._spin()
-        t0 = time.perf_counter()
-        for l in ls[:n_prof]:
-            cs.value_and_grad(f, float(l), 1.0)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_prof
-        cs._spin()
-    busy, top, n_dev = device_times(prof, n_prof)
-    out["profile"] = {"wall_ms": wall, "device_kernel_ms": busy,
-                      "busy_share": busy / wall, "device_launches": n_dev,
-                      "top": top[:15]}
+    out["profile"] = trace(lambda l: cs.value_and_grad(f, l, 1.0), ls)
+    out["profile_forward"] = trace(forward, ls)
 
     print(f"== {name}")
     print(f"launches per forward {out['launches_forward']}")
@@ -186,11 +173,36 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
               f"{q['q3']:.3f}) over {reps} runs {q['runs']}")
     print(f"peak memory of one value-and-gradient: "
           f"{out['peak_gib_value_and_grad']:.2f} GiB")
-    print(f"profiled: wall {wall:.3f} ms/eval, device kernels {busy:.3f} "
-          f"ms/eval, busy {busy / wall:.1%}, {n_dev:g} device launches/eval")
-    for k, v in top[:15]:
-        print(f"  {v:9.3f} ms/eval  {k[:110]}")
+    for what, key in (("value-and-gradient", "profile"),
+                      ("likelihood-only forward", "profile_forward")):
+        pr = out[key]
+        print(f"profiled {what}: wall {pr['wall_ms']:.3f} ms/eval, device "
+              f"kernels {pr['device_kernel_ms']:.3f} ms/eval, busy "
+              f"{pr['busy_share']:.1%}, {pr['device_launches']:g} device "
+              "launches/eval")
+        for k, v in pr["top"]:
+            print(f"  {v:9.3f} ms/eval  {k[:110]}")
     return out
+
+
+def trace(evaluate, ls, n_prof=3):
+    """``torch.profiler`` over ``n_prof`` evaluations at the first values
+    of ``ls``: wall and device-kernel ms per evaluation, the busy share,
+    device launches per evaluation and the 15 largest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cs._spin()
+        t0 = time.perf_counter()
+        for l in ls[:n_prof]:
+            evaluate(float(l))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_prof
+        cs._spin()
+    busy, top, n_dev = device_times(prof, n_prof)
+    return {"wall_ms": wall, "device_kernel_ms": busy,
+            "busy_share": busy / wall, "device_launches": n_dev,
+            "top": top[:15]}
 
 
 def main():

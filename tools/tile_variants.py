@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Register budget of the register-tiled K1 and K4 kernels against their
+speed: each kernel rebuilt with ``__launch_bounds__(64, N)`` for several
+N (at least N resident 64-thread blocks an SM, so at most 65536 / (64 N)
+registers a thread), timed at 16384 x 64 beside the shipped build (whose
+own bound is left as it is).
+
+Each variant is a copy of ``csrc/leaf_factor.cu`` or ``csrc/cholesky.cu``
+with only the launch bound changed, built by nvcc with the package's flags
+into the git-ignored ``pymra_torch/_build``. Prints the compiler's register
+and spill report and the ms per call (CUDA events, as
+``chip_smoke.time_ms``) of each, and holds each variant's outputs to the
+shipped kernel's (they run the same arithmetic). Run from the repository
+root on a machine with an NVIDIA GPU::
+
+    python3 tools/tile_variants.py [--blocks 8,10,12]
+"""
+import argparse
+import ctypes
+import os
+import re
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+sys.path.insert(0, os.getcwd())
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from pymra_torch.ops import BUILD_DIR, build_shared_library  # noqa: E402
+from pymra_torch.ops import linalg as tl  # noqa: E402
+from pymra_torch.ops.cuda import build  # noqa: E402
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(build.__file__)), "csrc")
+BOUND_RE = re.compile(r"__launch_bounds__\(kThreads(, \d+)?\)")
+B, P = 16384, 64
+
+
+def variant(src, blocks):
+    """Build ``src`` with at least ``blocks`` blocks an SM (None: as
+    shipped); returns (library, ptxas report)."""
+    with open(os.path.join(CSRC, src)) as fh:
+        text = fh.read()
+    assert len(BOUND_RE.findall(text)) == 1, f"{src}: no single bound"
+    if blocks is not None:
+        text = BOUND_RE.sub(f"__launch_bounds__(kThreads, {blocks})", text)
+    tag = f"{os.path.splitext(src)[0]}_mb{blocks or 0}"
+    os.makedirs(os.path.join(BUILD_DIR, "variants"), exist_ok=True)
+    path = os.path.join(BUILD_DIR, "variants", tag + ".cu")
+    with open(path, "w") as fh:
+        fh.write(text)
+    so, log = build_shared_library(
+        "libvariant_" + tag, [path],
+        [build.nvcc_path()] + build.NVCC_FLAGS + ["-I", CSRC], timeout=900,
+        key=build._headers_key())
+    # the report of the 64-wide instantiation (NB = 8): the two lines
+    # after its entry
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines) if "ILi8E" in ln]
+    report = [ln.split("info    :")[-1].strip()
+              for i in at for ln in lines[i + 1:i + 3]]
+    return ctypes.CDLL(so), report
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--blocks", default="8,10,12")
+    args = parser.parse_args()
+    blocks = [None] + [int(x) for x in args.blocks.split(",")]
+    cs.phase_device()
+    jobs = [(src, n) for src in ("leaf_factor.cu", "cholesky.cu")
+            for n in blocks]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda j: variant(*j), jobs)))
+
+    rng = np.random.default_rng(0)
+    c, k, a = (torch.as_tensor(x, device="cuda")
+               for x in cs.leaf_case(rng, B, P, escalate=True, hard=True))
+    m = torch.as_tensor(cs.chol_case(rng, B, P)[0], device="cuda")
+    want_leaf = tl.leaf_factor(c, k, a, 1e-3)
+    want_chol = tl.cholesky(m)
+    stream = torch.cuda.current_stream().cuda_stream
+    tier = tl.tile_tier(P)
+    for (src, n), (lib, report) in libs.items():
+        if src == "leaf_factor.cu":
+            fn = lib.pymra_leaf_factor
+            fn.argtypes = build._SIGNATURES["pymra_leaf_factor"]
+            outs = [torch.empty_like(c)] + [
+                torch.empty(B, device="cuda") for _ in range(4)]
+
+            def run():
+                rc = fn(c.data_ptr(), k.data_ptr(), a.data_ptr(), 1e-3,
+                        *[o.data_ptr() for o in outs], B, P, tier,
+                        *tl.FACTORS, 0, stream)
+                assert rc == 0, rc
+            want, fidx = want_leaf, {3, 4}
+        else:
+            fn = lib.pymra_cholesky
+            fn.argtypes = build._SIGNATURES["pymra_cholesky"]
+            outs = [torch.empty_like(m)]
+
+            def run():
+                rc = fn(m.data_ptr(), outs[0].data_ptr(), B, P, tier, 0,
+                        stream)
+                assert rc == 0, rc
+            want, fidx = (want_chol,), set()
+        run()
+        torch.cuda.synchronize()
+        err = cs.compare(f"{src} min blocks {n}", outs, want,
+                         factor_idx=fidx)
+        ms = cs.time_ms(run)
+        print(f"{src} min blocks {n}: {ms:.4f} ms at {B}x{P}, max|diff| "
+              f"vs shipped {err:.3g}; {' | '.join(report)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
