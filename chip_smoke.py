@@ -12,21 +12,24 @@ non-zero exit code and no result line:
    versions and the matmul precision settings the sweep pins;
 2. build: one ``nvcc`` per kernel source of ``pymra_torch/ops/cuda``, all
    at once;
-3. kernels: each of the seven forward CUDA kernels and the two
-   compositions over them (K8 ``cholesky_blocked``, KC
+3. kernels: each of the eight forward CUDA kernels (the wide one,
+   ``chol_wide.cu``, as K8 ``cholesky_blocked`` and as KC
    ``cholesky_cascade``; and the blocked ``triangular_inverse_lower``)
    against its plain PyTorch twin on the card at every shipped width (K2
    and K5 at every width of their sub-warp kernels too), escalation and NaN
    cases included, and kernel, twin and one PyTorch library call (a
    yardstick the port never calls) timed at the paths' shapes, per call
    (CUDA events) and on the device alone (``torch.profiler``), beside the
-   roofline bound of the same work and the share of it each time reaches;
+   roofline bound of the same work and the share of it each time reaches
+   (K8 and KC also beside the compositions they replaced; KC once under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization);
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
    the same tensors, member by member, timed as in phase 3; the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
-   calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``
-   and ``cholesky_cascade`` on the card against the same Functions on CPU
-   copies (the twins), at the paths' shapes with random cotangents;
+   calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``,
+   ``cholesky_cascade`` and ``cholesky_blocked`` on the card against the
+   same Functions on CPU copies (the twins), at the paths' shapes with
+   random cotangents;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
 5. the N=10^6 flagship (1000^2 grid, r=8, M=7): likelihood-only objective
@@ -53,8 +56,9 @@ non-zero exit code and no result line:
    at M=6 (4096 leaves of 256): ms per evaluation with and without the
    posterior, peak memory, value and gradient against a five-point
    difference;
-12. launch counters over phases 10-11: K2-K8, KC and the pullback
-   launched, no twin ran on a CUDA tensor.
+12. launch counters over phases 10-11: K2-K7, the wide kernel (through
+   KC) and the pullback launched, no K8 or KC call composed at P <= 256,
+   no twin ran on a CUDA tensor.
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -108,10 +112,11 @@ WIDE_R = 1e-2
 #: The backward checks use it too, each member held to its own scale: an
 #: escalated member's jitter gradient is 1e4 times a healthy member's
 RTOL, ATOL = 1e-4, 1e-5
-#: the card's roofline (H100 SXM at 700 W): HBM bytes/s and float32 FLOP/s
-#: outside the tensor cores
+#: the card's roofline (H100 SXM at 700 W): HBM bytes/s, float32 FLOP/s
+#: outside the tensor cores and float64 FLOP/s on the FP64 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 67e12
 
 CHOL_WIDTHS = (4, 8, 17, 28, 48, 49, 64)
 #: K2 also at every width of its sub-warp kernel (a group of 4 or 8 lanes a
@@ -135,9 +140,10 @@ PULLBACK_SHAPES = CHOL_MAIN + tuple((RAGGED_BATCH, p) for p in (1, 3, 5, 9,
                                                                  49))
 #: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49)
 LOGDET_MAIN = ((256, 49),)
-#: widths of K8, KC and the blocked inverse, and their paths' shapes: the
-#: N=10^4 tree at M=3 (P=169) and the N=10^6 grid at M=6 (P=256)
-WIDE_WIDTHS = (96, 169, 256)
+#: widths of K8, KC (the wide kernel takes 64 < P <= 256) and the blocked
+#: inverse, and their paths' shapes: the N=10^4 tree at M=3 (P=169) and the
+#: N=10^6 grid at M=6 (P=256)
+WIDE_WIDTHS = (65, 96, 128, 169, 192, 256)
 WIDE_MAIN = ((64, 169), (4096, 256))
 
 
@@ -179,15 +185,19 @@ def _spin():
     torch.cuda.synchronize()
 
 
-#: the wrappers whose counter counts kernel launches (K8's and KC's count
-#: calls of their compositions), and the kernels they launch, by the names
-#: of their ``__global__`` functions in ``pymra_torch/ops/cuda/csrc``
+#: the wrappers whose counter counts kernel launches (K8's and KC's their
+#: launches of the wide kernel; their calls at other widths, which compose
+#: other kernels, count in ``.composed``), and the kernels they launch, by
+#: the names of their ``__global__`` functions in
+#: ``pymra_torch/ops/cuda/csrc``
 LAUNCHING = ("leaf_factor", "cholesky_jittered", "cholesky",
              "triangular_inverse_lower", "solve_triangular_batched",
-             "cholesky_pullback", "cholesky_logdet", "cholesky_inv_logdet")
+             "cholesky_pullback", "cholesky_logdet", "cholesky_inv_logdet",
+             "cholesky_blocked", "cholesky_cascade")
 KERNEL_SYMBOLS = ("leaf_factor_kernel", "chol_jittered_", "cholesky_kernel",
                   "tri_inv_kernel", "tri_solve_kernel", "chol_pullback_",
-                  "chol_logdet_kernel", "chol_inv_logdet_kernel")
+                  "chol_logdet_kernel", "chol_inv_logdet_kernel",
+                  "chol_wide_kernel")
 
 
 def _wrapper_launches() -> int:
@@ -305,6 +315,19 @@ def _spd_batch(rng, b, p):
     return a @ np.swapaxes(a, -1, -2) / dt(p) + np.eye(p, dtype=dt)
 
 
+def wide_case(rng, b, p):
+    """``chol_case`` and, when b >= 6: member 4 needs the 1e4 factor (an
+    eigenvalue of -1 at jitter 1e-3) and member 5 carries a NaN in its lower
+    triangle (row 100 or the last, column 3: in the first block column's
+    panel when P > 100), so it fails every factor."""
+    m, jit = chol_case(rng, b, p)
+    if b >= 6:
+        m[4] = _rotate(rng, np.r_[np.linspace(1.0, 2.0, p - 1), -1.0])
+        jit[4] = 1e-3
+        m[5, min(100, p - 1), 3] = np.nan
+    return m, jit
+
+
 def chol_case(rng, b, p):
     """Random SPD members plus, when p > 1: one indefinite enough to need
     the 1e2 factor, one with an exactly zero last pivot on the first
@@ -397,12 +420,27 @@ def compare(name, got, want, factor_idx=frozenset(), per_member=False):
     return worst
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flops64: float = 0.0) -> tuple[float, str]:
     """Least time the card could take: the larger of bytes over the HBM
-    rate and float32 operations over the peak rate, with which bounds."""
+    rate and the operations over the peak rate of their type (float32
+    outside the tensor cores, float64 on the FP64 tensor cores; the two
+    summed, as they share the SMs' instruction slots), with which bounds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + flops64 / FP64_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wide_flops(p: int) -> tuple[float, float]:
+    """(float32, float64) operations of one blocked factorization of a
+    ``P x P`` member in 64-wide block columns, as K8 and KC stage it: each
+    diagonal block of width b factored and inverted in float32 (b^3/3
+    each), the panels and downdates, the rest of the P^3/3, in float64. Up
+    to P = 64 all P^3/3 are float32."""
+    if p <= 64:
+        return p ** 3 / 3, 0.0
+    diag = sum(min(64, p - j) ** 3 / 3 for j in range(0, p, 64))
+    return 2 * diag, p ** 3 / 3 - diag
 
 
 def _attempts(f) -> float:
@@ -411,22 +449,29 @@ def _attempts(f) -> float:
     return float((1 + (f >= 1e2).int() + (f >= 1e4).int()).sum())
 
 
-def work(name, inputs, outputs) -> tuple[float, float]:
-    """(bytes, flops) one call needs on these inputs: each input read once,
-    each output written once (float32), and the factorizations this run's
-    escalation really took. Of a symmetric input (K1's C and A_oo, K2's
-    and K4's matrix) or a lower-triangular one (K3's and K5's L) only the
-    lower triangle, P(P+1)/2 entries of each matrix, has to be read;
+def work(name, inputs, outputs) -> tuple[float, float, float]:
+    """(bytes, float32 flops, float64 flops) one call needs on these
+    inputs: each input read once, each output written once (float32), and
+    the factorizations this run's escalation really took. Of a symmetric
+    input (K1's C and A_oo, K2's and K4's matrix) or a lower-triangular
+    one (K3's and K5's L) only the lower triangle, P(P+1)/2 entries of
+    each matrix, has to be read;
     outputs are written whole; the Cholesky pullback's phi(L^T Lbar) needs
     only Lbar's lower triangle too. Cholesky and a triangular inverse are
-    P^3/3 flops each, a solve with Q columns P^2 Q."""
+    P^3/3 flops each, a solve with Q columns P^2 Q; K8's and KC's are split
+    by :func:`wide_flops`."""
     b, p = inputs[0].shape[0], inputs[0].shape[-1]
     triangular = {"leaf_factor": (0, 2),
                   "cholesky_pullback": (0, 1)}.get(name, (0,))
     nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
         b * p * (p + 1) // 2 if i in triangular else t.numel()
         for i, t in enumerate(inputs)))
-    if name in ("cholesky_jittered", "cholesky_cascade"):
+    flops64 = 0.0
+    if name == "cholesky_cascade" and p > 64:
+        flops, flops64 = (_attempts(outputs[2]) * x for x in wide_flops(p))
+    elif name == "cholesky_blocked" and p > 64:
+        flops, flops64 = (b * x for x in wide_flops(p))
+    elif name in ("cholesky_jittered", "cholesky_cascade"):
         flops = _attempts(outputs[2]) * p ** 3 / 3
     elif name == "cholesky_logdet":
         flops = _attempts(outputs[1]) * p ** 3 / 3
@@ -444,7 +489,7 @@ def work(name, inputs, outputs) -> tuple[float, float]:
         flops = b * (p ** 3 / 3 + 2 * p ** 3)
     else:
         flops = b * p ** 3 / 3
-    return nbytes, flops
+    return nbytes, flops, flops64
 
 
 def _ms(x) -> str:
@@ -682,15 +727,26 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                               library, [mt, jt])
             print(line)
 
-    # K8, KC and the blocked inverse, wider than one kernel block: K8 has
-    # no jitter, so chol_case's failing members are NaN from their failing
-    # column on; KC escalates them as K2 does
+    # K8 and KC (one wide kernel), and the blocked inverse: K8 has no
+    # jitter, so wide_case's failing members are NaN from their failing
+    # column on; KC escalates them (member 4 to 1e4) or fails all three
+    # (the -I and NaN members)
     shapes = [(ragged, p) for p in wide_widths] + list(wide_main)
     for b, p in shapes:
-        m, jit = chol_case(rng, b, p)
+        m, jit = wide_case(rng, b, p)
         mt, jt = dv(m), dv(jit)
         eye = torch.eye(p, device=dev)
         main = (b, p) in wide_main
+
+        def composed_k8(a):
+            return tl._blocked(a, tl.MAX_P, tl.cholesky,
+                               tl.triangular_inverse_lower)
+
+        def composed_kc():
+            # the composition KC ran before the wide kernel
+            return tl._escalate(mt, jt, tl.FACTORS,
+                                tl._cascade_attempt(composed_k8))
+
         got = tl.cholesky_blocked(mt)
         e = compare(f"cholesky_blocked {b}x{p}", (got,),
                     (tl.cholesky_blocked_ref(mt),))
@@ -705,6 +761,9 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                           lambda: tl.cholesky_blocked(mt),
                           lambda: tl.cholesky_blocked_ref(mt),
                           lambda: torch.linalg.cholesky_ex(mt), [mt])
+            ms = timer(lambda: composed_k8(mt))
+            times[("cholesky_blocked", b, p)]["composed_ms"] = ms
+            line += f"; the composition it replaced {ms:.4f} ms"
         print(line)
         del got
 
@@ -712,7 +771,16 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         e = compare(f"cholesky_cascade {b}x{p}", got,
                     tl.cholesky_cascade_ref(mt, jt), factor_idx={2})
         err["cholesky_cascade"] = max(err["cholesky_cascade"], e)
-        _check_escalation(f"cholesky_cascade {b}x{p}", got[2])
+        f = got[2].tolist()
+        ok = torch.isfinite(got[0]).flatten(1).all(1).tolist()
+        if b >= 6:
+            check(f[1:6] == [1e2, 1e2, 1e4, 1e4, 1e4]
+                  and ok[:6] == [True, True, True, False, True, False],
+                  f"cholesky_cascade {b}x{p}: escalation factors {f[1:6]} "
+                  f"(finite {ok[1:6]}), expected [100, 100, 10000, 10000, "
+                  "10000] with members 3 and 5 failing")
+        else:
+            _check_escalation(f"cholesky_cascade {b}x{p}", got[2])
         line = f"cholesky_cascade B={b} P={p}: max|diff| {e:.3g}"
         if main:
             line += timed(
@@ -721,6 +789,17 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 lambda: tl.cholesky_cascade_ref(mt, jt),
                 lambda: torch.linalg.cholesky_ex(
                     mt + jt[:, None, None] * eye), [mt, jt])
+            ms = timer(composed_kc)
+            times[("cholesky_cascade", b, p)]["composed_ms"] = ms
+            line += f"; the composition it replaced {ms:.4f} ms"
+            if dev.type == "cuda":
+                # no host synchronization in the call
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tl.cholesky_cascade(mt, jt)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                line += "; no host synchronization (sync debug mode error)"
         print(line)
         del got, m, mt
 
@@ -793,7 +872,8 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
           "max|cpu| of each member)")
     err = dict.fromkeys(["cholesky_pullback", "cholesky_jittered",
                          "leaf_factor", "cholesky_logdet",
-                         "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
+                         "cholesky_inv_logdet", "cholesky_cascade",
+                         "cholesky_blocked"], 0.0)
     times = {}
     f32 = np.float32
 
@@ -880,6 +960,19 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                     _backward(fn, [m, jit], cot, "cpu"), per_member=True)
         err[name] = max(err[name], e)
         print(f"{name} backward B={b} P={p}: max|diff| {e:.3g}")
+
+    # K8's pullback, on healthy members (it has no escalation)
+    def blocked(m):
+        return (tl.cholesky_blocked(m),)
+
+    for b, p in wide_main:
+        m = _spd_batch(rng, b, p).astype(f32)
+        cot = [np.tril(rng.standard_normal(m.shape)).astype(f32)]
+        e = compare(f"cholesky_blocked backward {b}x{p}",
+                    _backward(blocked, [m], cot, device),
+                    _backward(blocked, [m], cot, "cpu"), per_member=True)
+        err["cholesky_blocked"] = max(err["cholesky_blocked"], e)
+        print(f"cholesky_blocked backward B={b} P={p}: max|diff| {e:.3g}")
     return err, times
 
 
@@ -1298,9 +1391,8 @@ def phase_wide(device="cuda", timer=time_ms, n_evals=8, data="large", r=4,
 
 # ---------------------------------------------------------------------------
 
-#: every kernel: (wrapper name, source in ops/cuda/csrc — or, for the two
-#: compositions, what they compose — the TPU kernel it replaces, the path
-#: shape of its record)
+#: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
+#: replaces, the path shape of its record)
 KERNELS = (
     ("leaf_factor", "leaf_factor.cu",
      "pymra_tpu/ops/pallas/linalg.py:255,309", LEAF_MAIN[-1]),
@@ -1318,16 +1410,15 @@ KERNELS = (
      "pymra_tpu/ops/pallas/linalg.py:394", LOGDET_MAIN[-1]),
     ("cholesky_inv_logdet", "chol_inv_logdet.cu",
      "pymra_tpu/ops/pallas/linalg.py:175", LOGDET_MAIN[-1]),
-    ("cholesky_blocked", "K4 cholesky.cu on 64-wide diagonal blocks, K3 "
-     "tri_inv.cu, torch.matmul (cuBLAS) panels and trailing downdates "
-     "carried in float64",
+    ("cholesky_blocked", "chol_wide.cu",
      "pymra_tpu/ops/pallas/linalg.py:1097", WIDE_MAIN[-1]),
-    ("cholesky_cascade", "K4 (P <= 64) or cholesky_blocked attempts, failed "
-     "members retried at 1e2 and 1e4", "pymra_tpu/ops/pallas/linalg.py:976",
+    ("cholesky_cascade", "chol_wide.cu", "pymra_tpu/ops/pallas/linalg.py:976",
      WIDE_MAIN[-1]),
 )
 KERNEL_NAMES = tuple(n for n, *_ in KERNELS)
-COMPOSITIONS = ("cholesky_blocked", "cholesky_cascade")
+#: the two wrappers of the wide kernel (64 < P <= 256); other widths
+#: compose other kernels and count in ``.composed``
+WIDE = ("cholesky_blocked", "cholesky_cascade")
 #: kernels that run only in backward passes (checked in phase 3b)
 BACKWARD_KERNELS = ("cholesky_pullback",)
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
@@ -1335,28 +1426,39 @@ FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
 #: dense-R path (phase 10's whitening)
 GRADIENT_KERNELS = FORWARD_KERNELS + ("triangular_inverse_lower", "cholesky",
                                       "cholesky_pullback")
-#: the dense-R and wide-leaf paths (phases 10-11) leave K1
-SLICE3_KERNELS = KERNEL_NAMES[1:]
+#: the dense-R and wide-leaf paths (phases 10-11) leave K1; the wide kernel
+#: runs there as KC (the sweep's escalated factorizations), K8 being its
+#: one-factor entry point
+SLICE3_KERNELS = tuple(n for n in KERNEL_NAMES[1:]
+                       if n != "cholesky_blocked")
 
 
 def reset_counters(tl):
     for name, *_ in KERNELS:
         getattr(tl, name).launches = 0
         getattr(tl, name + "_ref").cuda_calls = 0
+    for name in WIDE:
+        getattr(tl, name).composed = 0
 
 
 def read_counters(tl, title, names):
     """Print the launch counts of a path; every kernel in ``names`` must
-    have launched and no twin may have run on a CUDA tensor."""
+    have launched, no twin may have run on a CUDA tensor, and K8 and KC
+    may not have composed other kernels (every matrix the paths factor is
+    at most 256 wide)."""
     launches = {n: getattr(tl, n).launches for n, *_ in KERNELS}
     twins = {f"{n}_ref": getattr(tl, f"{n}_ref").cuda_calls
              for n, *_ in KERNELS}
+    composed = {n: getattr(tl, n).composed for n in WIDE}
     print(f"== {title}")
-    print(f"kernel launches {launches}; twin calls on CUDA tensors {twins}")
+    print(f"kernel launches {launches}; twin calls on CUDA tensors {twins}; "
+          f"composed K8/KC calls {composed}")
     missing = [n for n in names if launches[n] == 0]
     check(not missing, f"kernels of the path never launched: {missing}")
     check(all(v == 0 for v in twins.values()),
           "a plain twin ran on a CUDA tensor in the path")
+    check(all(v == 0 for v in composed.values()),
+          f"K8/KC composed other kernels in the path: {composed}")
     return launches
 
 
@@ -1401,9 +1503,16 @@ def main() -> int:
     for name, src, replaces, (b, p) in KERNELS:
         launches = (forward if name in FORWARD_KERNELS else
                     gradient if name in GRADIENT_KERNELS else slice3)
-        source = (f"pymra_torch/ops/cuda/csrc/{src}"
-                  if name not in COMPOSITIONS else "pymra_torch/ops/linalg.py")
-        extra = {"composition": src} if name in COMPOSITIONS else {}
+        n_launch = launches[name]
+        extra = {}
+        if name in WIDE:
+            # one kernel behind both wrappers: its launches on the path are
+            # those of either wrapper
+            extra = {"launches_by_wrapper": {n: slice3[n] for n in WIDE},
+                     "composed_ms": times[(name, b, p)].pop("composed_ms"),
+                     "small": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
+                               for sb, sp in WIDE_MAIN[:-1]}}
+            n_launch = sum(slice3[n] for n in WIDE)
         if name == "cholesky_jittered":
             extra = {"backward": {f"{bb}x{bp}x{bp}": t for (k, bb, bp), t
                                   in bwd_times.items()
@@ -1416,8 +1525,9 @@ def main() -> int:
             wb, wp = WIDE_MAIN[-1]
             extra = {"blocked": {"shape": f"{wb}x{wp}x{wp}",
                                  **times[(name, wb, wp)]}}
-        rec.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+        rec.append({"name": name, "route": "cuda",
+                    "source": f"pymra_torch/ops/cuda/csrc/{src}",
+                    "replaces": replaces, "launches": n_launch,
                     "launches_gradient_path": gradient[name],
                     "launches_dense_r_wide_path": slice3[name],
                     "max_abs_err": err[name],

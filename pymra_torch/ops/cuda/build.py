@@ -60,6 +60,12 @@ _SIGNATURES = {
     # a, jit, x, ld, f, batch, p, f0, f1, f2, device, stream
     "pymra_chol_inv_logdet": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                               _P],
+    # a, jit (or null), l, ld (or null), f (or null), slabs, batch, p,
+    # n_factors, f0, f1, f2, grid, device, stream
+    "pymra_chol_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+                        _I, _P],
+    # device
+    "pymra_chol_wide_grid": [_I],
 }
 
 

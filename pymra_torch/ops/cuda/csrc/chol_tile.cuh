@@ -29,10 +29,11 @@
 // serves up to (NB + 1) / 4 of them, where it served one third. The
 // buffer is double-buffered by the parity of j, so a step is one barrier,
 // at its start. The reciprocal of the pivot (or of its root) is taken once
-// per step by every thread: no division per row. In the buffers entry g +
-// 8m of a column sits at g * NB + m, so a thread's rows and its columns are
-// each NB contiguous floats, read by every thread of its grid row or column
-// at once (broadcasts).
+// per step by every thread, and each row's quotient is formed from it with
+// two FMAs (see quotient below): no division per row. In the buffers
+// entry g + 8m of a column sits at g * NB + m, so a thread's rows and its
+// columns are each NB contiguous floats, read by every thread of its grid
+// row or column at once (broadcasts).
 //
 // The step loop is unrolled over the column block b = j / 8 (NB copies) and
 // runs the column jc = j % 8 within it: every register index is static,
@@ -51,21 +52,54 @@
 // their logs in the same order, so the log-pivot sum — the escalation test
 // of K1 — is uniform over the block without a reduction, and a member's
 // result depends on its own inputs only. The arithmetic is the twins'
-// (no fast-math, IEEE sqrtf / logf / division for the reciprocals): an
-// exactly zero pivot gives -inf, a negative one NaN, and a zero or NaN
-// pivot spreads NaN (0 * inf) through its column and the trailing block as
-// the twins' division does.
+// but for FMA contraction in the downdates: no fast-math, IEEE sqrtf and
+// logf, and column j scaled by the correctly rounded quotient S[i][j] /
+// pivot (S[i][j] / d in the pivot-only mode), bit for bit what the twins'
+// division gives but at the edges of the float range (see quotient
+// below); an exactly zero pivot gives -inf, a negative one NaN, and a
+// zero or NaN pivot spreads inf and NaN (x / 0) through its column and
+// the trailing block as the twins' division does. The product x * (1 /
+// pivot) in its place, one rounding off the twins, moved the N=10^4
+// objective from 1.31e-4 to 2.91e-4 off its golden, K4 against its twin
+// from 1.4e-5 to 3.8e-5 and K6's backward from 2.4e-4 to 7.3e-4; IEEE
+// division costs 1.8-3.0 times the quotient's time
+// (tools/tile_variants.py --scales builds both variants).
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_timing.py,
-// 16384 x 64, device time): K4 0.260 ms, 47% of its bound; K1 0.954 ms,
-// 17% (PERF.md). Both scale as ~P^1.2-1.5 and stay latency-bound on
-// the step chain (tools/kernel_scaling.py); K1 runs at at most 85
-// registers a thread for the occupancy (tools/tile_variants.py).
+// 16384 x 64): K4 0.363 ms a call, 0.349 ms on the device, 35% of its
+// bound; K1 1.196 / 1.185 ms, 14% (PERF.md; with the product 0.267 and
+// 0.97 ms). Both scale as ~P^1.2-1.5 and stay latency-bound on the step
+// chain (tools/kernel_scaling.py); K1 runs at at most 85 registers a
+// thread for the occupancy (tools/tile_variants.py).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace chol_tile {
+
+// x / den, correctly rounded, from r = 1 / den (itself correctly rounded):
+// q = x r is within an ulp of x / den, the residual x - q den is exact in
+// an FMA, and q + (x - q den) r rounds to x / den (Markstein's theorem,
+// round to nearest). The theorem holds where nothing overflows or
+// underflows on the way: for 2^-126 <= |den| <= 2^126, |x| >= 2^-100 and
+// 2^-126 <= |x / den| <= 2^126 this is x / den bit for bit, as it is for
+// an infinite or NaN x and a zero, infinite or NaN den (the residual is
+// then NaN, and q already is x / den's inf, 0 or NaN); a zero x over such
+// a den gives zero, +0 for -0 too. Outside that range it may be an ulp
+// off (a tiny x or quotient, a huge den or quotient), and for a |den|
+// below 2^-128, whose reciprocal overflows, it gives inf or NaN (0 inf)
+// where x / den is finite (held to division by
+// tests/test_torch_leaf_tiles.py, from this header built on the host).
+// Only the pivot-only mode divides by the pivot itself, and a positive
+// pivot that small leaves the twins' next pivots hugely negative unless
+// its column is zero. Checking the range at every entry, with division
+// where it fails, made K1 and K4 1.25-1.84 times slower on the H100
+// (PERF.md), so the core does without.
+__device__ __forceinline__ float quotient(float x, float den, float r) {
+  const float q = x * r;
+  const float q1 = fmaf(fmaf(-q, den, x), r, q);
+  return isfinite(q1) ? q1 : q;
+}
 
 constexpr int kGrid = 8;                  // thread grid kGrid x kGrid
 constexpr int kThreads = kGrid * kGrid;   // threads per member
@@ -179,23 +213,24 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
       __syncthreads();
       const float* cb = col + (j & 1) * kBuf;
       const float d = cb[jc * NB + b];
-      float rs;  // kLogdet: 1 / d; else 1 / sqrt(d)
+      float den;  // kLogdet: d; else sqrt(d)
       if (M == Mode::kLogdet) {
         acc += logf(d);
-        rs = 1.f / d;
+        den = d;
       } else {
-        const float piv = sqrtf(d);
-        acc += logf(piv);
-        rs = 1.f / piv;
+        den = sqrtf(d);
+        acc += logf(den);
       }
+      const float rs = 1.f / den;
+      auto scale = [&](float v) { return quotient(v, den, rs); };
       // rows: S[i][j] / d (kLogdet) or L[i][j]; columns: S[k][j] or L[k][j]
       float rv[NB], cv[NB];
 #pragma unroll
       for (int a = 0; a < NB; ++a) {
         if (a < b) continue;
-        rv[a] = cb[t.r * NB + a] * rs;
+        rv[a] = scale(cb[t.r * NB + a]);
         const float v = cb[t.c * NB + a];
-        cv[a] = M == Mode::kLogdet ? v : v * rs;
+        cv[a] = M == Mode::kLogdet ? v : scale(v);
       }
       if (M == Mode::kFactor && t.c == jc) {
         // column j of L, the diagonal included
@@ -210,7 +245,7 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
         float xv[NB];
 #pragma unroll
         for (int q = 0; q < NB; ++q)
-          if (q <= b) xv[q] = xb[t.c * NB + q] * rs;
+          if (q <= b) xv[q] = scale(xb[t.c * NB + q]);
         const bool qdone = t.c <= jc;
         if (t.r == jc) {
 #pragma unroll

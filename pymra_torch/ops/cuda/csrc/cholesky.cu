@@ -25,11 +25,13 @@
 // j goes through a shared double buffer once a step (one barrier), the
 // column's owners keep L[:, j] in place and the factor is stored straight
 // from registers. The host picks the width tier (16, 32, 48 or 64) from P;
-// padding is the identity and never factored. The NaN of a failing pivot
-// spreads as the twin's division spreads it (x * (1 / 0) is x / 0). Built
-// without fast-math. Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (tools/kernel_timing.py): 0.268 ms a call at 16384 x 64, 0.260 ms on the
-// device, 47% of the bound (the first kernel 1.51 ms; `cholesky_ex` 2.05).
+// padding is the identity and never factored. Column j is the correctly
+// rounded quotient by the pivot, as the twin divides, so a failing pivot's
+// inf and NaN spread as the twin's do. Built without fast-math. Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_timing.py): 0.363 ms
+// a call at 16384 x 64, 0.349 ms on the device, 35% of the bound (0.268 ms
+// with the column scaled by the reciprocal; the first kernel 1.51 ms;
+// `cholesky_ex` 2.05).
 
 #include <cuda_runtime.h>
 

@@ -38,9 +38,11 @@
 // sums the same pivots, the loop is block-uniform, and a member's bits do
 // not depend on its neighbours. Built without fast-math: the escalation
 // relies on IEEE sqrtf/logf giving NaN and -inf. Measured on an NVIDIA
-// H100 80GB HBM3 at 700 W (tools/kernel_timing.py): 0.972 ms a call at
-// 16384 x 64, 0.954 ms on the device, 17% of the bound (the first kernel
-// 6.19 ms); at 256 x 49 0.126 ms a call, a launch's worth of host time.
+// H100 80GB HBM3 at 700 W (tools/kernel_timing.py): 1.196 ms a call at
+// 16384 x 64, 1.185 ms on the device, 14% of the bound, with the core's
+// correctly rounded column quotient (0.972 ms with the reciprocal; the
+// first kernel 6.19 ms); at 256 x 49 ~0.13 ms a call, a launch's worth of
+// host time.
 
 #include <cuda_runtime.h>
 

@@ -32,26 +32,28 @@ custom VJP, or a composition of such):
 * :func:`cholesky_inv_logdet` — jittered inverse factor and log-determinant
   with escalation (replaces K7, ``_chol_inv_logdet_kernel``);
   ``ops/cuda/csrc/chol_inv_logdet.cu``.
-* :func:`cholesky_blocked` — blocked Cholesky for P > 64 (K8): K4 on the
-  64-wide diagonal blocks, K3 to invert them, ``torch.matmul`` for the
-  panel and the trailing downdate (float64 for a float32 input).
-* :func:`cholesky_cascade` — jitter escalation over K4 (P <= 64) or K8
-  (the counterpart of ``cholesky_cascade_lanes`` and the sweep's
-  ``_chol_cascade``, KC).
+* :func:`cholesky_blocked` — blocked Cholesky for P > 64 (K8) and
+  :func:`cholesky_cascade` — its jitter escalation (KC, the counterpart of
+  ``cholesky_cascade_lanes`` and the sweep's ``_chol_cascade``): for
+  64 < P <= 256 one kernel for both, ``ops/cuda/csrc/chol_wide.cu``
+  (float32 64-wide diagonal blocks, float64 panels and downdates,
+  escalation in the kernel); other widths compose K4, K3 and
+  ``torch.matmul`` (float64 for a float32 input), KC over K4 up to 64.
 
 A CPU tensor runs the plain PyTorch twin (``*_ref``), an explicit batched
 column loop with the kernel's arithmetic (K8 and KC: the same composition
 over the twins). A CUDA tensor launches the hand written kernel or raises;
-there is no fallback. Each wrapper counts its kernel launches (the two
-compositions: their calls on the card) in ``.launches``; each twin counts
-the calls it gets with CUDA tensors in ``.cuda_calls`` (only
-kernel-versus-twin comparisons make any). The twins update in place, so the
-Functions run them (and the kernels) without autograd and differentiate by
-their own backward, which calls the other wrappers: on the card every
-backward factorization, inverse, solve and Cholesky pullback is a kernel
-(KC's pullback above P = 64 solves with ``torch.linalg.solve_triangular``,
-as the JAX package's XLA solve there), and the other products are
-full-float32 ``torch.matmul`` (TF32 off, :func:`set_matmul_precision`).
+there is no fallback. Each wrapper counts its kernel launches in
+``.launches`` (K8 and KC count their calls at other widths, which compose
+other kernels, in ``.composed``); each twin counts the calls it gets with
+CUDA tensors in ``.cuda_calls`` (only kernel-versus-twin comparisons make
+any). The twins update in place, so the Functions run them (and the
+kernels) without autograd and differentiate by their own backward, which
+calls the other wrappers: on the card every backward factorization,
+inverse, solve and Cholesky pullback is a kernel (the K8 and KC pullbacks
+above P = 64 solve with ``torch.linalg.solve_triangular``, as the JAX
+package's XLA solve there), and the other products are full-float32
+``torch.matmul`` (TF32 off, :func:`set_matmul_precision`).
 
 Escalation contract (K1, K2, K6, K7, KC): a member is retried at the next
 factor of ``factors`` while its log-pivot sum (KC: its factor) is
@@ -79,8 +81,8 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
            "cholesky_jittered", "cholesky_jittered_ref", "leaf_factor",
            "leaf_factor_ref", "cholesky_logdet", "cholesky_logdet_ref",
            "cholesky_inv_logdet", "cholesky_inv_logdet_ref",
-           "cholesky_blocked", "cholesky_blocked_ref", "cholesky_cascade",
-           "cholesky_cascade_ref"]
+           "WIDE_MAX_P", "cholesky_blocked", "cholesky_blocked_ref",
+           "cholesky_cascade", "cholesky_cascade_ref"]
 
 FACTORS = (1.0, 1e2, 1e4)
 #: widest block the single-block kernels take; wider goes through the
@@ -716,16 +718,76 @@ def _on_card(name: str, mat: torch.Tensor) -> None:
     _check(name, mat, mat.shape, mat.device)
 
 
+#: widest member of the wide kernel (``ops/cuda/csrc/chol_wide.cu``): four
+#: 64-wide block columns
+WIDE_MAX_P = 256
+_WIDE_GRID: dict[int, int] = {}
+
+
+def _wide_kernel(p: int, block: int = MAX_P) -> bool:
+    """Whether the wide kernel takes a ``P x P`` member: 64 < P <= 256 in
+    64-wide block columns. Other widths (and blocks) go through the
+    compositions, by this width dispatch and not as a fallback."""
+    return block == MAX_P and MAX_P < p <= WIDE_MAX_P
+
+
+def _chol_wide(mat: torch.Tensor, jit: torch.Tensor | None, factors):
+    """One launch of the wide kernel: ``(L, ld, f)`` of the cascade with
+    ``jit`` (KC), or ``L`` alone with no jitter and one factor (K8)."""
+    p, batch = mat.shape[-1], mat.shape[:-2]
+    _check("chol_wide: mat", mat, mat.shape, mat.device)
+    if jit is not None:
+        _check("chol_wide: jit", jit, batch, mat.device)
+    lib = build.load_library()
+    out = torch.empty_like(mat)
+    n = out.numel() // (p * p)
+    ld = f = None
+    if jit is not None:
+        ld, f = torch.empty((2,) + batch, dtype=mat.dtype, device=mat.device)
+    if n:
+        dev, stream = _where(mat)
+        if dev not in _WIDE_GRID:
+            grid = lib.pymra_chol_wide_grid(dev)
+            if grid < 1:
+                raise RuntimeError(f"chol_wide: no grid on device {dev}: "
+                                   f"CUDA error {-grid}")
+            _WIDE_GRID[dev] = grid
+        grid = min(n, _WIDE_GRID[dev])
+        # each persistent block's float64 panels
+        slabs = torch.empty((grid, p, p), dtype=torch.float64,
+                            device=mat.device)
+        fs = _factors(factors) if jit is not None else (1.0, 1.0, 1.0)
+        _launched("chol_wide", lib.pymra_chol_wide(
+            mat.data_ptr(), _ptr(jit), out.data_ptr(), _ptr(ld), _ptr(f),
+            slabs.data_ptr(), n, p, 3 if jit is not None else 1, *fs, grid,
+            dev, stream))
+    return out, ld, f
+
+
+def _cholesky_blocked_fwd(mat: torch.Tensor, block: int) -> torch.Tensor:
+    if mat.device.type == "cpu":
+        return cholesky_blocked_ref(mat, block)
+    _on_card("cholesky_blocked: mat", mat)
+    if _wide_kernel(mat.shape[-1], block):
+        cholesky_blocked.launches += 1
+        return _chol_wide(mat, None, None)[0]
+    cholesky_blocked.composed += 1
+    return _blocked(mat, block, cholesky, triangular_inverse_lower)
+
+
 def _cholesky_cascade_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     if mat.device.type == "cpu":
         return cholesky_cascade_ref(mat, jit, factors)
     _on_card("cholesky_cascade: mat", mat)
     batch, p = mat.shape[:-2], mat.shape[-1]
     _check("cholesky_cascade: jit", jit, batch, mat.device)
+    if _wide_kernel(p):
+        cholesky_cascade.launches += 1
+        return _chol_wide(mat, jit, factors)
     factor = cholesky if p <= MAX_P else cholesky_blocked
     (l,), ld, f = _escalate(mat.reshape(-1, p, p), jit.reshape(-1),
                             _factors(factors), _cascade_attempt(factor))
-    cholesky_cascade.launches += 1
+    cholesky_cascade.composed += 1
     return l.reshape(mat.shape), ld.reshape(batch), f.reshape(batch)
 
 
@@ -807,21 +869,24 @@ def _torch_solve(l, b, trans):
     return torch.linalg.solve_triangular(l, b, upper=False)
 
 
+def _chol_pullback(l, lbar, ldbar, f):
+    """The Cholesky pullback of a factor ``l``: one :func:`cholesky_pullback`
+    up to P = 64; wider the composition with torch's solve (cuBLAS on the
+    card), as the JAX cascade's JVP solves with XLA there."""
+    if l.shape[-1] <= MAX_P:
+        return cholesky_pullback(l, lbar, ldbar, f)
+    set_matmul_precision()
+    return _pullback(l, lbar, ldbar, f, _torch_solve)
+
+
 def _jittered_cholesky_backward(ctx, lbar, ldbar):
     """Backward of a jittered factorization ``(L, ld, f)`` of ``mat + f jit
-    I``, linearized at the selected factor (K2, KC): one
-    :func:`cholesky_pullback` up to P = 64; wider (KC only) the composition
-    with torch's solve (cuBLAS on the card), as the JAX cascade's JVP
-    solves with XLA there."""
+    I``, linearized at the selected factor (K2, KC)."""
     l, f = ctx.saved_tensors
     lbar = torch.zeros_like(l) if lbar is None else lbar.contiguous()
     ldbar = None if ldbar is None else ldbar.contiguous()
     f = f if ctx.needs_input_grad[1] else None
-    if l.shape[-1] <= MAX_P:
-        abar, jbar = cholesky_pullback(l, lbar, ldbar, f)
-    else:
-        set_matmul_precision()
-        abar, jbar = _pullback(l, lbar, ldbar, f, _torch_solve)
+    abar, jbar = _chol_pullback(l, lbar, ldbar, f)
     return abar, jbar, None
 
 
@@ -853,6 +918,20 @@ class _CholeskyCascade(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, lbar, ldbar, _fbar):
         return _jittered_cholesky_backward(ctx, lbar, ldbar)
+
+
+class _CholeskyBlocked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, block):
+        l = _cholesky_blocked_fwd(mat, block)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, lbar):
+        l, = ctx.saved_tensors
+        return _chol_pullback(l, lbar.contiguous(), None, None)[0], None
 
 
 def _leaf_posterior_pullback(x, libar, ldqbar):
@@ -1091,30 +1170,38 @@ cholesky_inv_logdet.launches = 0
 
 
 def cholesky_blocked(mat: torch.Tensor, block: int = MAX_P) -> torch.Tensor:
-    """Batched lower Cholesky for any width (K8): K4 factors each
-    ``block``-wide diagonal block, K3 inverts it, and the panel ``A21
-    L11^-T`` and the trailing downdate are ``torch.matmul`` outside the
-    kernels, as the JAX package's ``jnp.matmul``; a float32 input has them
-    carried in float64 (see :func:`_blocked`). NaN semantics of :func:`cholesky`: an indefinite block leaves NaN from
-    its failing column on, in its own member only. Differentiable through
-    the composition."""
-    if mat.device.type != "cpu":
-        _on_card("cholesky_blocked: mat", mat)
-        cholesky_blocked.launches += 1
-    return _blocked(mat, block, cholesky, triangular_inverse_lower)
+    """Batched lower Cholesky for any width (K8), with the NaN semantics of
+    :func:`cholesky`: an indefinite block leaves NaN from its failing
+    column on, in its own member only. A float32 input has its panels and
+    trailing downdates carried in float64 (see :func:`_blocked`).
+
+    On the card, by width: 64 < P <= 256 with ``block = 64`` is one launch
+    of ``ops/cuda/csrc/chol_wide.cu`` (counted in ``.launches``); any other
+    width or block runs the composition :func:`_blocked` — K4 on the
+    ``block``-wide diagonal blocks, K3 to invert them, ``torch.matmul`` for
+    the panel and the downdate — counted in ``.composed``. On the CPU the
+    twin. Differentiable by the Cholesky pullback of the factor
+    (symmetric in ``mat``), as :func:`cholesky_cascade`."""
+    return _CholeskyBlocked.apply(mat, int(block))
 
 
 cholesky_blocked.launches = 0
+cholesky_blocked.composed = 0
 
 
 def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     """Jittered lower Cholesky factor of ``mat + f*jit*I`` for any width,
     escalated per member while its factor has a non-finite entry (KC, the
     counterpart of the JAX package's ``_chol_cascade`` and
-    ``cholesky_cascade_lanes``): each attempt is K4 (P <= 64) or
-    :func:`cholesky_blocked`, and only the members that failed are
-    factored again — the factors of the JAX package's three unconditional
-    attempts, which exist only for TPU compile safety.
+    ``cholesky_cascade_lanes``).
+
+    On the card, by width: 64 < P <= 256 is one launch of
+    ``ops/cuda/csrc/chol_wide.cu``, which escalates each member in the
+    kernel (no host synchronization; counted in ``.launches``); other
+    widths run :func:`_escalate` over K4 (P <= 64) or
+    :func:`cholesky_blocked` attempts, refactoring only the members that
+    failed (counted in ``.composed``). The JAX package's three
+    unconditional attempts exist only for TPU compile safety.
 
     Returns ``(L, ld, f)`` as :func:`cholesky_jittered` does; differentiable
     in ``mat`` and ``jit`` at the selected factor.
@@ -1123,3 +1210,4 @@ def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
 
 
 cholesky_cascade.launches = 0
+cholesky_cascade.composed = 0

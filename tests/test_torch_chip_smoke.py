@@ -43,7 +43,7 @@ def test_kernel_phase_passes_with_twins():
     err, times = chip_smoke.phase_kernels(
         "cpu", ragged=9, chol_main=((8, 4),), leaf_main=((6, 17),),
         tri_main=((5, 17),), solve_main=((8, 4),), logdet_main=((7, 9),),
-        wide_widths=(70,), wide_main=((5, 96),), timer=_host_timer,
+        wide_widths=(65, 130), wide_main=((6, 96),), timer=_host_timer,
         dev_timer=_no_device_timer)
     # on the CPU each wrapper runs its twin, so kernel and twin agree
     # exactly — but the blocked inverse (P > 64), which is K3 on blocks
@@ -59,14 +59,16 @@ def test_kernel_phase_passes_with_twins():
                           ("solve_triangular_batched", 8, 4),
                           ("cholesky_logdet", 7, 9),
                           ("cholesky_inv_logdet", 7, 9),
-                          ("cholesky_blocked", 5, 96),
-                          ("cholesky_cascade", 5, 96),
-                          ("triangular_inverse_lower", 5, 96)}
+                          ("cholesky_blocked", 6, 96),
+                          ("cholesky_cascade", 6, 96),
+                          ("triangular_inverse_lower", 6, 96)}
     for key, rec in times.items():
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                            "operations")
         assert (rec["library_ms"] is None) == (key[0] == "leaf_factor")
         assert rec["device_ms"] is None and rec["device_launches"] == 0
+        # K8 and KC are also timed as the compositions they replaced
+        assert ("composed_ms" in rec) == (key[0] in chip_smoke.WIDE)
 
 
 def test_work_counts_bytes_and_escalated_attempts():
@@ -77,14 +79,15 @@ def test_work_counts_bytes_and_escalated_attempts():
     m, jit = (torch.as_tensor(x) for x in chip_smoke.chol_case(
         np.random.default_rng(0), 8, 4))
     out = tl.cholesky_jittered(m, jit)
-    nbytes, flops = chip_smoke.work("cholesky_jittered", [m, jit], list(out))
+    nbytes, flops, flops64 = chip_smoke.work("cholesky_jittered", [m, jit],
+                                             list(out))
     assert nbytes == 4 * (8 * 10 + 8 + 8 * 16 + 2 * 8)
-    assert flops == (8 + 1 + 1 + 2) * 4 ** 3 / 3
+    assert flops == (8 + 1 + 1 + 2) * 4 ** 3 / 3 and flops64 == 0
     lt = torch.as_tensor(chip_smoke.lower_case(np.random.default_rng(1), 3,
                                                4))
     b = torch.zeros(3, 4, 2)
     assert chip_smoke.work("solve_triangular_batched", [lt, b], [b]) == (
-        4 * (3 * 10 + 2 * 3 * 8), 3 * 16 * 2)
+        4 * (3 * 10 + 2 * 3 * 8), 3 * 16 * 2, 0.0)
     assert chip_smoke.work("triangular_inverse_lower", [lt], [lt])[0] == (
         4 * (3 * 10 + 3 * 16))
     assert chip_smoke.work("cholesky", [m], [m])[0] == 4 * (8 * 10 + 8 * 16)
@@ -101,15 +104,31 @@ def test_work_counts_bytes_and_escalated_attempts():
         np.random.default_rng(3), 5, 4))
     ld, f = tl.cholesky_logdet(m, jit)
     assert chip_smoke.work("cholesky_logdet", [m, jit], [ld, f]) == (
-        4 * (5 * 10 + 5 + 2 * 5), (5 + 1 + 1 + 2) * 4 ** 3 / 3)
+        4 * (5 * 10 + 5 + 2 * 5), (5 + 1 + 1 + 2) * 4 ** 3 / 3, 0.0)
     out = tl.cholesky_inv_logdet(m, jit)
     assert chip_smoke.work("cholesky_inv_logdet", [m, jit], list(out)) == (
-        4 * (5 * 10 + 5 + 5 * 16 + 2 * 5), (5 + 1 + 1 + 2) * 2 * 4 ** 3 / 3)
+        4 * (5 * 10 + 5 + 5 * 16 + 2 * 5), (5 + 1 + 1 + 2) * 2 * 4 ** 3 / 3,
+        0.0)
     out = tl.cholesky_cascade(m, jit)
-    assert chip_smoke.work("cholesky_cascade", [m, jit], list(out))[1] == (
-        (5 + 1 + 1 + 2) * 4 ** 3 / 3)
+    assert chip_smoke.work("cholesky_cascade", [m, jit], list(out))[1:] == (
+        (5 + 1 + 1 + 2) * 4 ** 3 / 3, 0.0)
     assert chip_smoke.work("cholesky_blocked", [m], [m]) == (
-        4 * (5 * 10 + 5 * 16), 5 * 4 ** 3 / 3)
+        4 * (5 * 10 + 5 * 16), 5 * 4 ** 3 / 3, 0.0)
+    # wider than 64 (the wide kernel): each 64-wide diagonal block (here
+    # 64 and 36) factored and inverted in float32, b^3/3 each, and the rest
+    # of the P^3/3, the panels and downdates, in float64; KC charges each
+    # attempt (members 1-3 of wide_case escalate: 2, 2 and 3 attempts)
+    diag = (64 ** 3 + 36 ** 3) / 3
+    assert chip_smoke.wide_flops(100) == (2 * diag, 100 ** 3 / 3 - diag)
+    assert chip_smoke.wide_flops(64) == (64 ** 3 / 3, 0.0)
+    mw, jw = (torch.as_tensor(x) for x in chip_smoke.wide_case(
+        np.random.default_rng(4), 4, 100))
+    out = tl.cholesky_cascade(mw, jw)
+    assert chip_smoke.work("cholesky_cascade", [mw, jw], list(out)) == (
+        4 * (4 * 5050 + 4 + 4 * 10000 + 2 * 4),
+        (4 + 1 + 1 + 2) * 2 * diag, (4 + 1 + 1 + 2) * (100 ** 3 / 3 - diag))
+    assert chip_smoke.work("cholesky_blocked", [mw], [mw])[1:] == (
+        4 * 2 * diag, 4 * (100 ** 3 / 3 - diag))
     # the fused pullback reads the lower triangles of L and Lbar (phi(L^T
     # Lbar) needs no more of Lbar) and two [B] vectors and writes Abar and
     # jbar; its product and two solves are P^3/3 + 2 P^3 flops a member
@@ -119,9 +138,12 @@ def test_work_counts_bytes_and_escalated_attempts():
     assert chip_smoke.work("cholesky_pullback", [l, lbar, ldbar, f],
                            list(out)) == (
         4 * (5 * 10 + 5 * 10 + 5 + 5 + 5 * 16 + 5),
-        5 * (4 ** 3 / 3 + 2 * 4 ** 3))
+        5 * (4 ** 3 / 3 + 2 * 4 ** 3), 0.0)
     assert chip_smoke.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
     assert chip_smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
+    # float64 operations at the FP64 tensor cores' 67 TFLOP/s, summed with
+    # the float32 ones
+    assert chip_smoke.bound_ms(1.0, 33.5e9, 33.5e9) == (1.0, "operations")
 
 
 def test_backward_phase_passes_with_twins():
@@ -132,7 +154,8 @@ def test_backward_phase_passes_with_twins():
         dev_timer=_no_device_timer)
     assert err == dict.fromkeys(
         ["cholesky_pullback", "cholesky_jittered", "leaf_factor",
-         "cholesky_logdet", "cholesky_inv_logdet", "cholesky_cascade"], 0.0)
+         "cholesky_logdet", "cholesky_inv_logdet", "cholesky_cascade",
+         "cholesky_blocked"], 0.0)
     assert set(times) == {("cholesky_jittered_backward", 8, 4),
                           ("cholesky_pullback", 8, 4)}
     assert times["cholesky_jittered_backward", 8, 4]["ms"] > 0

@@ -10,6 +10,11 @@ escalated to 1e2 and to 1e4, failing all three factors, fully masked, an
 exactly zero pivot. Float32 tolerances as ``tests/test_torch_linalg.py``:
 rtol 1e-4 / atol 1e-5, selected factors identical.
 """
+import ctypes
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 
@@ -101,3 +106,109 @@ def test_cholesky_zero_pivot_member(p):
     assert np.isnan(l[z, z]) and np.isposinf(l[z + 1, z])
     assert np.isnan(l[z + 1:, z + 1:][np.tril_indices(p - z - 1)]).all()
     assert (np.triu(l, 1) == 0).all()
+
+
+@pytest.mark.parametrize("p", [17, 64])
+def test_twins_divide_by_the_pivot(p):
+    # the column scale the register-tiled core is held to: the twins form
+    # L[j:, j] = S[j:, j] / sqrt(S[j, j]) by division, which differs in the
+    # last bit from S * (1 / sqrt(S[j, j])) on a random member (so this
+    # check can tell them apart); a NaN pivot, like a zero one, turns its
+    # column and the trailing block NaN and leaves the columns before it
+    # exact, whichever of the two forms the scale takes
+    rng = np.random.default_rng(p)
+    a = rng.standard_normal((p, p))
+    m = (a @ a.T / p + np.eye(p)).astype(np.float32)
+    z = p // 2
+    bad = np.eye(p, dtype=np.float32)
+    bad[z, z] = np.nan
+    mt = torch.as_tensor(np.stack([m, bad]))
+    l = tl.cholesky_ref(mt).numpy()
+    piv = np.sqrt(m[0, 0])
+    np.testing.assert_array_equal(l[0][:, 0], m[:, 0] / piv)
+    assert (m[:, 0] * (np.float32(1) / piv) != m[:, 0] / piv).any()
+    np.testing.assert_array_equal(l[1][:, :z], np.eye(p)[:, :z])
+    assert np.isnan(l[1][z:, z]).all()
+    assert np.isnan(l[1][z + 1:, z + 1:][np.tril_indices(p - z - 1)]).all()
+    assert (np.triu(l[1], 1) == 0).all()
+
+
+# the CUDA names chol_tile.cuh uses, for compiling it on the host
+_HOST_CUDA = """#pragma once
+#include <math.h>
+#define __device__
+#define __forceinline__ inline
+struct Dim3 { unsigned x, y, z; };
+static Dim3 threadIdx;
+inline void __syncthreads() {}
+"""
+_HOST_MAIN = """#include "chol_tile.cuh"
+extern "C" void quotients(const float* x, const float* den, float* out,
+                          long n) {
+  for (long i = 0; i < n; ++i) {
+    volatile float r = 1.f / den[i];  // as the core takes it, once a step
+    out[i] = chol_tile::quotient(x[i], den[i], r);
+  }
+}
+"""
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_core_quotient_is_the_division(tmp_path):
+    # the register-tiled core's column scale, compiled from the shipped
+    # header on the host (IEEE fmaf and division, no contraction, as nvcc
+    # builds it without fast-math), against x / den in float32 over the
+    # whole exponent range and the special values: bit for bit where the
+    # header says it is (2^-126 <= |den| <= 2^126, |x| >= 2^-100, quotient
+    # in [2^-126, 2^126]; a zero, infinite or NaN x or den), equal but for
+    # the sign for a zero x, and else an ulp off or, for a |den| below
+    # 2^-128, inf or NaN
+    from pymra_torch.ops.cuda import build
+
+    csrc = os.path.join(os.path.dirname(build.__file__), "csrc")
+    (tmp_path / "cuda_runtime.h").write_text(_HOST_CUDA)
+    (tmp_path / "main.cpp").write_text(_HOST_MAIN)
+    so = tmp_path / "libquotient.so"
+    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-std=c++17",
+                    "-shared", "-fPIC", "-I", str(tmp_path), "-I", csrc,
+                    str(tmp_path / "main.cpp"), "-o", str(so)], check=True)
+    fn = ctypes.CDLL(str(so)).quotients
+    rng = np.random.default_rng(0)
+    n = 400_000
+    x = (rng.uniform(1, 2, n) * np.exp2(rng.integers(-150, 128, n))
+         * rng.choice([-1, 1], n))
+    den = (rng.uniform(1, 2, n) * np.exp2(rng.integers(-149, 128, n))
+           * rng.choice([-1, 1], n))
+    edge = np.array([0.0, 1e-45, 1e-40, 2.0 ** -126, 2.0 ** -40, 2.0 ** 40,
+                     1.0, 3.0, 1e-30, 7e-20, 1e30, np.finfo(np.float32).max,
+                     np.inf, np.nan])
+    ex, ed = np.meshgrid(np.concatenate([edge, -edge]),
+                         np.concatenate([edge, -edge]))
+    x = np.ascontiguousarray(np.concatenate([x, ex.ravel()]), np.float32)
+    den = np.ascontiguousarray(np.concatenate([den, ed.ravel()]), np.float32)
+    got = np.empty_like(x)
+    fn(*(a.ctypes.data_as(ctypes.c_void_p) for a in (x, den, got)),
+       ctypes.c_long(x.size))
+    with np.errstate(all="ignore"):
+        want = x / den
+        tq = np.abs(x.astype(np.float64) / den)
+    ax, ad = np.abs(x), np.abs(den)
+    special = ~np.isfinite(x) | ~np.isfinite(den) | (den == 0)
+    exact = special | ((ad >= 2.0 ** -126) & (ad <= 2.0 ** 126)
+                       & (ax >= 2.0 ** -100) & (tq >= 2.0 ** -126)
+                       & (tq <= 2.0 ** 126))
+    assert exact.sum() > n // 3
+    np.testing.assert_array_equal(np.isnan(got[exact]), np.isnan(want[exact]))
+    num = exact & ~np.isnan(want)
+    np.testing.assert_array_equal(got[num].view(np.uint32),
+                                  want[num].view(np.uint32))
+    zero = ~exact & (x == 0) & (ad >= 2.0 ** -126)
+    assert zero.any() and (got[zero] == want[zero]).all()
+    rest = ~exact & ~zero
+    ulps = np.abs(got[rest].view(np.int32).astype(np.int64)
+                  - want[rest].view(np.int32))
+    tiny_den = ad[rest] < 2.0 ** -128
+    assert (ulps[~tiny_den] <= 1).all()
+    # the subnormal pivot: its reciprocal overflows, x / den is finite
+    sub = (x == np.float32(1e-30)) & (den == np.float32(1e-40))
+    assert np.isinf(got[sub]).all() and np.isfinite(want[sub]).all()

@@ -5,11 +5,12 @@ card in one call.
 Runs phases 1-3 of ``chip_smoke.py`` (device, build, every kernel against
 its twin, timed per call and on the device beside its library call and
 bound) and times the backward of ``cholesky_jittered`` as the sweep calls
-it, at the interior blocks' shapes; with ``--backward`` also phase 3b. Run
-from the root of the tree to time (its ``chip_smoke.py`` and package are
-the ones imported) on a machine with an NVIDIA GPU::
+it, at the interior blocks' shapes; with ``--backward`` also phase 3b,
+with ``--n10k`` phase 4 (the N=10^4 objective against its golden). Run
+from the root of the tree to time (its ``chip_smoke.py`` and package
+are the ones imported) on a machine with an NVIDIA GPU::
 
-    python3 tools/kernel_timing.py [--backward]
+    python3 tools/kernel_timing.py [--backward] [--n10k]
 
 """
 import argparse
@@ -27,6 +28,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--backward", action="store_true",
                         help="also run phase 3b")
+    parser.add_argument("--n10k", action="store_true",
+                        help="also run phase 4")
     args = parser.parse_args()
     cs.phase_device()
     cs.phase_build()
@@ -39,6 +42,8 @@ def main():
         print(f"K2 backward B={b} P={p}: {t}")
     if args.backward:
         cs.phase_backward()
+    if args.n10k:
+        cs.phase_n10k()
 
 
 if __name__ == "__main__":

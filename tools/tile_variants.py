@@ -14,6 +14,14 @@ shipped kernel's (they run the same arithmetic). Run from the repository
 root on a machine with an NVIDIA GPU::
 
     python3 tools/tile_variants.py [--blocks 8,10,12]
+
+With ``--scales quotient,division,reciprocal`` it builds instead, at the
+shipped launch bound, copies whose ``csrc/chol_tile.cuh`` scales each
+column otherwise: ``quotient`` as shipped (the reciprocal's FMA-corrected
+quotient), ``division`` IEEE division by the pivot, ``reciprocal`` the
+product with its reciprocal; each copy's body of ``quotient`` is replaced
+by the text in ``SCALES``. It says of each build whether its outputs are
+bit-identical to the division build's.
 """
 import argparse
 import ctypes
@@ -34,26 +42,47 @@ from pymra_torch.ops.cuda import build  # noqa: E402
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(build.__file__)), "csrc")
 BOUND_RE = re.compile(r"__launch_bounds__\(kThreads(, \d+)?\)")
+#: the body of chol_tile.cuh's quotient(x, den, r)
+QUOTIENT_RE = re.compile(r"(float quotient\([^)]*\) \{\n)(.*?)(\n\})", re.S)
+#: column scale -> body of quotient (None: as shipped)
+SCALES = {"quotient": None, "division": "  return x / den;",
+          "reciprocal": "  return x * r;"}
 B, P = 16384, 64
 
 
-def variant(src, blocks):
+def variant(src, blocks, scale=None):
     """Build ``src`` with at least ``blocks`` blocks an SM (None: as
-    shipped); returns (library, ptxas report)."""
+    shipped) and the core's column scale ``scale`` (a key of ``SCALES``;
+    None: as shipped); returns (library, ptxas report)."""
     with open(os.path.join(CSRC, src)) as fh:
         text = fh.read()
     assert len(BOUND_RE.findall(text)) == 1, f"{src}: no single bound"
     if blocks is not None:
         text = BOUND_RE.sub(f"__launch_bounds__(kThreads, {blocks})", text)
     tag = f"{os.path.splitext(src)[0]}_mb{blocks or 0}"
-    os.makedirs(os.path.join(BUILD_DIR, "variants"), exist_ok=True)
-    path = os.path.join(BUILD_DIR, "variants", tag + ".cu")
+    header = ""
+    if scale is not None:
+        tag += f"_{scale}"
+        with open(os.path.join(CSRC, "chol_tile.cuh")) as fh:
+            header = fh.read()
+        assert len(QUOTIENT_RE.findall(header)) == 1, "no single quotient"
+        if SCALES[scale] is not None:
+            header = QUOTIENT_RE.sub(
+                lambda m: m.group(1) + SCALES[scale] + m.group(3), header)
+    # a directory a variant: its own chol_tile.cuh is found first, beside
+    # the source that includes it
+    where = os.path.join(BUILD_DIR, "variants", tag)
+    os.makedirs(where, exist_ok=True)
+    path = os.path.join(where, src)
     with open(path, "w") as fh:
         fh.write(text)
+    if header:
+        with open(os.path.join(where, "chol_tile.cuh"), "w") as fh:
+            fh.write(header)
     so, log = build_shared_library(
         "libvariant_" + tag, [path],
         [build.nvcc_path()] + build.NVCC_FLAGS + ["-I", CSRC], timeout=900,
-        key=build._headers_key())
+        key=build._headers_key() + header)
     # the report of the 64-wide instantiation (NB = 8): the two lines
     # after its entry
     lines = log.splitlines()
@@ -66,11 +95,19 @@ def variant(src, blocks):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--blocks", default="8,10,12")
+    parser.add_argument("--scales", default="",
+                        help="column scales to build instead, of "
+                        + ", ".join(SCALES))
     args = parser.parse_args()
     blocks = [None] + [int(x) for x in args.blocks.split(",")]
     cs.phase_device()
-    jobs = [(src, n) for src in ("leaf_factor.cu", "cholesky.cu")
+    jobs = [(src, n, None) for src in ("leaf_factor.cu", "cholesky.cu")
             for n in blocks]
+    if args.scales:
+        jobs = [(src, None, sc) for src in ("leaf_factor.cu", "cholesky.cu")
+                # the division build first: the others are held to it
+                for sc in sorted(args.scales.split(","),
+                                 key=lambda x: x != "division")]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: variant(*j), jobs)))
 
@@ -82,7 +119,8 @@ def main():
     want_chol = tl.cholesky(m)
     stream = torch.cuda.current_stream().cuda_stream
     tier = tl.tile_tier(P)
-    for (src, n), (lib, report) in libs.items():
+    divided = {}
+    for (src, n, sc), (lib, report) in libs.items():
         if src == "leaf_factor.cu":
             fn = lib.pymra_leaf_factor
             fn.argtypes = build._SIGNATURES["pymra_leaf_factor"]
@@ -107,11 +145,27 @@ def main():
             want, fidx = (want_chol,), set()
         run()
         torch.cuda.synchronize()
-        err = cs.compare(f"{src} min blocks {n}", outs, want,
-                         factor_idx=fidx)
+        if sc is None:
+            err = cs.compare(f"{src} min blocks {n}", outs, want,
+                             factor_idx=fidx)
+        else:
+            # another rounding of the column: near a failing pivot the
+            # factor differs by more than the twin tolerance
+            err = max(float((o - w).abs().nan_to_num(0.0).max())
+                      for o, w in zip(outs, want))
         ms = cs.time_ms(run)
-        print(f"{src} min blocks {n}: {ms:.4f} ms at {B}x{P}, max|diff| "
-              f"vs shipped {err:.3g}; {' | '.join(report)}", flush=True)
+        same = ""
+        if sc is not None:
+            mine = [o.clone() for o in outs]
+            if sc == "division":
+                divided[src] = mine
+            if src in divided:
+                same = "; bit-identical to the division build: " + str(all(
+                    torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+                    for x, y in zip(mine, divided[src])))
+        print(f"{src} min blocks {n} column scale {sc}: {ms:.4f} ms at "
+              f"{B}x{P}, max|diff| vs shipped {err:.3g}{same}; "
+              f"{' | '.join(report)}", flush=True)
 
 
 if __name__ == "__main__":
