@@ -12,16 +12,17 @@ non-zero exit code and no result line:
    versions and the matmul precision settings the sweep pins;
 2. build: one ``nvcc`` per kernel source of ``pymra_torch/ops/cuda``, all
    at once;
-3. kernels: each of the eight forward CUDA kernels (the wide one,
+3. kernels: each of the nine forward CUDA kernels (the wide one,
    ``chol_wide.cu``, as K8 ``cholesky_blocked`` and as KC
-   ``cholesky_cascade``; and the blocked ``triangular_inverse_lower``)
-   against its plain PyTorch twin on the card at every shipped width (K2
-   and K5 at every width of their sub-warp kernels too), escalation and NaN
-   cases included, and kernel, twin and one PyTorch library call (a
-   yardstick the port never calls) timed at the paths' shapes, per call
-   (CUDA events) and on the device alone (``torch.profiler``), beside the
-   roofline bound of the same work and the share of it each time reaches
-   (K8 and KC also beside the compositions they replaced; KC once under
+   ``cholesky_cascade``; K3 ``triangular_inverse_lower`` as ``tri_inv.cu``
+   up to 64 and ``tri_inv_wide.cu`` above) against its plain PyTorch twin
+   on the card at every shipped width (K2 and K5 at every width of their
+   sub-warp kernels too), escalation and NaN cases included, and kernel,
+   twin and one PyTorch library call (a yardstick the port never calls)
+   timed at the paths' shapes, per call (CUDA events) and on the device
+   alone (``torch.profiler``), beside the roofline bound of the same work
+   and the share of it each time reaches (K8, KC and the wide K3 also
+   beside the compositions they replaced; KC and the wide K3 once under
    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization);
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
    the same tensors, member by member, timed as in phase 3; the autograd
@@ -57,8 +58,8 @@ non-zero exit code and no result line:
    posterior, peak memory, value and gradient against a five-point
    difference;
 12. launch counters over phases 10-11: K2-K7, the wide kernel (through
-   KC) and the pullback launched, no K8 or KC call composed at P <= 256,
-   no twin ran on a CUDA tensor.
+   KC), the wide K3 and the pullback launched, no K8, KC or K3 call
+   composed at P <= 256, no twin ran on a CUDA tensor.
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -140,9 +141,9 @@ PULLBACK_SHAPES = CHOL_MAIN + tuple((RAGGED_BATCH, p) for p in (1, 3, 5, 9,
                                                                  49))
 #: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49)
 LOGDET_MAIN = ((256, 49),)
-#: widths of K8, KC (the wide kernel takes 64 < P <= 256) and the blocked
-#: inverse, and their paths' shapes: the N=10^4 tree at M=3 (P=169) and the
-#: N=10^6 grid at M=6 (P=256)
+#: widths of K8, KC (the wide kernel takes 64 < P <= 256) and the wide K3,
+#: and their paths' shapes: the N=10^4 tree at M=3 (P=169) and the N=10^6
+#: grid at M=6 (P=256)
 WIDE_WIDTHS = (65, 96, 128, 169, 192, 256)
 WIDE_MAIN = ((64, 169), (4096, 256))
 
@@ -185,25 +186,35 @@ def _spin():
     torch.cuda.synchronize()
 
 
-#: the wrappers whose counter counts kernel launches (K8's and KC's their
-#: launches of the wide kernel; their calls at other widths, which compose
-#: other kernels, count in ``.composed``), and the kernels they launch, by
-#: the names of their ``__global__`` functions in
-#: ``pymra_torch/ops/cuda/csrc``
-LAUNCHING = ("leaf_factor", "cholesky_jittered", "cholesky",
-             "triangular_inverse_lower", "solve_triangular_batched",
-             "cholesky_pullback", "cholesky_logdet", "cholesky_inv_logdet",
-             "cholesky_blocked", "cholesky_cascade")
+#: the kernels the wrappers launch, by the names of their ``__global__``
+#: functions in ``pymra_torch/ops/cuda/csrc``
 KERNEL_SYMBOLS = ("leaf_factor_kernel", "chol_jittered_", "cholesky_kernel",
-                  "tri_inv_kernel", "tri_solve_kernel", "chol_pullback_",
-                  "chol_logdet_kernel", "chol_inv_logdet_kernel",
-                  "chol_wide_kernel")
+                  "tri_inv_kernel", "tri_inv_wide_kernel", "tri_solve_kernel",
+                  "chol_pullback_", "chol_logdet_kernel",
+                  "chol_inv_logdet_kernel", "chol_wide_kernel")
+#: a kernel record whose wrapper launches two kernels: (wrapper, the
+#: counter of its launches of this one); every other record is named by
+#: its wrapper, whose ``.launches`` counts its kernel's launches (K8's and
+#: KC's their launches of the wide kernel)
+COUNTERS = {"triangular_inverse_lower_wide": ("triangular_inverse_lower",
+                                              "wide_launches")}
+
+
+def wrapper_of(name: str) -> tuple[str, str]:
+    """(wrapper, counter attribute) of a kernel record."""
+    return COUNTERS.get(name, (name, "launches"))
+
+
+def launches_of(tl, name: str) -> int:
+    """The launches counted so far of a kernel record's kernel."""
+    wrapper, attr = wrapper_of(name)
+    return getattr(getattr(tl, wrapper), attr)
 
 
 def _wrapper_launches() -> int:
     from pymra_torch.ops import linalg as tl
 
-    return sum(getattr(tl, n).launches for n in LAUNCHING)
+    return sum(launches_of(tl, n) for n in KERNEL_NAMES)
 
 
 def device_ms(fn, reps: int = 10,
@@ -380,6 +391,47 @@ def lower_case(rng, b, p):
     low = np.tril(rng.standard_normal((b, p, p)), -1) * (0.5 / np.sqrt(p))
     diag = rng.uniform(1.0, 2.0, (b, p))
     return (low + diag[:, :, None] * np.eye(p)).astype(np.float32)
+
+
+def tri_case(rng, b, p):
+    """``lower_case`` and, when b >= 5, members K3's kernels leave to the
+    twin's whole-row substitution: member 1 with an exactly zero diagonal
+    entry (row P // 2), member 2 with a NaN below the diagonal (row 100 or
+    the last: in the first block column's panel when P > 100), member 3
+    with a subnormal diagonal entry (its row's quotients overflow), and
+    member 4 whose first three diagonal entries are 1e-20 (finite and in
+    the quotient's range, but its inverse overflows to inf)."""
+    lt = lower_case(rng, b, p)
+    if b >= 5:
+        z = p // 2
+        lt[1, z, z] = 0.0
+        r = min(100, p - 1)
+        lt[2, r, min(3, r)] = np.nan
+        lt[3, p - 1, p - 1] = 1e-39
+        for i in range(min(3, p)):
+            lt[4, i, i] = 1e-20
+    return lt
+
+
+def check_tri_inv(name, got, lt):
+    """K3's result against its twin, each member held to its own scale,
+    identical inf and NaN patterns, and exact zeros above the diagonal of
+    every member whose result is finite. Returns the max error over those
+    members (the others' finite entries reach 1e35)."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    want = tl.triangular_inverse_lower_ref(lt)
+    compare(name, (got,), (want,), per_member=True)
+    g, w = got.cpu(), want.cpu()
+    check(torch.equal(torch.isnan(g), torch.isnan(w))
+          and torch.equal(torch.isinf(g), torch.isinf(w)),
+          f"{name}: inf / NaN pattern differs from the twin's")
+    fin = torch.isfinite(w).flatten(1).all(1)
+    check(bool((torch.triu(g[fin], 1) == 0).all()),
+          f"{name}: a finite member has a nonzero above the diagonal")
+    return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
 
 
 def compare(name, got, want, factor_idx=frozenset(), per_member=False):
@@ -649,15 +701,17 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                           lambda: torch.linalg.cholesky_ex(mt), [mt])
         print(line)
 
+    # K3: tri_case's members that take the twin's whole-row substitution
+    # in the kernel are checked; the times are taken on healthy factors
     for b, p in shapes:
-        lt = dv(lower_case(rng, b, p))
-        got = tl.triangular_inverse_lower(lt)
-        e = compare(f"triangular_inverse_lower {b}x{p}", (got,),
-                    (tl.triangular_inverse_lower_ref(lt),))
+        lt = dv(tri_case(rng, b, p))
+        e = check_tri_inv(f"triangular_inverse_lower {b}x{p}",
+                          tl.triangular_inverse_lower(lt), lt)
         err["triangular_inverse_lower"] = max(
             err["triangular_inverse_lower"], e)
         line = f"triangular_inverse_lower B={b} P={p}: max|diff| {e:.3g}"
         if (b, p) in tri_main:
+            lt = dv(lower_case(rng, b, p))
             eye = torch.eye(p, device=dev).expand_as(lt)
             line += timed(
                 times, ("triangular_inverse_lower", b, p), timer, dev_timer,
@@ -666,6 +720,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 lambda: torch.linalg.solve_triangular(lt, eye, upper=False),
                 [lt])
         print(line)
+        del lt
 
     # K5 with Q = P, both directions; the dense-R whitening solves forward,
     # the Cholesky pullback solved with the transpose
@@ -727,10 +782,10 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                               library, [mt, jt])
             print(line)
 
-    # K8 and KC (one wide kernel), and the blocked inverse: K8 has no
-    # jitter, so wide_case's failing members are NaN from their failing
-    # column on; KC escalates them (member 4 to 1e4) or fails all three
-    # (the -I and NaN members)
+    # K8 and KC (one wide kernel), and the wide K3: K8 has no jitter, so
+    # wide_case's failing members are NaN from their failing column on; KC
+    # escalates them (member 4 to 1e4) or fails all three (the -I and NaN
+    # members)
     shapes = [(ragged, p) for p in wide_widths] + list(wide_main)
     for b, p in shapes:
         m, jit = wide_case(rng, b, p)
@@ -803,23 +858,41 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         print(line)
         del got, m, mt
 
-        lt = dv(lower_case(rng, b, p))
-        got = tl.triangular_inverse_lower(lt)
-        e = compare(f"triangular_inverse_lower (blocked) {b}x{p}", (got,),
-                    (tl.triangular_inverse_lower_ref(lt),))
-        err["triangular_inverse_lower"] = max(
-            err["triangular_inverse_lower"], e)
-        line = (f"triangular_inverse_lower (blocked) B={b} P={p}: "
+        # on the CPU the wrapper above 64 is the blocked composition over
+        # the twin, whose matmuls spread a member's NaN by columns where
+        # the twin's whole-row updates spread it by rows: the twin's inf
+        # and NaN patterns are the kernel's, held on the card only
+        odd = dev.type == "cuda"
+        lt = dv(tri_case(rng, b, p) if odd else lower_case(rng, b, p))
+        e = check_tri_inv(f"triangular_inverse_lower (wide) {b}x{p}",
+                          tl.triangular_inverse_lower(lt), lt)
+        err["triangular_inverse_lower_wide"] = max(
+            err["triangular_inverse_lower_wide"], e)
+        line = (f"triangular_inverse_lower (wide) B={b} P={p}: "
                 f"max|diff| {e:.3g}")
         if main:
+            key = ("triangular_inverse_lower_wide", b, p)
+            lt = dv(lower_case(rng, b, p))
             line += timed(
-                times, ("triangular_inverse_lower", b, p), timer, dev_timer,
+                times, key, timer, dev_timer,
                 lambda: tl.triangular_inverse_lower(lt),
                 lambda: tl.triangular_inverse_lower_ref(lt),
                 lambda: torch.linalg.solve_triangular(
                     lt, eye.expand_as(lt), upper=False), [lt])
+            # the composition it replaced: the P <= 64 kernel on the
+            # 64-wide diagonal blocks, float32 matmuls for the rest
+            ms = timer(lambda: tl._tri_inv_blocked(lt, tl._tri_inv_fwd))
+            times[key]["composed_ms"] = ms
+            line += f"; the composition it replaced {ms:.4f} ms"
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tl.triangular_inverse_lower(lt)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                line += "; no host synchronization (sync debug mode error)"
         print(line)
-        del got, lt
+        del lt
     return err, times
 
 
@@ -1400,6 +1473,8 @@ KERNELS = (
      "pymra_tpu/ops/pallas/linalg.py:123", CHOL_MAIN[-1]),
     ("triangular_inverse_lower", "tri_inv.cu",
      "pymra_tpu/ops/pallas/linalg.py:439", TRI_MAIN[-1]),
+    ("triangular_inverse_lower_wide", "tri_inv_wide.cu",
+     "pymra_tpu/ops/pallas/linalg.py:439,1072", WIDE_MAIN[-1]),
     ("cholesky", "cholesky.cu", "pymra_tpu/ops/pallas/linalg.py:99",
      TRI_MAIN[-1]),
     ("solve_triangular_batched", "tri_solve.cu",
@@ -1419,6 +1494,9 @@ KERNEL_NAMES = tuple(n for n, *_ in KERNELS)
 #: the two wrappers of the wide kernel (64 < P <= 256); other widths
 #: compose other kernels and count in ``.composed``
 WIDE = ("cholesky_blocked", "cholesky_cascade")
+#: the wrappers that count their calls that compose other kernels in
+#: ``.composed`` (K3 wider than 256 too)
+COMPOSING = WIDE + ("triangular_inverse_lower",)
 #: kernels that run only in backward passes (checked in phase 3b)
 BACKWARD_KERNELS = ("cholesky_pullback",)
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
@@ -1435,30 +1513,31 @@ SLICE3_KERNELS = tuple(n for n in KERNEL_NAMES[1:]
 
 def reset_counters(tl):
     for name, *_ in KERNELS:
-        getattr(tl, name).launches = 0
-        getattr(tl, name + "_ref").cuda_calls = 0
-    for name in WIDE:
+        wrapper, attr = wrapper_of(name)
+        setattr(getattr(tl, wrapper), attr, 0)
+        getattr(tl, wrapper + "_ref").cuda_calls = 0
+    for name in COMPOSING:
         getattr(tl, name).composed = 0
 
 
 def read_counters(tl, title, names):
     """Print the launch counts of a path; every kernel in ``names`` must
-    have launched, no twin may have run on a CUDA tensor, and K8 and KC
-    may not have composed other kernels (every matrix the paths factor is
-    at most 256 wide)."""
-    launches = {n: getattr(tl, n).launches for n, *_ in KERNELS}
-    twins = {f"{n}_ref": getattr(tl, f"{n}_ref").cuda_calls
-             for n, *_ in KERNELS}
-    composed = {n: getattr(tl, n).composed for n in WIDE}
+    have launched, no twin may have run on a CUDA tensor, and K8, KC and
+    K3 may not have composed other kernels (every matrix the paths factor
+    or invert is at most 256 wide)."""
+    launches = {n: launches_of(tl, n) for n, *_ in KERNELS}
+    twins = {f"{w}_ref": getattr(tl, f"{w}_ref").cuda_calls
+             for w in dict.fromkeys(wrapper_of(n)[0] for n, *_ in KERNELS)}
+    composed = {n: getattr(tl, n).composed for n in COMPOSING}
     print(f"== {title}")
     print(f"kernel launches {launches}; twin calls on CUDA tensors {twins}; "
-          f"composed K8/KC calls {composed}")
+          f"composed K8/KC/K3 calls {composed}")
     missing = [n for n in names if launches[n] == 0]
     check(not missing, f"kernels of the path never launched: {missing}")
     check(all(v == 0 for v in twins.values()),
           "a plain twin ran on a CUDA tensor in the path")
     check(all(v == 0 for v in composed.values()),
-          f"K8/KC composed other kernels in the path: {composed}")
+          f"K8/KC/K3 composed other kernels in the path: {composed}")
     return launches
 
 
@@ -1522,9 +1601,12 @@ def main() -> int:
                               "_tri_solve_kernel (:366) twice and the "
                               "symmetrization"}
         if name == "triangular_inverse_lower":
-            wb, wp = WIDE_MAIN[-1]
-            extra = {"blocked": {"shape": f"{wb}x{wp}x{wp}",
-                                 **times[(name, wb, wp)]}}
+            extra = {"small": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
+                               for sb, sp in TRI_MAIN[:-1]}}
+        if name == "triangular_inverse_lower_wide":
+            extra = {"composed_ms": times[(name, b, p)].pop("composed_ms"),
+                     "small": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
+                               for sb, sp in WIDE_MAIN[:-1]}}
         rec.append({"name": name, "route": "cuda",
                     "source": f"pymra_torch/ops/cuda/csrc/{src}",
                     "replaces": replaces, "launches": n_launch,

@@ -48,8 +48,10 @@ _SIGNATURES = {
                           _F, _F, _F, _I, _P],
     # a, l, batch, p, tier, device, stream
     "pymra_cholesky": [_P, _P, _I, _I, _I, _I, _P],
+    # l, x, batch, p, tier, device, stream
+    "pymra_tri_inv": [_P, _P, _I, _I, _I, _I, _P],
     # l, x, batch, p, device, stream
-    "pymra_tri_inv": [_P, _P, _I, _I, _I, _P],
+    "pymra_tri_inv_wide": [_P, _P, _I, _I, _I, _P],
     # l, b, x, batch, p, q, transpose, device, stream
     "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, device,

@@ -1,11 +1,18 @@
 // Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
-// shared by K1 leaf_factor.cu and K4 cholesky.cu.
+// shared by K1 leaf_factor.cu, K4 cholesky.cu and K3 tri_inv.cu and
+// tri_inv_wide.cu.
 //
-// Replaces the column loops of the TPU kernels _chol_kernel (K4) and
-// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1) in
-// pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one member,
-// in three modes: the half log-pivot sum alone (K1's prior), the factor
-// (K4), and the factor's inverse formed alongside it (K1's posterior).
+// Replaces the column loops of the TPU kernels _chol_kernel (K4),
+// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1) and _tri_inv_kernel
+// (K3) in pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one
+// member, in three modes: the half log-pivot sum alone (K1's prior), the
+// factor (K4), and the factor's inverse formed alongside it (K1's
+// posterior); and a fourth that inverts a given lower factor (K3): L stays
+// as it is in the tile map, column j of L and row j of X are broadcast a
+// step, row j of X is scaled by its owners with the quotient by L[j][j]
+// and the rows below take their multiply-subtracts on registers — the
+// twins' forward substitution (_forward_subst), the subtractions in
+// ascending j, then the division.
 //
 // What bounds it on this card: not HBM (a 64 x 64 member reads ~8 KB and
 // does ~87 KFLOP), but the serial column loop. The first kernels (one
@@ -58,7 +65,9 @@
 // division gives but at the edges of the float range (see quotient
 // below); an exactly zero pivot gives -inf, a negative one NaN, and a
 // zero or NaN pivot spreads inf and NaN (x / 0) through its column and
-// the trailing block as the twins' division does. The product x * (1 /
+// the trailing block as the twins' division does (K3's mode leaves a
+// member with such a diagonal, or a non-finite entry, to substitute(),
+// which runs the twins' whole rows). The product x * (1 /
 // pivot) in its place, one rounding off the twins, moved the N=10^4
 // objective from 1.31e-4 to 2.91e-4 off its golden, K4 against its twin
 // from 1.4e-5 to 3.8e-5 and K6's backward from 2.4e-4 to 7.3e-4; IEEE
@@ -94,7 +103,12 @@ namespace chol_tile {
 // pivot that small leaves the twins' next pivots hugely negative unless
 // its column is zero. Checking the range at every entry, with division
 // where it fails, made K1 and K4 1.25-1.84 times slower on the H100
-// (PERF.md), so the core does without.
+// (PERF.md), so the core does without. K3's mode divides by a diagonal
+// the caller gave: its kernels check every diagonal entry once, with
+// regular() below, and send a member with one outside [2^-126, 2^126] to
+// substitute(), which divides; so K3 departs from the twins' division
+// only by an ulp, where |x| < 2^-100 or the quotient lies outside
+// [2^-126, 2^126].
 __device__ __forceinline__ float quotient(float x, float den, float r) {
   const float q = x * r;
   const float q1 = fmaf(fmaf(-q, den, x), r, q);
@@ -108,15 +122,58 @@ enum class Mode {
   kLogdet,   // sum_j log d_j of the downdated pivots (the caller halves it)
   kFactor,   // S becomes L (column j: S'[j:, j] / sqrt(S'[j, j]))
   kInverse,  // X becomes L^-1 (set up by the core); returns sum_j log L_jj
+  kTriInv,   // S holds a lower factor L, left as it is; X becomes L^-1
+             // (set up by the core); returns 0
 };
 
-// a thread's place in the member's grid
+// a thread's place in the member's grid, from its index among the
+// member's kThreads
 struct Place {
   int r, c;
 };
 
-__device__ __forceinline__ Place place() {
-  return {(int)threadIdx.x / kGrid, (int)threadIdx.x % kGrid};
+__device__ __forceinline__ Place place(int tid = threadIdx.x) {
+  return {tid / kGrid, tid % kGrid};
+}
+
+// The member's barrier: the whole block (one member a block), or named
+// barrier `id` of the kThreads threads (two whole warps) that own the
+// member, where a block holds several members (tri_inv_wide.cu).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct GroupSync {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+  }
+};
+
+// Whether entry v of a given lower factor lets the inverse mode run: a
+// finite entry below the diagonal; on it a divisor in the quotient's exact
+// range, 2^-126 <= |v| <= 2^126 (no zero, subnormal, huge, inf or NaN).
+// A member with any other entry goes to substitute() instead.
+__device__ __forceinline__ bool regular(float v, bool diagonal) {
+  const float a = fabsf(v);
+  return diagonal ? (a >= 0x1p-126f && a <= 0x1p126f) : isfinite(v);
+}
+
+// X = L^-1 over whole rows, the twins' forward substitution of the
+// identity in their order: X[i][c] = (delta_ic - sum_{k<i} L[i][k]
+// X[k][c]) / L[i][i], the sum in ascending k, every column c (also above
+// the diagonal, where a zero, inf or NaN entry of L spreads NaN as the
+// twins' whole-row updates do). Thread `c0` of `n` takes columns c0, c0 +
+// n, ...; it reads back only its own columns of x, so no barrier. The
+// path of the members regular() refuses: slow (p^2 / 2 dependent steps a
+// column), and rare.
+__device__ __forceinline__ void substitute(const float* l, float* x, int p,
+                                           int ld, int c0, int n) {
+  for (int c = c0; c < p; c += n)
+    for (int i = 0; i < p; ++i) {
+      float acc = i == c ? 1.f : 0.f;
+      for (int k = 0; k < i; ++k) acc -= l[i * ld + k] * x[k * ld + c];
+      x[i * ld + c] = acc / l[i * ld + i];
+    }
 }
 
 // true where (r + 8a, c + 8b) lies on or below the diagonal (b <= a)
@@ -141,12 +198,13 @@ __device__ __forceinline__ void assemble(float (&s)[NB][NB], int p,
   }
 }
 
-// Store the whole [p, p] matrix: the tile map's lower entries, zeros above
-// the diagonal.
+// Store the whole [p, p] matrix, rows `ld` floats apart (0: p): the tile
+// map's lower entries, zeros above the diagonal.
 template <int NB>
 __device__ __forceinline__ void store(const float (&s)[NB][NB],
                                       float* __restrict__ out, int p,
-                                      Place t) {
+                                      Place t, int ld = 0) {
+  if (ld == 0) ld = p;
 #pragma unroll
   for (int a = 0; a < NB; ++a) {
     const int i = t.r + kGrid * a;
@@ -157,17 +215,20 @@ __device__ __forceinline__ void store(const float (&s)[NB][NB],
       if (k >= p) continue;
       float v = 0.f;
       if (lower(a, b, t)) v = s[a][b];
-      out[i * p + k] = v;
+      out[i * ld + k] = v;
     }
   }
 }
 
 // The owners of column 8 bn + jn of S (and of row 8 bn + jn of X) put it
-// into the step's buffers: rows a >= bn of S, columns b <= bn of X.
+// into the step's buffers: rows a >= bn of S, columns b <= bn of X. In
+// kTriInv the row of X goes in already scaled by its diagonal entry of L
+// (`diag`): its 8 owners take the quotients once for the 64 threads.
 template <int NB, Mode M>
 __device__ __forceinline__ void put(const float (&s)[NB][NB],
                                     const float (&x)[NB][NB], float* col,
-                                    float* xrow, int bn, int jn, Place t) {
+                                    float* xrow, const float* diag, int bn,
+                                    int jn, Place t) {
   if (t.c == jn) {
 #pragma unroll
     for (int a = 0; a < NB; ++a)
@@ -178,23 +239,34 @@ __device__ __forceinline__ void put(const float (&s)[NB][NB],
     for (int b = 0; b < NB; ++b)
       if (b <= bn) xrow[t.c * NB + b] = x[bn][b];
   }
+  if (M == Mode::kTriInv && t.r == jn) {
+    const float den = diag[kGrid * bn + jn], r = 1.f / den;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b <= bn) xrow[t.c * NB + b] = quotient(x[bn][b], den, r);
+  }
 }
 
 // Factor the member held in `s` of width p <= 8 NB (kInverse: into `x`,
-// which it starts from the identity itself); `col` and `xrow` are 2 * 8 *
-// NB floats of shared memory each (xrow unused but for kInverse). Every
-// thread returns the same log-pivot sum. Block-wide barriers: the
-// caller's threads are exactly the member's kThreads.
-template <int NB, Mode M>
+// which it starts from the identity itself; kTriInv: invert the factor in
+// `s` into `x`, with L's diagonal in `diag`, p floats of shared memory the
+// caller filled before the call); `col` and `xrow` are 2 * 8 * NB floats
+// of shared memory each (xrow unused but for kInverse and kTriInv). Every
+// thread returns the same log-pivot sum. Barriers by `sync`: the member's
+// kThreads threads meet there (by default the caller's whole block).
+template <int NB, Mode M, class Sync = BlockSync>
 __device__ __forceinline__ float factor(float (&s)[NB][NB],
                                         float (&x)[NB][NB], float* col,
-                                        float* xrow, int p, Place t) {
+                                        float* xrow, int p, Place t,
+                                        Sync sync = Sync(),
+                                        const float* diag = nullptr) {
   constexpr int kBuf = kGrid * NB;
-  __syncthreads();  // the buffers' last readers (an earlier call) are done
+  constexpr bool kX = M == Mode::kInverse || M == Mode::kTriInv;
+  sync();  // the buffers' last readers (an earlier call) are done
   float acc = 0.f;
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    if (M == Mode::kInverse) {
+    if (kX) {
       // X's column block q is the identity until block q's steps: set it
       // one block ahead (row 8q of X is put at the end of block q - 1), so
       // that it takes no register earlier
@@ -206,29 +278,33 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
           if (a >= q) x[a][q] = (a == q && t.r == t.c) ? 1.f : 0.f;
       }
     }
-    if (b == 0) put<NB, M>(s, x, col, xrow, 0, 0, t);
+    if (b == 0) put<NB, M>(s, x, col, xrow, diag, 0, 0, t);
     for (int jc = 0; jc < kGrid; ++jc) {
       const int j = kGrid * b + jc;
       if (j >= p) break;  // uniform
-      __syncthreads();
+      sync();
       const float* cb = col + (j & 1) * kBuf;
       const float d = cb[jc * NB + b];
-      float den;  // kLogdet: d; else sqrt(d)
+      // kLogdet: d; kFactor, kInverse: sqrt(d); kTriInv: unused (put
+      // scaled row j of X by L[j][j] = d)
+      float den = d;
       if (M == Mode::kLogdet) {
         acc += logf(d);
-        den = d;
-      } else {
+      } else if (M != Mode::kTriInv) {
         den = sqrtf(d);
         acc += logf(den);
       }
       const float rs = 1.f / den;
       auto scale = [&](float v) { return quotient(v, den, rs); };
-      // rows: S[i][j] / d (kLogdet) or L[i][j]; columns: S[k][j] or L[k][j]
+      // rows: S[i][j] / d (kLogdet) or L[i][j] (kTriInv: as given);
+      // columns: S[k][j] or L[k][j] (kTriInv: none, L is not downdated)
       float rv[NB], cv[NB];
 #pragma unroll
       for (int a = 0; a < NB; ++a) {
         if (a < b) continue;
-        rv[a] = scale(cb[t.r * NB + a]);
+        const float u = cb[t.r * NB + a];
+        rv[a] = M == Mode::kTriInv ? u : scale(u);
+        if (M == Mode::kTriInv) continue;
         const float v = cb[t.c * NB + a];
         cv[a] = M == Mode::kLogdet ? v : scale(v);
       }
@@ -238,14 +314,17 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
         for (int a = 0; a < NB; ++a)
           if (a > b || (a == b && t.r >= jc)) s[a][b] = rv[a];
       }
-      if (M == Mode::kInverse) {
-        // row j of X scaled by 1 / L_jj, then X[i][q] -= L[i][j] X[j][q]
-        // for i > j, q <= j
+      if (kX) {
+        // row j of X scaled by 1 / L_jj (kTriInv: by its owners, in the
+        // buffer), then X[i][q] -= L[i][j] X[j][q] for i > j, q <= j
         const float* xb = xrow + (j & 1) * kBuf;
         float xv[NB];
 #pragma unroll
-        for (int q = 0; q < NB; ++q)
-          if (q <= b) xv[q] = scale(xb[t.c * NB + q]);
+        for (int q = 0; q < NB; ++q) {
+          if (q > b) continue;
+          const float v = xb[t.c * NB + q];
+          xv[q] = M == Mode::kTriInv ? v : scale(v);
+        }
         const bool qdone = t.c <= jc;
         if (t.r == jc) {
 #pragma unroll
@@ -267,7 +346,7 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
       const bool cpast = t.c > jc, low = t.c <= t.r;
 #pragma unroll
       for (int a = 0; a < NB; ++a) {
-        if (a < b) continue;
+        if (a < b || M == Mode::kTriInv) continue;
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
           if (k < b || k > a) continue;
@@ -277,12 +356,11 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
       // the next step's column (and row of X) into the other buffers
       if (j + 1 < p) {
         float* cn = col + ((j + 1) & 1) * kBuf;
-        float* xn = M == Mode::kInverse ? xrow + ((j + 1) & 1) * kBuf
-                                        : xrow;
+        float* xn = kX ? xrow + ((j + 1) & 1) * kBuf : xrow;
         if (jc + 1 < kGrid)
-          put<NB, M>(s, x, cn, xn, b, jc + 1, t);
+          put<NB, M>(s, x, cn, xn, diag, b, jc + 1, t);
         else if (b + 1 < NB)
-          put<NB, M>(s, x, cn, xn, b + 1 < NB ? b + 1 : b, 0, t);
+          put<NB, M>(s, x, cn, xn, diag, b + 1 < NB ? b + 1 : b, 0, t);
       }
     }
   }

@@ -10,9 +10,13 @@ custom VJP, or a composition of such):
   on the register-tiled core ``chol_tile.cuh`` it shares with K1 (width
   tier from :func:`tile_tier`).
 * :func:`triangular_inverse_lower` — explicit inverse of a lower triangle
-  (replaces K3, ``_tri_inv_kernel``); ``ops/cuda/csrc/tri_inv.cu``. Wider
-  than 64 it is blocked: K3 on the 64-wide diagonal blocks, ``torch.matmul``
-  for the off-diagonal ones (the JAX package's ``_tri_inv_recursive``).
+  (replaces K3, ``_tri_inv_kernel``): up to 64 wide
+  ``ops/cuda/csrc/tri_inv.cu`` on the register-tiled core ``chol_tile.cuh``
+  (width tier from :func:`tile_tier`); for 64 < P <= 256 one launch of
+  ``ops/cuda/csrc/tri_inv_wide.cu`` (the core on the 64-wide diagonal
+  blocks, float32 block products for the rest); wider the blocked
+  composition (the JAX package's ``_tri_inv_recursive``: the first kernel
+  on 64-wide diagonal blocks, ``torch.matmul`` for the off-diagonal ones).
 * :func:`solve_triangular_batched` — ``L x = b`` or ``L^T x = b``
   (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``.
 * :func:`cholesky_pullback` — the Cholesky pullback of K2 and K4 (and KC
@@ -85,8 +89,9 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
            "cholesky_cascade", "cholesky_cascade_ref"]
 
 FACTORS = (1.0, 1e2, 1e4)
-#: widest block the single-block kernels take; wider goes through the
-#: blocked compositions (K8 ``cholesky_blocked``, the blocked
+#: widest block the single-block kernels take; wider goes through the wide
+#: kernels (``chol_wide.cu``, ``tri_inv_wide.cu``) or the blocked
+#: compositions (K8 ``cholesky_blocked``, the blocked
 #: ``triangular_inverse_lower``, KC ``cholesky_cascade``)
 MAX_P = 64
 #: shared-memory budget of one K5 block (the kernel's static limit)
@@ -468,7 +473,7 @@ def _check_square(name: str, t: torch.Tensor) -> int:
         raise ValueError(
             f"{name}: P={p} > {MAX_P}, wider than one block of the kernel; "
             "wider matrices go through cholesky_blocked / cholesky_cascade "
-            "and the blocked triangular_inverse_lower")
+            "and triangular_inverse_lower")
     return p
 
 
@@ -516,36 +521,59 @@ def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _tri_inv_blocked(l: torch.Tensor) -> torch.Tensor:
-    """``L^-1`` for P > 64 by ``inv([[A, 0], [B, C]]) = [[A^-1, 0],
-    [-C^-1 B A^-1, C^-1]]`` (the JAX package's ``_tri_inv_recursive``),
-    split at a multiple of 64 so that every diagonal block K3 inverts is
-    64 wide but the last; the off-diagonal blocks are matmuls."""
+def _tri_inv_blocked(l: torch.Tensor, inv: Callable) -> torch.Tensor:
+    """``L^-1`` by ``inv([[A, 0], [B, C]]) = [[A^-1, 0], [-C^-1 B A^-1,
+    C^-1]]`` (the JAX package's ``_tri_inv_recursive``), split at a
+    multiple of 64 so that every diagonal block ``inv`` inverts is 64 wide
+    but the last; the off-diagonal blocks are matmuls. Up to 64 wide,
+    ``inv`` alone."""
     p = l.shape[-1]
+    if p <= MAX_P:
+        return inv(l.contiguous())
     nb = -(-p // MAX_P)
     k = MAX_P * ((nb + 1) // 2)
-    ai = _tri_inv_fwd(l[..., :k, :k].contiguous())
-    ci = _tri_inv_fwd(l[..., k:, k:].contiguous())
+    ai = _tri_inv_blocked(l[..., :k, :k], inv)
+    ci = _tri_inv_blocked(l[..., k:, k:], inv)
     x = -(ci @ (l[..., k:, :k] @ ai))
     top = torch.cat([ai, ai.new_zeros(l.shape[:-2] + (k, p - k))], dim=-1)
     return torch.cat([top, torch.cat([x, ci], dim=-1)], dim=-2)
 
 
-def _tri_inv_fwd(l: torch.Tensor) -> torch.Tensor:
-    if l.shape[-1] > MAX_P:
-        return _tri_inv_blocked(l)
-    if l.device.type == "cpu":
-        return triangular_inverse_lower_ref(l)
-    lib = build.load_library()
-    p = _check_square("triangular_inverse_lower: l", l)
+def _tri_inv_launch(l: torch.Tensor) -> torch.Tensor:
+    """One kernel launch on the card: ``tri_inv.cu`` for P <= 64 (counted
+    in ``triangular_inverse_lower.launches``), ``tri_inv_wide.cu`` for 64
+    < P <= 256 (in ``.wide_launches``)."""
+    p = l.shape[-1]
+    if not 1 <= p <= WIDE_MAX_P:
+        raise ValueError(f"triangular_inverse_lower: P={p} outside "
+                         f"1..{WIDE_MAX_P}, the kernels' widths")
     _check("triangular_inverse_lower: l", l, l.shape, l.device)
+    lib = build.load_library()
     out = torch.empty_like(l)
     n = out.numel() // (p * p)
     if n:
-        _launched("triangular_inverse_lower", lib.pymra_tri_inv(
-            l.data_ptr(), out.data_ptr(), n, p, *_where(l)))
-        triangular_inverse_lower.launches += 1
+        if p <= MAX_P:
+            _launched("triangular_inverse_lower", lib.pymra_tri_inv(
+                l.data_ptr(), out.data_ptr(), n, p, tile_tier(p),
+                *_where(l)))
+            triangular_inverse_lower.launches += 1
+        else:
+            _launched("triangular_inverse_lower (wide)",
+                      lib.pymra_tri_inv_wide(l.data_ptr(), out.data_ptr(),
+                                             n, p, *_where(l)))
+            triangular_inverse_lower.wide_launches += 1
     return out
+
+
+def _tri_inv_fwd(l: torch.Tensor) -> torch.Tensor:
+    if l.device.type == "cpu":
+        return _tri_inv_blocked(l, triangular_inverse_lower_ref)
+    build.load_library()
+    _on_card("triangular_inverse_lower: l", l)
+    if l.shape[-1] <= WIDE_MAX_P:
+        return _tri_inv_launch(l)
+    triangular_inverse_lower.composed += 1
+    return _tri_inv_blocked(l, _tri_inv_launch)
 
 
 def _tri_solve_fwd(l: torch.Tensor, b: torch.Tensor,
@@ -1070,12 +1098,25 @@ cholesky.launches = 0
 
 
 def triangular_inverse_lower(l: torch.Tensor) -> torch.Tensor:
-    """Explicit inverse of a batch of lower triangles ``[..., P, P]``;
-    differentiable with ``Lbar = -tril(Y^T Ybar Y^T)``, ``Y = L^-1``."""
+    """Explicit inverse of a batch of lower triangles ``[..., P, P]`` (only
+    the lower triangle is read; exact zeros above the diagonal, but where
+    a zero diagonal entry or a non-finite entry spreads inf and NaN over
+    whole rows, as the twin's division and whole-row updates do);
+    differentiable with ``Lbar = -tril(Y^T Ybar Y^T)``, ``Y = L^-1``.
+
+    On the card, by width: P <= 64 is one launch of
+    ``ops/cuda/csrc/tri_inv.cu`` (counted in ``.launches``), 64 < P <= 256
+    one launch of ``ops/cuda/csrc/tri_inv_wide.cu`` (in
+    ``.wide_launches``; no host synchronization), wider the composition
+    :func:`_tri_inv_blocked` over the first kernel and ``torch.matmul``
+    (in ``.composed``). On the CPU the same composition over the twin,
+    which is the twin itself up to 64."""
     return _TriInv.apply(l)
 
 
 triangular_inverse_lower.launches = 0
+triangular_inverse_lower.wide_launches = 0
+triangular_inverse_lower.composed = 0
 
 
 def solve_triangular_batched(l: torch.Tensor, b: torch.Tensor,

@@ -46,11 +46,12 @@ def test_kernel_phase_passes_with_twins():
         wide_widths=(65, 130), wide_main=((6, 96),), timer=_host_timer,
         dev_timer=_no_device_timer)
     # on the CPU each wrapper runs its twin, so kernel and twin agree
-    # exactly — but the blocked inverse (P > 64), which is K3 on blocks
-    # and matmuls against plain forward substitution over the whole width
-    blocked = err.pop("triangular_inverse_lower")
+    # exactly — but the blocked inverse (P > 64, the wide K3's record),
+    # which is the twin on blocks and matmuls against plain forward
+    # substitution over the whole width
+    blocked = err.pop("triangular_inverse_lower_wide")
     assert err == dict.fromkeys(set(chip_smoke.KERNEL_NAMES)
-                                - {"triangular_inverse_lower"}
+                                - {"triangular_inverse_lower_wide"}
                                 - set(chip_smoke.BACKWARD_KERNELS), 0.0)
     assert 0 < blocked < 1e-6
     assert set(times) == {("cholesky_jittered", 8, 4), ("leaf_factor", 6, 17),
@@ -61,14 +62,16 @@ def test_kernel_phase_passes_with_twins():
                           ("cholesky_inv_logdet", 7, 9),
                           ("cholesky_blocked", 6, 96),
                           ("cholesky_cascade", 6, 96),
-                          ("triangular_inverse_lower", 6, 96)}
+                          ("triangular_inverse_lower_wide", 6, 96)}
     for key, rec in times.items():
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                            "operations")
         assert (rec["library_ms"] is None) == (key[0] == "leaf_factor")
         assert rec["device_ms"] is None and rec["device_launches"] == 0
-        # K8 and KC are also timed as the compositions they replaced
-        assert ("composed_ms" in rec) == (key[0] in chip_smoke.WIDE)
+        # K8, KC and the wide K3 are also timed as the compositions they
+        # replaced
+        assert ("composed_ms" in rec) == (
+            key[0] in chip_smoke.WIDE + ("triangular_inverse_lower_wide",))
 
 
 def test_work_counts_bytes_and_escalated_attempts():
@@ -146,6 +149,32 @@ def test_work_counts_bytes_and_escalated_attempts():
     assert chip_smoke.bound_ms(1.0, 33.5e9, 33.5e9) == (1.0, "operations")
 
 
+def test_kernel_scaling_times_k1_k4_and_k3(monkeypatch):
+    # tools/kernel_scaling.py on CPU tensors, its timer replaced by the host
+    # clock: one row per kernel, the rate from chip_smoke.work's float32
+    # operations (work returns three counts: the tool read two)
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_scaling", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                       "tools", "kernel_scaling.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    monkeypatch.setattr(chip_smoke, "time_ms", _host_timer)
+    rng = np.random.default_rng(0)
+    leaf = [torch.as_tensor(x) for x in chip_smoke.leaf_case(
+        rng, 4, 17, escalate=True)]
+    chol = torch.as_tensor(chip_smoke.chol_case(rng, 4, 17)[0])
+    low = torch.as_tensor(chip_smoke.lower_case(rng, 4, 17))
+    row = ks._time(4, 17, leaf, chol, low)
+    assert set(row) == set(ks.NAMES)
+    assert all(r["ms"] > 0 and r["gflop_per_s"] > 0 for r in row.values())
+    wide = ks._time(2, 96, None,
+                    low=torch.as_tensor(chip_smoke.lower_case(rng, 2, 96)))
+    assert set(wide) == {"triangular_inverse_lower"}
+
+
 def test_backward_phase_passes_with_twins():
     err, times = chip_smoke.phase_backward(
         "cpu", chol_main=((8, 4),), leaf_main=((6, 17),),
@@ -171,6 +200,29 @@ def test_compare_refuses_differing_factors_and_nan_patterns():
                            (a,), factor_idx=set())
     with pytest.raises(SystemExit, match="max"):
         chip_smoke.compare("x", (a + 1e-2,), (a,), factor_idx=set())
+
+
+def test_check_tri_inv_holds_patterns_and_zeros_above_the_diagonal():
+    # K3's check: tri_case's members 1-4 are non-finite in the twin; a
+    # result with their NaN moved, or a healthy member with a nonzero above
+    # its diagonal, fails; the error is the healthy members'
+    lt = torch.as_tensor(chip_smoke.tri_case(np.random.default_rng(5), 6,
+                                             12))
+    want = tl.triangular_inverse_lower_ref(lt)
+    assert torch.isfinite(want[0]).all() and torch.isfinite(want[5]).all()
+    assert not any(torch.isfinite(want[b]).all() for b in (1, 2, 3, 4))
+    assert chip_smoke.check_tri_inv("t", want.clone(), lt) == 0.0
+    near = want.clone()
+    near[0, 3, 1] += 1e-6
+    assert 0 < chip_smoke.check_tri_inv("t", near, lt) < 1e-5
+    moved = want.clone()
+    moved[2] = torch.where(torch.isnan(moved[2]), torch.inf, moved[2])
+    with pytest.raises(SystemExit, match="inf / NaN pattern"):
+        chip_smoke.check_tri_inv("t", moved, lt)
+    upper = want.clone()
+    upper[5, 0, 7] = 1e-30
+    with pytest.raises(SystemExit, match="above the diagonal"):
+        chip_smoke.check_tri_inv("t", upper, lt)
 
 
 def test_compare_per_member_holds_each_member_to_its_own_scale():
@@ -247,8 +299,9 @@ def test_gradient_phases_pass_on_small_inputs():
         assert abs(out["ad"][k] - out["fd"][k]) <= (
             chip_smoke.FD_RTOL * abs(out["fd"][k]))
     for name, *_ in chip_smoke.KERNELS:
-        assert getattr(tl, name).launches == 0
-        assert getattr(tl, f"{name}_ref").cuda_calls == 0
+        assert chip_smoke.launches_of(tl, name) == 0
+        wrapper = chip_smoke.wrapper_of(name)[0]
+        assert getattr(tl, f"{wrapper}_ref").cuda_calls == 0
 
 
 def test_gradient_check_rejects_a_dropped_leaf_backward(monkeypatch):
@@ -270,7 +323,8 @@ def test_dense_r_phase_passes_on_the_n10k_tree():
     chip_smoke.reset_counters(tl)
     out = chip_smoke.phase_dense_r("cpu", timer=_host_timer, n_evals=1)
     assert out["ms_full"] > 0 and out["ms_grad"] > 0
-    assert all(getattr(tl, n).launches == 0 for n in chip_smoke.KERNEL_NAMES)
+    assert all(chip_smoke.launches_of(tl, n) == 0
+               for n in chip_smoke.KERNEL_NAMES)
 
 
 def test_dense_r_phase_rejects_a_dropped_whitening():
@@ -303,8 +357,9 @@ def test_wide_phase_passes_on_small_inputs():
         assert abs(out["ad"][k] - out["fd"][k]) <= (
             chip_smoke.FD_RTOL * abs(out["fd"][k]))
     for name in chip_smoke.KERNEL_NAMES:
-        assert getattr(tl, name).launches == 0
-        assert getattr(tl, f"{name}_ref").cuda_calls == 0
+        assert chip_smoke.launches_of(tl, name) == 0
+        wrapper = chip_smoke.wrapper_of(name)[0]
+        assert getattr(tl, f"{wrapper}_ref").cuda_calls == 0
 
 
 def test_script_fails_without_a_gpu():

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""How K1 ``leaf_factor`` and K4 ``cholesky`` scale with the width and the
-batch on the card: a profile by experiment, for cards where no hardware
-profiler runs.
+"""How K1 ``leaf_factor``, K4 ``cholesky`` and K3 ``triangular_inverse_lower``
+scale with the width and the batch on the card: a profile by experiment,
+for cards where no hardware profiler runs.
 
 Times each kernel (CUDA events over 10 calls after a warm-up, as
 ``chip_smoke.time_ms``) on ``chip_smoke``'s test matrices at B = 16384 and
-P in 16, 32, 48, 64, and at P = 64 for B from 1024 to 32768. A kernel
-bound by its arithmetic grows as P^3 and linearly in B; one bound by the
-latency of its serial column steps grows as the number of steps and stays
-flat in B until the card is full. Prints one line per shape, the fitted
+P in 16, 32, 48, 64, and at P = 64 for B from 1024 to 32768; and K3 at its
+wide widths (``tri_inv_wide.cu``, P in 65..256 at B = 4096, and at P = 256
+for B from 256 to 8192). A kernel bound by its arithmetic grows as P^3
+and linearly in B; one bound by the latency of its serial column steps
+grows as the number of steps and stays flat in B until the card is full. Prints one line per shape, the fitted
 exponents, the per-member time and the rate of useful float32 operations
 (``chip_smoke.work``), and with ``--out`` writes them as JSON. Run from the
 root of the tree to time (its ``chip_smoke.py`` and package are the ones
@@ -16,7 +17,7 @@ imported) on a machine with an NVIDIA GPU::
 
     python3 tools/kernel_scaling.py [--out FILE] [--quick]
 
-``--quick`` times P = 64, B = 16384 only (for a profiler's one launch).
+``--quick`` times P = 64, B = 16384 and K3 at 4096 x 256 only.
 """
 import argparse
 import json
@@ -32,37 +33,55 @@ import chip_smoke as cs  # noqa: E402
 WIDTHS = (16, 32, 48, 64)
 BATCHES = (1024, 2048, 4096, 8192, 16384, 32768)
 MAIN_B = 16384
+NAMES = ("leaf_factor", "cholesky", "triangular_inverse_lower")
+#: K3's wide kernel: its widths at the M=6 batch, and batches at P = 256
+WIDE_B = 4096
+WIDE_WIDTHS = (65, 96, 128, 169, 192, 256)
+WIDE_BATCHES = (256, 512, 1024, 2048, 4096, 8192)
 
 
 def _cases(rng, b, p):
-    """K1's and K4's inputs on the card at (b, p)."""
+    """K1's, K4's and K3's inputs on the card at (b, p)."""
     import torch
 
     leaf = [torch.as_tensor(x, device="cuda")
             for x in cs.leaf_case(rng, b, p, escalate=True)]
     chol = torch.as_tensor(cs.chol_case(rng, b, p)[0], device="cuda")
-    return leaf, chol
+    low = torch.as_tensor(cs.lower_case(rng, b, p), device="cuda")
+    return leaf, chol, low
 
 
-def _time(b, p, leaf, chol):
+def _time(b, p, leaf, chol=None, low=None):
     from pymra_torch.ops import linalg as tl
 
-    c, k, a = leaf
-    out = tl.leaf_factor(c, k, a, 1e-3)
+    runs = []
+    if leaf is not None:
+        c, k, a = leaf
+        runs.append(("leaf_factor", lambda: tl.leaf_factor(c, k, a, 1e-3),
+                     leaf, list(tl.leaf_factor(c, k, a, 1e-3))))
+    if chol is not None:
+        runs.append(("cholesky", lambda: tl.cholesky(chol), [chol],
+                     [tl.cholesky(chol)]))
+    if low is not None:
+        runs.append(("triangular_inverse_lower",
+                     lambda: tl.triangular_inverse_lower(low), [low],
+                     [tl.triangular_inverse_lower(low)]))
     row = {}
-    for name, run, inputs, outs in (
-            ("leaf_factor", lambda: tl.leaf_factor(c, k, a, 1e-3), leaf,
-             list(out)),
-            ("cholesky", lambda: tl.cholesky(chol), [chol],
-             [tl.cholesky(chol)])):
+    for name, run, inputs, outs in runs:
         ms = cs.time_ms(run)
-        _, flops = cs.work(name, inputs, outs)
+        _, flops, _ = cs.work(name, inputs, outs)
         row[name] = {"ms": ms, "us_per_member": ms * 1e3 / b,
                      "gflop_per_s": flops / ms / 1e6}
         print(f"{name} B={b} P={p}: {ms:.4f} ms, "
               f"{ms * 1e6 / b:.1f} ns a member, "
               f"{flops / ms / 1e6:.0f} GFLOP/s useful", flush=True)
     return row
+
+
+def _wide_case(rng, b, p):
+    import torch
+
+    return torch.as_tensor(cs.lower_case(rng, b, p), device="cuda")
 
 
 def _slope(xs, ys):
@@ -80,13 +99,32 @@ def main():
     res = {"card": card, "widths": {}, "batches": {}}
     if args.quick:
         _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))
+        _time(WIDE_B, 256, None, low=_wide_case(rng, WIDE_B, 256))
         return
     for p in WIDTHS:
         res["widths"][p] = _time(MAIN_B, p, *_cases(rng, MAIN_B, p))
-    leaf, chol = _cases(rng, max(BATCHES), 64)
+    leaf, chol, low = _cases(rng, max(BATCHES), 64)
     for b in BATCHES:
-        res["batches"][b] = _time(b, 64, [x[:b] for x in leaf], chol[:b])
-    for name in ("leaf_factor", "cholesky"):
+        res["batches"][b] = _time(b, 64, [x[:b] for x in leaf], chol[:b],
+                                  low[:b])
+    del leaf, chol, low
+    res["wide_widths"] = {p: _time(WIDE_B, p, None,
+                                   low=_wide_case(rng, WIDE_B, p))
+                          for p in WIDE_WIDTHS}
+    low = _wide_case(rng, max(WIDE_BATCHES), 256)
+    res["wide_batches"] = {b: _time(b, 256, None, low=low[:b])
+                           for b in WIDE_BATCHES}
+    ms_p = [res["wide_widths"][p]["triangular_inverse_lower"]["ms"]
+            for p in WIDE_WIDTHS]
+    ms_b = [res["wide_batches"][b]["triangular_inverse_lower"]["ms"]
+            for b in WIDE_BATCHES]
+    res["wide_exponent_in_p"] = _slope(WIDE_WIDTHS, ms_p)
+    res["wide_exponent_in_b"] = _slope(WIDE_BATCHES[2:], ms_b[2:])
+    print(f"triangular_inverse_lower (wide): time ~ "
+          f"P^{res['wide_exponent_in_p']:.2f} at B={WIDE_B}, ~ "
+          f"B^{res['wide_exponent_in_b']:.2f} for B >= {WIDE_BATCHES[2]} "
+          "at P=256")
+    for name in NAMES:
         ms_p = [res["widths"][p][name]["ms"] for p in WIDTHS]
         ms_b = [res["batches"][b][name]["ms"] for b in BATCHES]
         res[f"{name}_exponent_in_p"] = _slope(WIDTHS, ms_p)

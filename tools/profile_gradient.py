@@ -75,7 +75,7 @@ def launches(run):
     cs.reset_counters(tl)
     run()
     torch.cuda.synchronize()
-    return {name: getattr(tl, name).launches for name, *_ in cs.KERNELS}
+    return {name: cs.launches_of(tl, name) for name, *_ in cs.KERNELS}
 
 
 def quartiles(xs):

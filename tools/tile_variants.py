@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Register budget of the register-tiled K1 and K4 kernels against their
-speed: each kernel rebuilt with ``__launch_bounds__(64, N)`` for several
-N (at least N resident 64-thread blocks an SM, so at most 65536 / (64 N)
-registers a thread), timed at 16384 x 64 beside the shipped build (whose
-own bound is left as it is).
+"""Register budget of the register-tiled K1, K4 and K3 kernels against
+their speed: each kernel rebuilt with ``__launch_bounds__(64, N)`` for
+several N (at least N resident 64-thread blocks an SM, so at most 65536 /
+(64 N) registers a thread), timed at 16384 x 64 beside the shipped build
+(whose own bound is left as it is); K3's wide kernel (256-thread blocks,
+the core on its diagonal blocks) likewise with ``--wide-blocks`` at 4096 x
+256.
 
-Each variant is a copy of ``csrc/leaf_factor.cu`` or ``csrc/cholesky.cu``
-with only the launch bound changed, built by nvcc with the package's flags
+Each variant is a copy of ``csrc/leaf_factor.cu``, ``csrc/cholesky.cu``,
+``csrc/tri_inv.cu`` or ``csrc/tri_inv_wide.cu`` with only the launch bound
+changed, built by nvcc with the package's flags
 into the git-ignored ``pymra_torch/_build``. Prints the compiler's register
 and spill report and the ms per call (CUDA events, as
 ``chip_smoke.time_ms``) of each, and holds each variant's outputs to the
 shipped kernel's (they run the same arithmetic). Run from the repository
 root on a machine with an NVIDIA GPU::
 
-    python3 tools/tile_variants.py [--blocks 8,10,12]
+    python3 tools/tile_variants.py [--blocks 8,10,12] [--wide-blocks 1,3]
 
 With ``--scales quotient,division,reciprocal`` it builds instead, at the
 shipped launch bound, copies whose ``csrc/chol_tile.cuh`` scales each
@@ -48,6 +51,9 @@ QUOTIENT_RE = re.compile(r"(float quotient\([^)]*\) \{\n)(.*?)(\n\})", re.S)
 SCALES = {"quotient": None, "division": "  return x / den;",
           "reciprocal": "  return x * r;"}
 B, P = 16384, 64
+WIDE_B, WIDE_P = 4096, 256
+#: the sources built with --blocks (and --scales: all include the core)
+TILED = ("leaf_factor.cu", "cholesky.cu", "tri_inv.cu")
 
 
 def variant(src, blocks, scale=None):
@@ -83,28 +89,33 @@ def variant(src, blocks, scale=None):
         "libvariant_" + tag, [path],
         [build.nvcc_path()] + build.NVCC_FLAGS + ["-I", CSRC], timeout=900,
         key=build._headers_key() + header)
-    # the report of the 64-wide instantiation (NB = 8): the two lines
-    # after its entry
+    # the report of the 64-wide instantiation (NB = 8), or of the wide
+    # kernel: its stack and register lines after its entry
     lines = log.splitlines()
-    at = [i for i, ln in enumerate(lines) if "ILi8E" in ln]
+    at = [i for i, ln in enumerate(lines)
+          if "Compiling entry" in ln and ("ILi8E" in ln
+                                          or "tri_inv_wide_kernel" in ln)]
     report = [ln.split("info    :")[-1].strip()
-              for i in at for ln in lines[i + 1:i + 3]]
+              for i in at for ln in lines[i + 1:i + 4]
+              if "stack frame" in ln or "Used" in ln]
     return ctypes.CDLL(so), report
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--blocks", default="8,10,12")
+    parser.add_argument("--wide-blocks", default="1,3")
     parser.add_argument("--scales", default="",
                         help="column scales to build instead, of "
                         + ", ".join(SCALES))
     args = parser.parse_args()
     blocks = [None] + [int(x) for x in args.blocks.split(",")]
+    wide_blocks = [None] + [int(x) for x in args.wide_blocks.split(",")]
     cs.phase_device()
-    jobs = [(src, n, None) for src in ("leaf_factor.cu", "cholesky.cu")
-            for n in blocks]
+    jobs = [(src, n, None) for src in TILED for n in blocks] + [
+        ("tri_inv_wide.cu", n, None) for n in wide_blocks]
     if args.scales:
-        jobs = [(src, None, sc) for src in ("leaf_factor.cu", "cholesky.cu")
+        jobs = [(src, None, sc) for src in TILED
                 # the division build first: the others are held to it
                 for sc in sorted(args.scales.split(","),
                                  key=lambda x: x != "division")]
@@ -115,12 +126,17 @@ def main():
     c, k, a = (torch.as_tensor(x, device="cuda")
                for x in cs.leaf_case(rng, B, P, escalate=True, hard=True))
     m = torch.as_tensor(cs.chol_case(rng, B, P)[0], device="cuda")
+    low = torch.as_tensor(cs.lower_case(rng, B, P), device="cuda")
+    wide = torch.as_tensor(cs.lower_case(rng, WIDE_B, WIDE_P), device="cuda")
     want_leaf = tl.leaf_factor(c, k, a, 1e-3)
     want_chol = tl.cholesky(m)
+    want_inv = tl.triangular_inverse_lower(low)
+    want_wide = tl.triangular_inverse_lower(wide)
     stream = torch.cuda.current_stream().cuda_stream
     tier = tl.tile_tier(P)
     divided = {}
     for (src, n, sc), (lib, report) in libs.items():
+        shape = f"{B}x{P}"
         if src == "leaf_factor.cu":
             fn = lib.pymra_leaf_factor
             fn.argtypes = build._SIGNATURES["pymra_leaf_factor"]
@@ -133,6 +149,27 @@ def main():
                         *tl.FACTORS, 0, stream)
                 assert rc == 0, rc
             want, fidx = want_leaf, {3, 4}
+        elif src == "tri_inv.cu":
+            fn = lib.pymra_tri_inv
+            fn.argtypes = build._SIGNATURES["pymra_tri_inv"]
+            outs = [torch.empty_like(low)]
+
+            def run():
+                rc = fn(low.data_ptr(), outs[0].data_ptr(), B, P, tier, 0,
+                        stream)
+                assert rc == 0, rc
+            want, fidx = (want_inv,), set()
+        elif src == "tri_inv_wide.cu":
+            fn = lib.pymra_tri_inv_wide
+            fn.argtypes = build._SIGNATURES["pymra_tri_inv_wide"]
+            outs = [torch.empty_like(wide)]
+            shape = f"{WIDE_B}x{WIDE_P}"
+
+            def run():
+                rc = fn(wide.data_ptr(), outs[0].data_ptr(), WIDE_B, WIDE_P,
+                        0, stream)
+                assert rc == 0, rc
+            want, fidx = (want_wide,), set()
         else:
             fn = lib.pymra_cholesky
             fn.argtypes = build._SIGNATURES["pymra_cholesky"]
@@ -164,7 +201,7 @@ def main():
                     torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
                     for x, y in zip(mine, divided[src])))
         print(f"{src} min blocks {n} column scale {sc}: {ms:.4f} ms at "
-              f"{B}x{P}, max|diff| vs shipped {err:.3g}{same}; "
+              f"{shape}, max|diff| vs shipped {err:.3g}{same}; "
               f"{' | '.join(report)}", flush=True)
 
 
