@@ -59,7 +59,22 @@ non-zero exit code and no result line:
    difference;
 12. launch counters over phases 10-11: K2-K7, the wide kernel (through
    KC), the wide K3 and the pullback launched, no K8, KC or K3 call
-   composed at P <= 256, no twin ran on a CUDA tensor.
+   composed at P <= 256, no twin ran on a CUDA tensor;
+13. the samplers at N=10^4 (phase 7's tree at R=1e-2, theta = log l and
+   log sig under weak normal priors): a short L-BFGS ``fit_mle`` for the
+   start, then NUTS, HMC, ADVI and SMC through ``MRAModel.loglik_fn``.
+   Draws finite, ``check_samples`` healthy, NUTS's acceptance in range,
+   each chain's last draw held to a fresh evaluation (value and gradient),
+   ADVI's ELBO and SMC's evidence finite; ms and evaluations per draw,
+   R-hat, ESS, and the float32 roughness of the loglik near the MLE at
+   R=1e-2 and at phase 7's R=1e-4;
+13b. a short NUTS at N=10^6 on phase 5's tree and data, from phase 8's
+   fit (run before phase 5's plan is freed): finite draws and log_prob,
+   ms per draw, acceptance, divergences and the roughness;
+14. launch counters over phases 13-13b: K1-K4 and the pullback launched,
+   no twin ran on a CUDA tensor.
+
+Phases 13-14 run after phase 9, before phase 10.
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -1284,7 +1299,7 @@ def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
     check(np.isfinite(res["loglik"]) and res["loglik"] > start,
           f"N={n} fit_mle did not raise the loglik ({start} -> "
           f"{res['loglik']})")
-    return {"ms": ms, "peak": peak, "fd": fd, "ad": ad}
+    return {"ms": ms, "peak": peak, "fd": fd, "ad": ad, "theta": res["theta"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1463,6 +1478,462 @@ def phase_wide(device="cuda", timer=time_ms, n_evals=8, data="large", r=4,
 
 
 # ---------------------------------------------------------------------------
+# phases 13, 13b: the samplers on the gradient path
+# ---------------------------------------------------------------------------
+
+#: the samplers' parameters are log l and log sig of the exponential kernel,
+#: under weak normal priors of this sd centred at l = sig = 1
+PRIOR_SD = 2.0
+SAMPLER_PARAMS = ("log_l", "log_sig")
+#: SMC's prior: a normal of this sd in log-space around the MLE, so that its
+#: draws stay where the float32 factorization holds
+SMC_PRIOR_SD = 0.05
+#: NUTS's mean acceptance statistic must land in this range, and the
+#: divergence rate of NUTS's retained draws stay at most this
+ACCEPT_RANGE = (0.6, 0.99)
+MAX_DIVERGENCE_RATE = 0.05
+#: each chain's last draw: the log_prob the sampler recorded, and the value
+#: and gradient its evaluation there returned, against log_prob_fn evaluated
+#: again, within this times max(1, |log_prob|) (float32 sums of terms of the
+#: loglik's size; the backward's summation order is not fixed on the card)
+REEVAL_RTOL = 1e-6
+#: run lengths of phase 13 (N=10^4) and 13b (N=10^6)
+SAMPLER_RUNS = {
+    "nuts": {"chains": 4, "num_warmup": 40, "num_samples": 40,
+             "max_depth": 5},
+    "hmc": {"chains": 2, "num_warmup": 20, "num_samples": 20,
+            "num_leapfrog": 4},
+    "advi": {"steps": 20, "num_mc": 2},
+    "smc": {"n_particles": 16, "n_mutations": 2, "max_stages": 10},
+}
+N1M_NUTS = {"chains": 2, "num_warmup": 10, "num_samples": 10, "max_depth": 4}
+#: the float32 roughness: the loglik at this many points across +- this
+#: many conditional posterior sds of log l around the MLE
+ROUGH_POINTS, ROUGH_SDS = 21, 3.0
+#: phase 13 samples at this measurement error. At phase 7's R=1e-4 the
+#: float32 loglik near its MLE is rough by tens of loglik units, the JAX
+#: package's float32 path too (``tools/float32_roughness.py``): NUTS's
+#: step size collapses and SMC meets a non-finite loglik. The phase
+#: reports the roughness there too
+SAMPLER_R = 1e-2
+ROUGH_RS = (1e-2, 1e-4)
+#: the sampler's own host cost is its ms per evaluation less that of the
+#: same log posterior evaluated alone at this many of the points the
+#: sampler visited, on the same host clock (phase 13, phase 13b)
+REPLAY_EVALS, N1M_REPLAY_EVALS = 200, 40
+
+
+def natural(theta):
+    """``{log_l, log_sig}`` -> ``{l, sig}``."""
+    import torch
+
+    return {"l": torch.exp(theta["log_l"]), "sig": torch.exp(theta["log_sig"])}
+
+
+def log_posterior(f):
+    """``theta -> f(l, sig)`` plus the weak normal priors on ``theta``."""
+
+    def logp(theta):
+        prior = sum(-0.5 * (theta[k] / PRIOR_SD) ** 2 for k in SAMPLER_PARAMS)
+        return f(natural(theta)) + prior
+
+    return logp
+
+
+def _key(theta) -> tuple:
+    return tuple(float(theta[k].detach()) for k in sorted(theta))
+
+
+class CountingLogProb:
+    """A sampler's ``log_prob_fn``: counts its evaluations and keeps each
+    one's value and the gradient the sampler's backward pass sent to its
+    parameters, keyed by the parameter values."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seen = fn, 0, {}
+
+    def __call__(self, theta):
+        self.calls += 1
+        rec = self.seen[_key(theta)] = {"grad": {}}
+        for k, t in theta.items():
+            if t.requires_grad:
+                t.register_hook(lambda g, k=k: rec["grad"].update(
+                    {k: float(g)}))
+        value = self.fn(theta)
+        rec["value"] = float(value.detach())
+        return value
+
+
+def check_last_draws(tag, res, counter, logp) -> float:
+    """Each chain's last draw: the log_prob the sampler recorded there, and
+    the value and gradient its evaluation there returned, held to ``logp``
+    evaluated again (catches a sampler, or a ``log_prob_fn``, that carries a
+    stale value or gradient). Returns the largest difference relative to
+    ``max(1, |log_prob|)``."""
+    worst = 0.0
+    for c in range(res.log_prob.shape[0]):
+        theta = {k: res.samples[k][c, -1].clone().requires_grad_(True)
+                 for k in SAMPLER_PARAMS}
+        rec = counter.seen.get(_key(theta))
+        check(rec is not None, f"{tag} chain {c}: no evaluation at its last "
+                               "draw")
+        value = logp(theta)
+        value.backward()
+        v = float(value.detach())
+        diffs = [abs(float(res.log_prob[c, -1]) - v), abs(rec["value"] - v)]
+        diffs += [abs(rec["grad"].get(k, np.nan) - float(theta[k].grad))
+                  for k in SAMPLER_PARAMS]
+        scale = max(1.0, abs(v))
+        check(all(d <= REEVAL_RTOL * scale for d in diffs),
+              f"{tag} chain {c}: log_prob {float(res.log_prob[c, -1])!r}, "
+              f"evaluation {rec['value']!r} with gradient {rec['grad']} at "
+              f"the last draw; evaluated again {v!r} with gradient "
+              f"{ {k: float(theta[k].grad) for k in SAMPLER_PARAMS} } "
+              f"(limit {REEVAL_RTOL} of {scale:.6g})")
+        worst = max(worst, max(diffs) / scale)
+    return worst
+
+
+def replay_ms(logp, counter, n) -> tuple:
+    """ms per evaluation of ``logp`` alone, its value and gradient read back
+    as a sampler reads them, at ``n`` (at least 2) of the points
+    ``counter`` saw, evenly spaced over the run, timed as a sampler's run
+    is: the host clock around the loop. The two interleaved halves of the
+    points are timed one after the other; returns the ms per evaluation of
+    all and the difference between the halves' (the host clock's spread)."""
+    import torch
+
+    seen = list(counter.seen)
+    points = seen[::max(1, len(seen) // n)][:n]
+    ms = []
+    for half in (points[0::2], points[1::2]):
+        t0 = time.perf_counter()
+        for point in half:
+            theta = {k: torch.tensor(v, dtype=torch.float64,
+                                     requires_grad=True)
+                     for k, v in zip(sorted(SAMPLER_PARAMS), point)}
+            value = logp(theta)
+            value.backward()
+            float(value.detach())
+            [float(t.grad) for t in theta.values()]
+        ms.append(1e3 * (time.perf_counter() - t0) / len(half))
+    both = (ms[0] * len(points[0::2]) + ms[1] * len(points[1::2])) / len(
+        points)
+    return both, abs(ms[0] - ms[1])
+
+
+def _per_param(values, digits) -> dict:
+    return {k: round(float(v), digits) for k, v in zip(SAMPLER_PARAMS,
+                                                       values)}
+
+
+def _draws(res):
+    """``[chains, n, 2]`` draws of (log l, log sig) as numpy."""
+    import torch
+
+    return torch.stack([res.samples[k] for k in SAMPLER_PARAMS],
+                       dim=-1).numpy()
+
+
+def _chain_report(tag, res, transitions, counter, wall, ms_mle, logp,
+                  x_mle, replay, divergences=None) -> dict:
+    """The checks every chain sampler's run passes (finite draws and
+    log_prob, ``check_samples`` at the divergence limit, the last draws
+    held to a fresh evaluation) and its report, with its host cost: ms per
+    evaluation in the sampler less :func:`replay_ms` at ``replay`` of its
+    points (``ms_mle``: CUDA events near the MLE, phase 7's way)."""
+    from pymra_torch.infer import ess, split_rhat
+    from pymra_torch.utils.health import check_samples
+
+    reeval = check_last_draws(tag, res, counter, logp)
+    rep = check_samples(res.samples, divergences,
+                        max_divergence_rate=MAX_DIVERGENCE_RATE)
+    check(rep.ok, f"{tag} draws: {rep}")
+    check(bool(np.isfinite(res.log_prob.numpy()).all()),
+          f"{tag} log_prob not finite")
+    xs = _draws(res)
+    chains, n = xs.shape[:2]
+    rhat = split_rhat(xs).numpy()
+    e = ess(xs).numpy()
+    mean, sd = xs.reshape(-1, 2).mean(0), xs.reshape(-1, 2).std(0)
+    off = np.abs(mean - np.array([x_mle[k] for k in SAMPLER_PARAMS])) / sd
+    alone, spread = replay_ms(logp, counter, replay)
+    out = {"wall_s": wall, "ms_per_draw": 1e3 * wall / transitions,
+           "evals_per_draw": counter.calls / transitions,
+           "ms_per_eval": 1e3 * wall / counter.calls,
+           "ms_per_eval_alone": alone, "alone_spread_ms": spread,
+           "host_ms_per_eval": 1e3 * wall / counter.calls - alone,
+           "step_size": res.step_size.tolist(), "rhat": rhat.tolist(),
+           "ess": e.tolist(), "post_mean": mean.tolist(),
+           "post_sd": sd.tolist(), "mean_minus_mle_sds": off.tolist(),
+           "accept": float(res.accept_rate.mean()), "reeval_rel": reeval}
+    print(f"{tag}: {chains} chains x {transitions // chains} transitions "
+          f"({n} kept) in {wall:.2f} s: {out['ms_per_draw']:.3f} ms per "
+          f"draw, {out['evals_per_draw']:.3f} value-and-gradient "
+          f"evaluations per draw, {out['ms_per_eval']:.3f} ms per "
+          f"evaluation in the sampler against {alone:.3f} ms alone at "
+          f"{min(replay, len(counter.seen))} of its points (host clock; "
+          f"the replay's halves differ by {spread:.3f} ms): host cost "
+          f"{out['host_ms_per_eval']:.3f} ms per evaluation ({ms_mle:.3f} "
+          f"ms near the MLE by CUDA events); "
+          f"accept {out['accept']:.4f}; step sizes "
+          f"{[round(v, 6) for v in out['step_size']]}")
+    print(f"{tag}: split-R-hat {_per_param(rhat, 4)}, ESS "
+          f"{_per_param(e, 1)}, posterior mean {_per_param(mean, 5)} sd "
+          f"{_per_param(sd, 5)}, |mean - MLE| {_per_param(off, 3)} sd; "
+          f"last draws "
+          f"against a fresh evaluation: {reeval:.3g} of |log_prob| (limit "
+          f"{REEVAL_RTOL})")
+    return out
+
+
+def conditional_sd(f, theta, h=1e-2) -> float:
+    """The sd of log l given log sig in the Laplace approximation at
+    ``theta`` (``{l, sig}``): one over the square root of minus the second
+    derivative of the log posterior in log l, from a central difference of
+    ``f``'s gradient at log l +- h."""
+    g = [theta["l"] * np.exp(s) * value_and_grad(
+        f, theta["l"] * np.exp(s), theta["sig"])[1]["l"] for s in (h, -h)]
+    curv = (g[0] - g[1]) / (2 * h) - 1.0 / PRIOR_SD ** 2
+    return 1.0 / np.sqrt(-curv) if curv < 0 else float("nan")
+
+
+def roughness(tag, f, theta, sd) -> float:
+    """float32 roughness: the residual sd, in loglik units, of a quadratic
+    fit to ``f`` at ROUGH_POINTS points across +-ROUGH_SDS ``sd`` of log l
+    around ``theta`` (log sig there)."""
+    import torch
+
+    ts = np.linspace(-ROUGH_SDS, ROUGH_SDS, ROUGH_POINTS) * sd
+    with torch.no_grad():
+        vals = np.array([float(f({
+            "l": torch.tensor(theta["l"] * np.exp(t), dtype=torch.float64),
+            "sig": torch.tensor(theta["sig"], dtype=torch.float64)}))
+            for t in ts])
+    fits = {d: vals - np.polyval(np.polyfit(ts, vals, d), ts) for d in (2, 4)}
+    rough = {d: float(np.sqrt(np.sum(r * r) / (len(ts) - d - 1)))
+             for d, r in fits.items()}
+    print(f"{tag} float32 roughness: the loglik at {len(ts)} points across "
+          f"+-{ROUGH_SDS:g} x {sd:.4g} (the conditional posterior sd of log "
+          f"l) around l={theta['l']:.6g}, sig={theta['sig']:.6g}: residual "
+          f"sd {rough[2]:.4g} of a quadratic fit ({rough[4]:.4g} of a "
+          f"quartic), loglik {float(vals.min())!r} .. "
+          f"{float(vals.max())!r}")
+    check(bool(np.isfinite(vals).all()), f"{tag} loglik not finite near the "
+                                         "MLE")
+    return rough[2]
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _fit(tag, f, steps) -> dict:
+    """A short L-BFGS ``fit_mle`` from l=2, sig=1: the MLE ``{l, sig}``."""
+    from pymra_torch import fit_mle
+
+    fit, wall = _timed(lambda: fit_mle(f, {"l": 2.0, "sig": 1.0},
+                                       method="lbfgs", steps=steps))
+    print(f"{tag} fit_mle lbfgs {len(fit['history'])} steps from l=2 sig=1 "
+          f"in {wall:.2f} s: loglik {-fit['history'][0]!r} -> "
+          f"{fit['loglik']!r} at {fit['theta']}")
+    check(np.isfinite(fit["loglik"]), f"{tag} fit_mle loglik not finite")
+    return fit["theta"]
+
+
+def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
+                   R=SAMPLER_R, rough_rs=ROUGH_RS, runs=SAMPLER_RUNS,
+                   mle_steps=10, timer=time_ms, wrap=None,
+                   replay=REPLAY_EVALS) -> dict:
+    """NUTS, HMC, ADVI and SMC over the N=10^4 gradient path, and the
+    float32 roughness at each R of ``rough_rs``. ``wrap`` (tests) wraps the
+    log posterior the samplers see, not the one the checks evaluate."""
+    import torch
+
+    from pymra_torch import MRAModel, PlanConfig, load_data
+    from pymra_torch.infer import advi, hmc, nuts, smc
+
+    t_phase = time.perf_counter()
+    locs, y_obs = load_data(data)
+    tag = f"N={len(locs)}"
+    print(f"== phase 13: samplers at {tag} (bundled {data}, r={r}, M={M}, "
+          f"R={R}; theta = log l, log sig of the exponential kernel, priors "
+          f"N(0, {PRIOR_SD:g}^2))")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder)
+    logp = log_posterior(f)
+    target = wrap(logp) if wrap else logp
+    mle = _fit(tag, f, mle_steps)
+    x_mle = {"log_l": float(np.log(mle["l"])),
+             "log_sig": float(np.log(mle["sig"]))}
+    # value and gradient alone near the MLE, where the samplers evaluate
+    ls = iter(mle["l"] * np.exp(np.linspace(-0.01, 0.01, 6)))
+    ms_mle = timer(lambda: value_and_grad(f, float(next(ls)), mle["sig"]),
+                   reps=5)
+    print(f"{tag} value and gradient near the MLE: {ms_mle:.3f} ms/eval (5 "
+          f"evals; {ms_grad:.3f} at l in [1.5, 2.5], phase 7)")
+    gen = torch.Generator().manual_seed(0)
+
+    def init(chains):
+        return {k: x_mle[k] + 0.01 * torch.randn(chains, generator=gen,
+                                                 dtype=torch.float64)
+                for k in SAMPLER_PARAMS}
+
+    out = {"mle": mle}
+    kw = dict(runs["nuts"])
+    chains = kw.pop("chains")
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: nuts(counter, init(chains), gen, **kw))
+    out["nuts"] = _chain_report(
+        "NUTS", res, chains * (kw["num_warmup"] + kw["num_samples"]),
+        counter, wall, ms_mle, logp, x_mle, replay, res.num_divergent)
+    depths = np.bincount(res.tree_depth.numpy().ravel(),
+                         minlength=kw["max_depth"] + 1)
+    out["nuts"].update(depth_histogram=depths.tolist(),
+                       divergent=int(res.num_divergent.sum()))
+    print(f"NUTS: tree depths {dict(enumerate(depths.tolist()))}, "
+          f"divergent {out['nuts']['divergent']} of {chains * kw['num_samples']}")
+    lo, hi = ACCEPT_RANGE
+    check(lo <= out["nuts"]["accept"] <= hi, f"NUTS mean acceptance "
+          f"{out['nuts']['accept']} outside [{lo}, {hi}]")
+
+    kw = dict(runs["hmc"])
+    chains = kw.pop("chains")
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: hmc(counter, init(chains), gen, **kw))
+    out["hmc"] = _chain_report(
+        "HMC", res, chains * (kw["num_warmup"] + kw["num_samples"]),
+        counter, wall, ms_mle, logp, x_mle, replay)
+
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: advi(
+        counter, {k: torch.tensor(x_mle[k], dtype=torch.float64)
+                  for k in SAMPLER_PARAMS}, gen, **runs["advi"]))
+    hist = res.elbo_history.numpy()
+    check(bool(np.isfinite(hist).all()), "ADVI ELBO history not finite")
+    out["advi"] = {"wall_s": wall, "evals": counter.calls,
+                   "elbo_last": float(hist[-1]),
+                   "mean": {k: float(v) for k, v in res.mean.items()},
+                   "sd": {k: float(v) for k, v in res.sd.items()}}
+    print(f"ADVI: {len(hist)} steps, {counter.calls} evaluations in "
+          f"{wall:.2f} s ({1e3 * wall / counter.calls:.3f} ms each); ELBO "
+          f"{float(hist[0])!r} -> {float(hist[-1])!r}; mean {out['advi']['mean']} sd "
+          f"{out['advi']['sd']}")
+
+    def log_like(theta):
+        return f(natural(theta))
+
+    def log_prior(theta):
+        return sum(-0.5 * ((theta[k] - x_mle[k]) / SMC_PRIOR_SD) ** 2
+                   for k in SAMPLER_PARAMS)
+
+    def prior_sample(g):
+        return {k: x_mle[k] + SMC_PRIOR_SD * torch.randn(
+            (), generator=g, dtype=torch.float64) for k in SAMPLER_PARAMS}
+
+    counter = CountingLogProb(log_like)
+    res, wall = _timed(lambda: smc(counter, log_prior, prior_sample, gen,
+                                   **runs["smc"]))
+    check(bool(np.isfinite(float(res.log_evidence))),
+          f"SMC log-evidence {float(res.log_evidence)} not finite")
+    out["smc"] = {"wall_s": wall, "evals": counter.calls,
+                  "log_evidence": float(res.log_evidence),
+                  "betas": res.betas.tolist(),
+                  "acc_rates": res.acc_rates.tolist()}
+    print(f"SMC: {runs['smc']['n_particles']} particles, {counter.calls} "
+          f"evaluations in {wall:.2f} s ({1e3 * wall / counter.calls:.3f} "
+          f"ms each); prior N(MLE, {SMC_PRIOR_SD:g}^2); log-evidence "
+          f"{out['smc']['log_evidence']!r}; betas "
+          f"{[round(b, 6) for b in out['smc']['betas']]}; acceptance "
+          f"{[round(a, 3) for a in out['smc']['acc_rates']]}")
+
+    out["ms_grad_mle"] = ms_mle
+    out["roughness"] = {}
+    for rr in rough_rs:
+        f_r, mle_r = f, mle
+        if rr != R:
+            f_r = model.loglik_fn(y, rr, kernel_builder=exponential_builder)
+            mle_r = _fit(f"{tag} R={rr}", f_r, mle_steps)
+        sd = conditional_sd(f_r, mle_r)
+        out["roughness"][rr] = {"sd": sd, "mle": mle_r, "roughness": roughness(
+            f"{tag} R={rr}", f_r, mle_r, sd)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_nuts_n1m(n1m, theta0, ms_grad, device="cuda", R=1e-2,
+                   run=N1M_NUTS, timer=time_ms,
+                   replay=N1M_REPLAY_EVALS) -> dict:
+    """A short NUTS on phase 5's N=10^6 plan and data from phase 8's fit;
+    gated on finite draws and log_prob only."""
+    import torch
+
+    from pymra_torch.infer import nuts
+
+    model, y = n1m["model"], n1m["y"]
+    n = model.dplan.n_locs
+    tag = f"N={n}"
+    print(f"== phase 13b: NUTS at {tag} (phase 5's grid and data, R={R}, "
+          f"from phase 8's fit {theta0})")
+    t_phase = time.perf_counter()
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder)
+    logp = log_posterior(f)
+    ls = iter(theta0["l"] * np.exp(np.linspace(-0.01, 0.01, 4)))
+    ms_start = timer(lambda: value_and_grad(f, float(next(ls)),
+                                            theta0["sig"]), reps=3)
+    print(f"{tag} value and gradient near the start: {ms_start:.3f} ms/eval "
+          f"(3 evals; {ms_grad:.3f} at l in [0.04, 0.06], phase 8)")
+    gen = torch.Generator().manual_seed(1)
+    kw = dict(run)
+    chains = kw.pop("chains")
+    init = {k: float(np.log(theta0[k[4:]])) + 1e-3 * torch.randn(
+        chains, generator=gen, dtype=torch.float64) for k in SAMPLER_PARAMS}
+    counter = CountingLogProb(logp)
+    res, wall = _timed(lambda: nuts(counter, init, gen, **kw))
+    transitions = chains * (kw["num_warmup"] + kw["num_samples"])
+    check(bool(np.isfinite(_draws(res)).all()), f"{tag} NUTS draws not "
+                                                "finite")
+    check(bool(np.isfinite(res.log_prob.numpy()).all()),
+          f"{tag} NUTS log_prob not finite")
+    depths = np.bincount(res.tree_depth.numpy().ravel(),
+                         minlength=kw["max_depth"] + 1)
+    alone, spread = replay_ms(logp, counter, replay)
+    out = {"wall_s": wall, "ms_per_draw": 1e3 * wall / transitions,
+           "evals_per_draw": counter.calls / transitions,
+           "ms_per_eval": 1e3 * wall / counter.calls, "ms_grad": ms_start,
+           "ms_per_eval_alone": alone, "alone_spread_ms": spread,
+           "host_ms_per_eval": 1e3 * wall / counter.calls - alone,
+           "accept": float(res.accept_rate.mean()),
+           "divergent": int(res.num_divergent.sum()),
+           "step_size": res.step_size.tolist(),
+           "depth_histogram": depths.tolist()}
+    print(f"{tag} NUTS: {chains} chains x {transitions // chains} "
+          f"transitions in {wall:.2f} s: {out['ms_per_draw']:.3f} ms per "
+          f"draw, {out['evals_per_draw']:.3f} evaluations per draw, "
+          f"{out['ms_per_eval']:.3f} ms per evaluation against "
+          f"{alone:.3f} alone at {min(replay, len(counter.seen))} of its "
+          f"points (host clock; halves differ by {spread:.3f} ms; host cost "
+          f"{out['host_ms_per_eval']:.3f} ms), "
+          f"{ms_start:.3f} near the start by CUDA events; accept "
+          f"{out['accept']:.4f}, "
+          f"divergent {out['divergent']} of {chains * kw['num_samples']}, "
+          f"step sizes {[round(v, 8) for v in out['step_size']]}, tree "
+          f"depths {dict(enumerate(depths.tolist()))}")
+    sd = conditional_sd(f, theta0)
+    out["cond_sd"] = sd
+    out["roughness"] = roughness(tag, f, theta0, sd)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13b wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 #: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
 #: replaces, the path shape of its record)
@@ -1564,10 +2035,17 @@ def main() -> int:
                             FORWARD_KERNELS)
 
     reset_counters(tl)
-    phase_grad_n10k()
-    phase_grad_n1m(n1m, n1m["ms_lik"])
+    ms_grad = phase_grad_n10k()
+    grad_n1m = phase_grad_n1m(n1m, n1m["ms_lik"])
     gradient = read_counters(
         tl, "phase 9: launch counters over phases 7-8", GRADIENT_KERNELS)
+
+    reset_counters(tl)
+    phase_samplers(ms_grad)
+    phase_nuts_n1m(n1m, grad_n1m["theta"], grad_n1m["ms"])
+    sampler = read_counters(
+        tl, "phase 14: launch counters over phases 13 and 13b",
+        GRADIENT_KERNELS)
 
     del n1m  # its N=10^6 plan and data
     torch.cuda.empty_cache()
@@ -1611,6 +2089,7 @@ def main() -> int:
                     "source": f"pymra_torch/ops/cuda/csrc/{src}",
                     "replaces": replaces, "launches": n_launch,
                     "launches_gradient_path": gradient[name],
+                    "launches_sampler_path": sampler[name],
                     "launches_dense_r_wide_path": slice3[name],
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),

@@ -17,13 +17,21 @@ or ``pymra_tpu``. Module names mirror the JAX package's::
         "exponential", l=th["l"], sig=th["sig"]))
     fit_mle(f, {"l": 2.0, "sig": 1.0}, method="lbfgs", steps=20)
 
+    # posterior draws of the log-parameters, 4 chains (flat prior)
+    def logp(th):
+        return f({"l": th["log_l"].exp(), "sig": th["log_sig"].exp()})
+
+    nuts(logp, {"log_l": torch.zeros(4), "log_sig": torch.zeros(4)},
+         torch.Generator().manual_seed(0), num_warmup=100, num_samples=100)
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from pymra_torch.data.loader import load_data
-from pymra_torch.infer import fit_mle
+from pymra_torch.infer import advi, ess, fit_mle, hmc, nuts, smc, split_rhat
 from pymra_torch.kernels import Kernel
 from pymra_torch.tree.model import MRAModel, MRATree
 from pymra_torch.tree.plan import PlanConfig, build_plan
 
 __all__ = ["Kernel", "MRAModel", "MRATree", "load_data", "build_plan",
-           "PlanConfig", "fit_mle"]
+           "PlanConfig", "fit_mle", "hmc", "nuts", "advi", "smc",
+           "split_rhat", "ess"]

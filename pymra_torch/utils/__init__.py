@@ -1,3 +1,10 @@
-from pymra_torch.utils.locations import gen_locations, gen_locations_2d
+from pymra_torch.utils import health
+from pymra_torch.utils.locations import gen_clusters, gen_locations, gen_locations_2d
+from pymra_torch.utils.simulate import (
+    make_observations,
+    simulate_grf,
+    simulate_grf_grid,
+)
 
-__all__ = ["gen_locations", "gen_locations_2d"]
+__all__ = ["health", "gen_locations", "gen_locations_2d", "gen_clusters",
+           "simulate_grf", "simulate_grf_grid", "make_observations"]

@@ -22,7 +22,7 @@ from pymra_torch.tree import sweep
 from pymra_torch.tree.plan import tpu_shaped_M
 from pymra_torch.utils import gen_locations_2d
 
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def _host_timer(fn, reps=10):
@@ -370,3 +370,88 @@ def test_script_fails_without_a_gpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+#: phase 13's runs cut to a few transitions each
+SMALL_RUNS = {
+    "nuts": {"chains": 2, "num_warmup": 20, "num_samples": 10,
+             "max_depth": 5},
+    "hmc": {"chains": 2, "num_warmup": 10, "num_samples": 10,
+            "num_leapfrog": 4},
+    "advi": {"steps": 5, "num_mc": 2},
+    "smc": {"n_particles": 16, "n_mutations": 2, "max_stages": 10},
+}
+TINY_RUNS = {**SMALL_RUNS, "nuts": {"chains": 2, "num_warmup": 6,
+                                    "num_samples": 4, "max_depth": 3}}
+
+
+def test_sampler_phase_passes_on_small_inputs():
+    # the bundled small data (N=100) on the CPU twins, every sampler and
+    # check of phase 13
+    chip_smoke.reset_counters(tl)
+    out = chip_smoke.phase_samplers(5.0, "cpu", data="small", M=-1,
+                                    runs=SMALL_RUNS, timer=_host_timer)
+    assert set(out) >= {"nuts", "hmc", "advi", "smc", "roughness"}
+    nuts = out["nuts"]
+    assert nuts["evals_per_draw"] >= 1 and nuts["ms_per_eval"] > 0
+    for run in (nuts, out["hmc"]):
+        assert run["ms_per_eval_alone"] > 0 and run["alone_spread_ms"] >= 0
+        assert run["host_ms_per_eval"] == pytest.approx(
+            run["ms_per_eval"] - run["ms_per_eval_alone"])
+    assert sum(nuts["depth_histogram"]) == 2 * 10
+    assert nuts["reeval_rel"] == 0.0 and out["hmc"]["reeval_rel"] == 0.0
+    assert out["smc"]["betas"][-1] == 1.0
+    assert set(out["roughness"]) == set(chip_smoke.ROUGH_RS)
+    for rough in out["roughness"].values():
+        assert rough["roughness"] >= 0 and rough["sd"] > 0
+    for name in chip_smoke.KERNEL_NAMES:
+        assert chip_smoke.launches_of(tl, name) == 0
+        wrapper = chip_smoke.wrapper_of(name)[0]
+        assert getattr(tl, f"{wrapper}_ref").cuda_calls == 0
+
+
+def _stale_gradient(logp):
+    """The right value with the previous call's gradient."""
+    last = {}
+
+    def wrapped(theta):
+        value = logp(theta)
+        params = [theta[k] for k in chip_smoke.SAMPLER_PARAMS]
+        grad = torch.autograd.grad(value, params, retain_graph=True)
+        prev = last.get("grad", grad)
+        last["grad"] = grad
+        return value.detach() + sum((t - t.detach()) * g
+                                    for t, g in zip(params, prev))
+
+    return wrapped
+
+
+def _drifting_value(logp):
+    """A value that moves by 1e-3 with every call."""
+    calls = [0]
+
+    def wrapped(theta):
+        calls[0] += 1
+        return logp(theta) + 1e-3 * calls[0]
+
+    return wrapped
+
+
+@pytest.mark.parametrize("wrap", [_stale_gradient, _drifting_value])
+def test_sampler_phase_rejects_a_stale_log_prob(wrap):
+    with pytest.raises(SystemExit, match="at the last draw"):
+        chip_smoke.phase_samplers(5.0, "cpu", data="small", M=-1,
+                                  runs=TINY_RUNS, mle_steps=3,
+                                  timer=_host_timer, wrap=wrap)
+
+
+def test_n1m_nuts_phase_passes_on_small_inputs():
+    side = 40
+    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                               golden=_flagship_golden(side), n_evals=1)
+    out = chip_smoke.phase_nuts_n1m(
+        n1m, {"l": 0.05, "sig": 1.0}, 5.0, "cpu",
+        run={"chains": 2, "num_warmup": 4, "num_samples": 4,
+             "max_depth": 3}, timer=_host_timer)
+    assert out["evals_per_draw"] >= 1 and np.isfinite(out["roughness"])
+    assert sum(out["depth_histogram"]) == 2 * 4

@@ -30,7 +30,7 @@ from pymra_torch.utils import gen_locations_2d
 
 from tests.oracles import exact_gp
 from tests.test_dense_r import _data
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.test_torch_loglik import _clustered, _obs
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 

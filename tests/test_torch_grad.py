@@ -27,23 +27,11 @@ import jax.numpy as jnp
 from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 WIDTHS = [4, 8, 17, 49, 64]
 RTOL = 1e-9
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch intra-op thread per test, restored after it. A parallel
-    pytest run keeps every core busy; torch's own thread pool on top of it
-    oversubscribes them, and the wide-leaf and dense-R rehearsals of
-    ``chip_smoke.py`` then ran many times slower. The port's heavier test
-    modules import this fixture, which makes it autouse there too."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _spd(rng, b, p):

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import chip_smoke
 from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5

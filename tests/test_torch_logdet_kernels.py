@@ -25,10 +25,10 @@ import jax.numpy as jnp
 from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
 
-from tests.test_torch_grad import (  # noqa: F401 (one_torch_thread)
-    _close, _jittered_case, _sym, _t, one_torch_thread)
+from tests.test_torch_grad import _close, _jittered_case, _sym, _t
 from tests.test_torch_linalg import _chol_case
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 WIDTHS = [5, 17, 49]

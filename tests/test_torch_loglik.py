@@ -28,7 +28,7 @@ from pymra_torch.tree import sweep as tsweep
 from pymra_torch.utils import gen_locations
 
 from tests.test_golden_anchors import _readme_1d_data
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64

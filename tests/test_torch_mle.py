@@ -19,7 +19,7 @@ from pymra_tpu.tree.model import MRAModel as JaxMRAModel
 from pymra_torch import Kernel, MRAModel, fit_mle
 from pymra_torch.utils import gen_locations
 
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.test_torch_loglik import _grf
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 

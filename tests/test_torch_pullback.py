@@ -30,7 +30,7 @@ from pymra_tpu.ops.pallas import linalg as jl
 from pymra_torch.ops import linalg as tl
 
 from tests.test_torch_grad import _jittered_case
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 WIDTHS = [1, 4, 8, 17, 64]

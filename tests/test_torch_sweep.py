@@ -40,7 +40,7 @@ from tests.test_golden_anchors import (
     README_1D_OBJECTIVE,
     _readme_1d_data,
 )
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64
@@ -293,6 +293,16 @@ def test_port_imports_and_runs_without_jax():
         "res = MRAModel(locs, r=4, dtype=torch.float32, device='cpu').sweep(\n"
         "    Kernel('exponential', l=2.0), y, 1e-4)\n"
         "assert torch.isfinite(res.objective)\n"
+        "import pymra_torch.infer, pymra_torch.utils\n"
+        "from pymra_torch.infer import nuts\n"
+        "f = MRAModel(locs, r=4, dtype=torch.float64, device='cpu').loglik_fn(\n"
+        "    y, 1e-4, kernel_builder=lambda th: Kernel(\n"
+        "        'exponential', l=torch.exp(th['log_l'])))\n"
+        "draws = nuts(f, {'log_l': torch.zeros(1, dtype=torch.float64)},\n"
+        "             torch.Generator().manual_seed(0), num_warmup=0,\n"
+        "             num_samples=3, max_depth=3)\n"
+        "assert draws.samples['log_l'].shape == (1, 3)\n"
+        "assert torch.isfinite(draws.log_prob).all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'pymra_tpu'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', float(res.objective))\n"

@@ -40,7 +40,7 @@ from tests.test_torch_loglik import (
     _obs,
     _port_value_and_grad,
 )
-from tests.test_torch_grad import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 F64 = torch.float64

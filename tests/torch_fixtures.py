@@ -38,3 +38,18 @@ def jax_native_planner():
     assert jax_native.available() and jax_native._LIB._name == so, (
         "the JAX package's native planner did not load the port's library; "
         "its reference plans could silently use the numpy k-means")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread per test, restored after it. A parallel
+    pytest run keeps every core busy; torch's own thread pool on top of it
+    oversubscribes them, and the wide-leaf and dense-R rehearsals of
+    ``chip_smoke.py`` then ran many times slower. The port's heavier test
+    modules import this fixture, which makes it autouse there too."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
