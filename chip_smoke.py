@@ -24,6 +24,9 @@ non-zero exit code and no result line:
    and the share of it each time reaches (K8, KC and the wide K3 also
    beside the compositions they replaced; KC and the wide K3 once under
    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization);
+   the jittered kernels K2, K6, K7 and KC are also timed, against their
+   twins and library calls, on a clean batch where no member escalates
+   (one attempt of the library call is then the whole function);
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
    the same tensors, member by member, timed as in phase 3; the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
@@ -154,8 +157,10 @@ SOLVE_MAIN = CHOL_MAIN
 #: kernel and a dense-R block width
 PULLBACK_SHAPES = CHOL_MAIN + tuple((RAGGED_BATCH, p) for p in (1, 3, 5, 9,
                                                                  49))
-#: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49)
+#: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49), and
+#: their widths: K2's and the edges of the core's width tiers
 LOGDET_MAIN = ((256, 49),)
+LOGDET_WIDTHS = tuple(sorted(set(CHOL_WIDTHS) | {1, 16, 32, 33}))
 #: widths of K8, KC (the wide kernel takes 64 < P <= 256) and the wide K3,
 #: and their paths' shapes: the N=10^4 tree at M=3 (P=169) and the N=10^6
 #: grid at M=6 (P=256)
@@ -341,6 +346,19 @@ def _spd_batch(rng, b, p):
     return a @ np.swapaxes(a, -1, -2) / dt(p) + np.eye(p, dtype=dt)
 
 
+def _jitter(m):
+    """The test batches' jitter rule: 1e-6 (mean|diag| + 1) a member."""
+    return 1e-6 * (np.abs(np.diagonal(m, axis1=-2, axis2=-1)).mean(-1) + 1)
+
+
+def clean_case(rng, b, p):
+    """Random SPD members with ``chol_case``'s jitter rule: no member
+    escalates, so a jittered kernel's one attempt is its whole function,
+    as one attempt of its library call is."""
+    m = _spd_batch(rng, b, p)
+    return m.astype(np.float32), _jitter(m).astype(np.float32)
+
+
 def wide_case(rng, b, p):
     """``chol_case`` and, when b >= 6: member 4 needs the 1e4 factor (an
     eigenvalue of -1 at jitter 1e-3) and member 5 carries a NaN in its lower
@@ -360,7 +378,7 @@ def chol_case(rng, b, p):
     attempt (diag(1, .., 1, -js) + js*I, as tests/test_pallas.py builds
     it) and one that fails every factor (-I)."""
     m = _spd_batch(rng, b, p)
-    jit = 1e-6 * (np.abs(np.diagonal(m, axis1=-2, axis2=-1)).mean(-1) + 1)
+    jit = _jitter(m)
     if p > 1 and b >= 4:
         m[1] = _rotate(rng, np.r_[np.linspace(1.0, 2.0, p - 1), -0.05])
         jit[1] = 1e-3
@@ -595,6 +613,60 @@ def timed(times, key, timer, dev_timer, run, plain, library, inputs):
             "device time)")
 
 
+def _library_factor(m, jit, eye):
+    import torch
+
+    return torch.linalg.cholesky_ex(m + jit[:, None, None] * eye)[0]
+
+
+def _library_logdet(m, jit, eye):
+    import torch
+
+    lc = _library_factor(m, jit, eye)
+    return torch.log(torch.diagonal(lc, dim1=-2, dim2=-1)).sum(-1)
+
+
+def _library_inv(m, jit, eye):
+    import torch
+
+    lc = _library_factor(m, jit, eye)
+    return torch.linalg.solve_triangular(lc, eye.expand_as(lc), upper=False)
+
+
+#: the library yardstick of each jittered kernel, ``(m, jit, eye)``: one
+#: attempt of the same function, no escalation
+LIBRARY = {"cholesky_jittered": _library_factor,
+           "cholesky_logdet": _library_logdet,
+           "cholesky_inv_logdet": _library_inv,
+           "cholesky_cascade": _library_factor}
+
+
+def time_clean(times, err, name, b, p, rng, dev, timer, dev_timer):
+    """Time the jittered kernel ``name``, its twin and its library call on
+    a clean batch (``clean_case``) at ``(b, p)``, recorded under ``(name +
+    "_clean", b, p)``: there one attempt of the library call does the
+    kernel's whole work. The kernel is held to its twin there and no
+    member may escalate. Returns the line's tail."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    m, jit = (torch.as_tensor(x, device=dev) for x in clean_case(rng, b, p))
+    eye = torch.eye(p, device=dev)
+    fn, twin = getattr(tl, name), getattr(tl, name + "_ref")
+    got = fn(m, jit)
+    fidx = len(got) - 1  # every jittered kernel returns f last
+    e = compare(f"{name} clean {b}x{p}", got, twin(m, jit),
+                factor_idx={fidx})
+    err[name] = max(err[name], e)
+    check(bool((got[fidx] == tl.FACTORS[0]).all()),
+          f"{name} clean {b}x{p}: a member escalated")
+    return "; clean batch" + timed(
+        times, (name + "_clean", b, p), timer, dev_timer,
+        lambda: fn(m, jit), lambda: twin(m, jit),
+        lambda: LIBRARY[name](m, jit, eye), [m, jit])
+
+
 def _check_escalation(name, f):
     """Members 1-3 of ``chol_case`` escalate to 1e2, 1e2 and (all fail)
     1e4."""
@@ -615,6 +687,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
     print("== phase 3: kernels against their plain twins "
           f"(tolerance max|diff| <= {ATOL} + {RTOL} max|twin|)")
     rng = np.random.default_rng(0)
+    clean_rng = np.random.default_rng(1)
     dev = torch.device(device)
     err = {n: 0.0 for n in KERNEL_NAMES if n not in BACKWARD_KERNELS}
     times = {}
@@ -642,8 +715,9 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 times, ("cholesky_jittered", b, p), timer, dev_timer,
                 lambda: tl.cholesky_jittered(mt, jt),
                 lambda: tl.cholesky_jittered_ref(mt, jt),
-                lambda: torch.linalg.cholesky_ex(mt + jt[:, None, None] * eye),
-                [mt, jt])
+                lambda: _library_factor(mt, jt, eye), [mt, jt])
+            line += time_clean(times, err, "cholesky_jittered", b, p,
+                               clean_rng, dev, timer, dev_timer)
         print(line)
 
     shapes = [(ragged, p) for p in LEAF_WIDTHS] + list(leaf_main)
@@ -765,8 +839,9 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
             print(line)
 
     # K6 and K7: chol_case's escalated, exact-zero-pivot and all-fail
-    # members; library yardsticks take one attempt
-    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(logdet_main)
+    # members, where the kernel runs up to three attempts and the library
+    # yardstick one; then the clean batch, where both run one
+    shapes = [(ragged, p) for p in LOGDET_WIDTHS] + list(logdet_main)
     for b, p in shapes:
         m, jit = chol_case(rng, b, p)
         mt, jt = dv(m), dv(jit)
@@ -777,24 +852,15 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
             e = compare(f"{name} {b}x{p}", got, twin(mt, jt),
                         factor_idx={fidx})
             err[name] = max(err[name], e)
-            _check_escalation(f"{name} {b}x{p}", got[fidx])
+            if p > 1 and b >= 4:
+                _check_escalation(f"{name} {b}x{p}", got[fidx])
             line = f"{name} B={b} P={p}: max|diff| {e:.3g}"
             if (b, p) in logdet_main:
-                if name == "cholesky_logdet":
-                    def library():
-                        lc = torch.linalg.cholesky_ex(
-                            mt + jt[:, None, None] * eye)[0]
-                        return torch.log(torch.diagonal(
-                            lc, dim1=-2, dim2=-1)).sum(-1)
-                else:
-                    def library():
-                        lc = torch.linalg.cholesky_ex(
-                            mt + jt[:, None, None] * eye)[0]
-                        return torch.linalg.solve_triangular(
-                            lc, eye.expand_as(lc), upper=False)
                 line += timed(times, (name, b, p), timer, dev_timer,
                               lambda: fn(mt, jt), lambda: twin(mt, jt),
-                              library, [mt, jt])
+                              lambda: LIBRARY[name](mt, jt, eye), [mt, jt])
+                line += time_clean(times, err, name, b, p, clean_rng, dev,
+                                   timer, dev_timer)
             print(line)
 
     # K8 and KC (one wide kernel), and the wide K3: K8 has no jitter, so
@@ -857,8 +923,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 times, ("cholesky_cascade", b, p), timer, dev_timer,
                 lambda: tl.cholesky_cascade(mt, jt),
                 lambda: tl.cholesky_cascade_ref(mt, jt),
-                lambda: torch.linalg.cholesky_ex(
-                    mt + jt[:, None, None] * eye), [mt, jt])
+                lambda: _library_factor(mt, jt, eye), [mt, jt])
             ms = timer(composed_kc)
             times[("cholesky_cascade", b, p)]["composed_ms"] = ms
             line += f"; the composition it replaced {ms:.4f} ms"
@@ -870,6 +935,8 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 line += "; no host synchronization (sync debug mode error)"
+            line += time_clean(times, err, "cholesky_cascade", b, p,
+                               clean_rng, dev, timer, dev_timer)
         print(line)
         del got, m, mt
 
@@ -2074,6 +2141,11 @@ def main() -> int:
             extra = {"backward": {f"{bb}x{bp}x{bp}": t for (k, bb, bp), t
                                   in bwd_times.items()
                                   if k == "cholesky_jittered_backward"}}
+        if name in LIBRARY:
+            # the clean batch's times, where one library attempt is the
+            # whole function: the kernel's verdict against its library
+            extra["clean"] = {f"{cb}x{cp}x{cp}": t for (k, cb, cp), t
+                              in times.items() if k == name + "_clean"}
         if name == "cholesky_pullback":
             extra = {"fuses": "_cholesky_bwd: the L^T Lbar product, K5 "
                               "_tri_solve_kernel (:366) twice and the "

@@ -57,11 +57,11 @@ _SIGNATURES = {
     # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, device,
     # stream
     "pymra_chol_pullback": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # a, jit, ld, f, batch, p, f0, f1, f2, device, stream
-    "pymra_chol_logdet": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
-    # a, jit, x, ld, f, batch, p, f0, f1, f2, device, stream
-    "pymra_chol_inv_logdet": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
-                              _P],
+    # a, jit, ld, f, batch, p, tier, f0, f1, f2, device, stream
+    "pymra_chol_logdet": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+    # a, jit, x, ld, f, batch, p, tier, f0, f1, f2, device, stream
+    "pymra_chol_inv_logdet": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                              _I, _P],
     # a, jit (or null), l, ld (or null), f (or null), slabs, batch, p,
     # n_factors, f0, f1, f2, grid, device, stream
     "pymra_chol_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,

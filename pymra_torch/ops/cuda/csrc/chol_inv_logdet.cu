@@ -19,105 +19,104 @@
 // error, where K1's in-kernel K_leaf assembly does not apply.
 //
 // What bounds it on the card: per member it reads the lower triangle and
-// writes P^2 + 2 floats, against ~2 P^3/3 flops (factor and inverse) —
-// about P/9 flops per byte; this version is bound by the serial column
-// loop, P dependent steps with two block barriers each.
+// writes P^2 + 2 floats, against ~2 P^3/3 flops an attempt (factor and
+// inverse); at the dense-R path's 256 x 49 that is 3.7 MB and 20 MFLOP,
+// 0.0011 ms at 3.35 TB/s. 256 members fill two blocks an SM, so what
+// bounds a kernel there is the latency of one member's chain of P
+// dependent steps, once per attempt. The first kernel (the working matrix
+// and X in shared memory, W = ceil(P / 8) warps sweeping rows, two block
+// barriers a step) took 0.97 us a step there.
 //
-// Design: the shared-memory column loop K1's posterior had before
-// chol_tile.cuh, on a plain input: one block per member, the working matrix
-// and X in shared memory with an odd row stride (2 x 16.6 KB at P = 64). Step
-// j scales column j of L and row j of X by 1/L_jj, then warp w takes rows i =
-// j+1+w, j+1+w+W, ... and its lanes sweep the i + 1 contiguous entries
-// X[i][0..j] and S[i][j+1..i]. The block has W = ceil(P / 8) warps (at most
-// 8). The escalation loop is block-uniform (every thread sums the same
-// pivots). Built without fast-math: the escalation relies on IEEE sqrtf/logf
-// giving NaN and -inf.
+// Design: K1's posterior half (leaf_factor.cu) on a plain input: the
+// register-tiled core of chol_tile.cuh in its inverse mode
+// (Mode::kInverse), one 64-thread block a member, S and X both in
+// registers, column j of S and row j of X broadcast through the core's
+// double buffers (one barrier a step). Every attempt assembles the member
+// in registers straight from `a` with f jit_b added on the diagonal (the
+// core sets X to the identity itself), so a retry keeps nothing; X is
+// stored from registers after the last attempt, NaN for a member that
+// failed all three, as the twin leaves it. The host picks the width tier
+// (16, 32, 48 or 64) from P; padding is the identity without jitter and
+// never stepped, and its rows and columns are never stored. Every thread
+// sums the same pivots, so the escalation loop is block-uniform. Built
+// without fast-math: the escalation relies on IEEE sqrtf/logf giving NaN
+// and -inf.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3,
+// tools/kernel_scaling.py --logdet; PERF.md): at 256 x 49 on a batch
+// where no member escalates 0.026 ms of device time, 0.53 us a step (the
+// first kernel 0.048), against 0.091 for `cholesky_ex` and
+// `solve_triangular` against I; 0.084 with members that take all three
+// attempts (the first kernel 0.142).
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;
+using chol_tile::kGrid;
+using chol_tile::kThreads;
+using chol_tile::Mode;
 
-__global__ void chol_inv_logdet_kernel(const float* __restrict__ a,
-                                       const float* __restrict__ jit,
-                                       float* __restrict__ xo,
-                                       float* __restrict__ ld,
-                                       float* __restrict__ fsel, int p,
-                                       float f0, float f1, float f2) {
-  extern __shared__ float smem[];
-  const int st = p | 1;
-  float* s = smem;        // working matrix, lower triangle
-  float* x = s + p * st;  // inverse factor
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int warp = t / kWarp, lane = t % kWarp, nw = nt / kWarp;
+// No minimum of blocks an SM: the dense-R path's 256 members fill two an
+// SM, so registers do not limit its occupancy (tier 64: 126, no spill).
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+    chol_inv_logdet_kernel(const float* __restrict__ a,
+                           const float* __restrict__ jit,
+                           float* __restrict__ xo, float* __restrict__ ld,
+                           float* __restrict__ fsel, int p, float f0,
+                           float f1, float f2) {
+  constexpr int kBuf = kGrid * NB;
+  __shared__ __align__(16) float col[2 * kBuf];
+  __shared__ __align__(16) float xrow[2 * kBuf];
+  const chol_tile::Place t = chol_tile::place();
   const size_t off = (size_t)blockIdx.x * p * p;
   const float* src = a + off;
   const float js = jit[blockIdx.x];
-  const float factors[3] = {f0, f1, f2};
-
-  float acc = 0.f;
-  float fac = f0;
-  for (int at = 0; at < 3; ++at) {
-    fac = factors[at];
+  float s[NB][NB], x[NB][NB];
+  float acc = 0.f, fac = f0;
+  for (int att = 0; att < 3; ++att) {
+    fac = att == 0 ? f0 : (att == 1 ? f1 : f2);
     const float add = js * fac;
-    for (int e = t; e < p * p; e += nt) {
-      const int i = e / p, col = e - i * p;
-      x[i * st + col] = (col == i) ? 1.f : 0.f;
-      if (col > i) continue;
-      float v = src[e];
-      if (col == i) v += add;
-      s[i * st + col] = v;
-    }
-    __syncthreads();
-    acc = 0.f;
-    for (int j = 0; j < p; ++j) {
-      const float piv = sqrtf(s[j * st + j]);
-      acc += logf(piv);
-      // column j of L below the diagonal, row j of X scaled by 1/L_jj
-      for (int e = t; e < p; e += nt) {
-        if (e <= j) x[j * st + e] /= piv;
-        else s[e * st + j] /= piv;
-      }
-      __syncthreads();
-      // rows i > j: X[i][q] for q <= j and S[i][q] for j < q <= i
-      for (int i = j + 1 + warp; i < p; i += nw) {
-        const float ci = s[i * st + j];
-        for (int q = lane; q <= i; q += kWarp) {
-          if (q <= j) x[i * st + q] -= ci * x[j * st + q];
-          else s[i * st + q] -= ci * s[q * st + j];
-        }
-      }
-      __syncthreads();
-    }
+    chol_tile::assemble<NB>(s, p, t, [&](int i, int k) {
+      const float v = src[i * p + k];
+      return i == k ? v + add : v;
+    });
+    acc = chol_tile::factor<NB, Mode::kInverse>(s, x, col, xrow, p, t);
     if (isfinite(acc)) break;
   }
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     ld[blockIdx.x] = acc;
     fsel[blockIdx.x] = fac;
   }
-  for (int e = t; e < p * p; e += nt) {
-    const int i = e / p;
-    xo[off + e] = x[i * st + e - i * p];
-  }
+  chol_tile::store<NB>(x, xo + off, p, t);
 }
 
 }  // namespace
 
-// Launches on `stream`; allocates nothing. Returns cudaGetLastError().
+// Launches on `stream`; allocates nothing. `tier` is the width tier the
+// host chose for p (16, 32, 48 or 64, at least p). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a tier it does not have.
 extern "C" int pymra_chol_inv_logdet(const void* a, const void* jit, void* x,
                                      void* ld, void* f, int batch, int p,
-                                     float f0, float f1, float f2,
+                                     int tier, float f0, float f1, float f2,
                                      int device, void* stream) {
+  const int nb = chol_tile::tier_nb(tier);
+  if (nb == 0 || p < 1 || p > tier) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int warps = (p + 7) / 8;
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  const size_t shmem = (size_t)2 * p * (p | 1) * sizeof(float);
-  chol_inv_logdet_kernel<<<batch, warps * kWarp, shmem,
-                           (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)jit, (float*)x, (float*)ld, (float*)f,
-      p, f0, f1, f2);
+  auto launch = [&](auto kernel) {
+    kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)jit, (float*)x, (float*)ld, (float*)f,
+        p, f0, f1, f2);
+  };
+  switch (nb) {
+    case 2: launch(chol_inv_logdet_kernel<2>); break;
+    case 4: launch(chol_inv_logdet_kernel<4>); break;
+    case 6: launch(chol_inv_logdet_kernel<6>); break;
+    default: launch(chol_inv_logdet_kernel<8>); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -12,74 +12,77 @@
 // while the member's sum is non-finite (NaN for a negative pivot, -inf for
 // an exact zero); a member that fails all three keeps its NaN sum and
 // reports the last factor. The MRA sweep calls it for the prior
-// log-determinant of leaves that do not take the fused K1 (dense
-// measurement error, P < 16).
+// log-determinant of the leaves that do not take the fused K1: with dense
+// measurement error at every P <= 64, and with diagonal measurement error
+// for leaves of P < 16.
 //
 // What bounds it on the card: per member it reads the lower triangle,
-// P(P+1)/2 floats, and writes two, against ~P^3/3 flops — about P/6 flops
-// per byte, so at P = 49 or 64 the float32 rate, not HBM, would bound a
-// perfect kernel; this one is bound by the serial column loop, P dependent
-// steps each ending in a block barrier.
+// P(P+1)/2 floats, and writes two, against ~P^3/3 flops an attempt; at the
+// dense-R path's 256 x 49 that is 1.2 MB and 10 MFLOP, 0.0004 ms at 3.35
+// TB/s. 256 members fill two blocks an SM, so what bounds a kernel there
+// is the latency of one member's chain of P dependent steps, once per
+// attempt. The first kernel (the lower triangle in shared memory, W =
+// ceil(P / 8) warps sweeping rows, three shared accesses per
+// multiply-subtract and a block barrier a step waiting for the warp with
+// the longest rows) took 0.69 us a step there.
 //
-// Design: the shared-memory column loop K1's prior had before chol_tile.cuh,
-// on a plain input: one block per member, the lower triangle in shared memory
-// with an odd row stride; at step j warp w updates rows j+1+w, j+1+w+W, ... of
-// the trailing triangle with its lanes sweeping the row, dividing once per
-// row. The block has W = ceil(P / 8) warps (at most 8), so narrow members do
-// not hold idle warps. The escalation loop is block-uniform: every thread sums
-// the same pivots. Built without fast-math: the escalation relies on IEEE logf
+// Design: K1's prior half (leaf_factor.cu) on a plain input: the
+// register-tiled core of chol_tile.cuh in its pivot-only mode
+// (Mode::kLogdet), one 64-thread block a member, the lower triangle in
+// registers, column j broadcast through the core's double buffer (one
+// barrier a step). Every attempt assembles the member in registers straight
+// from `a` with f jit_b added on the diagonal, so a retry keeps nothing.
+// The host picks the width tier (16, 32, 48 or 64) from P; padding is the
+// identity without jitter and no padded pivot is ever taken, so it adds
+// exactly nothing to the sum. Every thread sums the same pivots, so the
+// escalation loop is block-uniform and a member's bits do not depend on its
+// neighbours. Built without fast-math: the escalation relies on IEEE logf
 // giving NaN and -inf.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3,
+// tools/kernel_scaling.py --logdet; PERF.md): at 256 x 49 on a batch
+// where no member escalates 0.017 ms of device time, 0.35 us a step (the
+// first kernel 0.034), against 0.059 for `cholesky_ex` and a log-diagonal
+// sum; 0.047 with members that take all three attempts (the first kernel
+// 0.163).
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;
+using chol_tile::kGrid;
+using chol_tile::kThreads;
+using chol_tile::Mode;
 
-__global__ void chol_logdet_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ jit,
-                                   float* __restrict__ ld,
-                                   float* __restrict__ fsel, int p,
-                                   float f0, float f1, float f2) {
-  extern __shared__ float smem[];
-  const int st = p | 1;  // odd stride: a column access hits P banks
-  float* s = smem;       // working matrix, lower triangle
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int warp = t / kWarp, lane = t % kWarp, nw = nt / kWarp;
+// No minimum of blocks an SM: the dense-R path's 256 members fill two an
+// SM, so registers do not limit its occupancy (tier 64: 128, no spill).
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+    chol_logdet_kernel(const float* __restrict__ a,
+                       const float* __restrict__ jit, float* __restrict__ ld,
+                       float* __restrict__ fsel, int p, float f0, float f1,
+                       float f2) {
+  constexpr int kBuf = kGrid * NB;
+  __shared__ __align__(16) float col[2 * kBuf];
+  const chol_tile::Place t = chol_tile::place();
   const float* src = a + (size_t)blockIdx.x * p * p;
   const float js = jit[blockIdx.x];
-  const float factors[3] = {f0, f1, f2};
-
-  float acc = 0.f;
-  float fac = f0;
-  for (int at = 0; at < 3; ++at) {
-    fac = factors[at];
+  float s[NB][NB], unused[NB][NB];
+  float acc = 0.f, fac = f0;
+  for (int att = 0; att < 3; ++att) {
+    fac = att == 0 ? f0 : (att == 1 ? f1 : f2);
     const float add = js * fac;
-    for (int e = t; e < p * p; e += nt) {
-      const int i = e / p, col = e - i * p;
-      if (col > i) continue;
-      float v = src[e];
-      if (col == i) v += add;
-      s[i * st + col] = v;
-    }
-    __syncthreads();
-    acc = 0.f;
-    for (int j = 0; j < p; ++j) {
-      const float d = s[j * st + j];
-      acc += logf(d);
-      // trailing triangle j < col <= i; column j is read, never written
-      for (int i = j + 1 + warp; i < p; i += nw) {
-        const float aij = s[i * st + j] / d;
-        for (int col = j + 1 + lane; col <= i; col += kWarp)
-          s[i * st + col] -= aij * s[col * st + j];
-      }
-      __syncthreads();
-    }
-    acc *= 0.5f;
+    chol_tile::assemble<NB>(s, p, t, [&](int i, int k) {
+      const float v = src[i * p + k];
+      return i == k ? v + add : v;
+    });
+    acc = 0.5f * chol_tile::factor<NB, Mode::kLogdet>(s, unused, col,
+                                                      nullptr, p, t);
     if (isfinite(acc)) break;
   }
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     ld[blockIdx.x] = acc;
     fsel[blockIdx.x] = fac;
   }
@@ -87,18 +90,27 @@ __global__ void chol_logdet_kernel(const float* __restrict__ a,
 
 }  // namespace
 
-// Launches on `stream`; allocates nothing. Returns cudaGetLastError().
+// Launches on `stream`; allocates nothing. `tier` is the width tier the
+// host chose for p (16, 32, 48 or 64, at least p). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a tier it does not have.
 extern "C" int pymra_chol_logdet(const void* a, const void* jit, void* ld,
-                                 void* f, int batch, int p, float f0,
-                                 float f1, float f2, int device,
+                                 void* f, int batch, int p, int tier,
+                                 float f0, float f1, float f2, int device,
                                  void* stream) {
+  const int nb = chol_tile::tier_nb(tier);
+  if (nb == 0 || p < 1 || p > tier) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int warps = (p + 7) / 8;
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  const size_t shmem = (size_t)p * (p | 1) * sizeof(float);
-  chol_logdet_kernel<<<batch, warps * kWarp, shmem, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)jit, (float*)ld, (float*)f, p, f0, f1,
-      f2);
+  auto launch = [&](auto kernel) {
+    kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)jit, (float*)ld, (float*)f, p, f0, f1,
+        f2);
+  };
+  switch (nb) {
+    case 2: launch(chol_logdet_kernel<2>); break;
+    case 4: launch(chol_logdet_kernel<4>); break;
+    case 6: launch(chol_logdet_kernel<6>); break;
+    default: launch(chol_logdet_kernel<8>); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,14 @@
 // Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
-// shared by K1 leaf_factor.cu, K4 cholesky.cu and K3 tri_inv.cu and
-// tri_inv_wide.cu.
+// shared by K1 leaf_factor.cu, K4 cholesky.cu, K6 chol_logdet.cu, K7
+// chol_inv_logdet.cu and K3 tri_inv.cu and tri_inv_wide.cu.
 //
 // Replaces the column loops of the TPU kernels _chol_kernel (K4),
-// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1) and _tri_inv_kernel
-// (K3) in pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one
-// member, in three modes: the half log-pivot sum alone (K1's prior), the
+// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1), _chol_logdet_kernel
+// (K6), _chol_inv_logdet_kernel (K7) and _tri_inv_kernel (K3) in
+// pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one member,
+// in three modes: the half log-pivot sum alone (K1's prior, K6), the
 // factor (K4), and the factor's inverse formed alongside it (K1's
-// posterior); and a fourth that inverts a given lower factor (K3): L stays
+// posterior, K7); and a fourth that inverts a given lower factor (K3): L stays
 // as it is in the tile map, column j of L and row j of X are broadcast a
 // step, row j of X is scaled by its owners with the quotient by L[j][j]
 // and the rows below take their multiply-subtracts on registers — the

@@ -32,10 +32,12 @@ custom VJP, or a composition of such):
   ``ops/cuda/csrc/leaf_factor.cu``, on ``chol_tile.cuh``.
 * :func:`cholesky_logdet` — jittered log-determinant with escalation, no
   factor formed (replaces K6, ``_chol_logdet_kernel``);
-  ``ops/cuda/csrc/chol_logdet.cu``.
+  ``ops/cuda/csrc/chol_logdet.cu``, on ``chol_tile.cuh`` (K1's prior half
+  on a plain input; width tier from :func:`tile_tier`).
 * :func:`cholesky_inv_logdet` — jittered inverse factor and log-determinant
   with escalation (replaces K7, ``_chol_inv_logdet_kernel``);
-  ``ops/cuda/csrc/chol_inv_logdet.cu``.
+  ``ops/cuda/csrc/chol_inv_logdet.cu``, on ``chol_tile.cuh`` (K1's
+  posterior half on a plain input; width tier from :func:`tile_tier`).
 * :func:`cholesky_blocked` — blocked Cholesky for P > 64 (K8) and
   :func:`cholesky_cascade` — its jitter escalation (KC, the counterpart of
   ``cholesky_cascade_lanes`` and the sweep's ``_chol_cascade``): for
@@ -496,10 +498,10 @@ def _where(t: torch.Tensor) -> tuple[int, int]:
 
 
 def tile_tier(p: int) -> int:
-    """Width tier of the register-tiled K1 and K4 kernels for a ``P x P``
-    member (``ops/cuda/csrc/chol_tile.cuh``): the least of 16, 32, 48 and
-    64 that holds ``p``. The kernel pads the member to it with the
-    identity."""
+    """Width tier of the kernels on the register-tiled core
+    (``ops/cuda/csrc/chol_tile.cuh``: K1, K3 up to 64, K4, K6 and K7) for a
+    ``P x P`` member: the least of 16, 32, 48 and 64 that holds ``p``. The
+    kernel pads the member to it with the identity."""
     if not 1 <= p <= MAX_P:
         raise ValueError(f"tile_tier: P={p} outside 1..{MAX_P}")
     return 16 * -(-p // 16)
@@ -712,7 +714,7 @@ def _cholesky_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     if ld.numel():
         _launched("cholesky_logdet", lib.pymra_chol_logdet(
             mat.data_ptr(), jit.data_ptr(), ld.data_ptr(), f.data_ptr(),
-            ld.numel(), p, f0, f1, f2, *_where(mat)))
+            ld.numel(), p, tile_tier(p), f0, f1, f2, *_where(mat)))
         cholesky_logdet.launches += 1
     return ld, f
 
@@ -730,7 +732,8 @@ def _cholesky_inv_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor,
     if ld.numel():
         _launched("cholesky_inv_logdet", lib.pymra_chol_inv_logdet(
             mat.data_ptr(), jit.data_ptr(), x.data_ptr(), ld.data_ptr(),
-            f.data_ptr(), ld.numel(), p, f0, f1, f2, *_where(mat)))
+            f.data_ptr(), ld.numel(), p, tile_tier(p), f0, f1, f2,
+            *_where(mat)))
         cholesky_inv_logdet.launches += 1
     return x, ld, f
 

@@ -62,7 +62,11 @@ def test_kernel_phase_passes_with_twins():
                           ("cholesky_inv_logdet", 7, 9),
                           ("cholesky_blocked", 6, 96),
                           ("cholesky_cascade", 6, 96),
-                          ("triangular_inverse_lower_wide", 6, 96)}
+                          ("triangular_inverse_lower_wide", 6, 96),
+                          ("cholesky_jittered_clean", 8, 4),
+                          ("cholesky_logdet_clean", 7, 9),
+                          ("cholesky_inv_logdet_clean", 7, 9),
+                          ("cholesky_cascade_clean", 6, 96)}
     for key, rec in times.items():
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                            "operations")
@@ -72,6 +76,31 @@ def test_kernel_phase_passes_with_twins():
         # replaced
         assert ("composed_ms" in rec) == (
             key[0] in chip_smoke.WIDE + ("triangular_inverse_lower_wide",))
+
+
+def test_kernel_phase_times_jittered_kernels_on_both_batches():
+    # K2, K6, K7 and KC are timed on the escalating batch (up to three
+    # attempts a member) and on a clean one (one), each beside its twin and
+    # its library call; the clean batch's work counts one attempt a member
+    _, times = chip_smoke.phase_kernels(
+        "cpu", ragged=5, chol_main=((6, 3),), leaf_main=((5, 16),),
+        tri_main=((5, 16),), solve_main=((6, 3),), logdet_main=((5, 33),),
+        wide_widths=(65,), wide_main=((6, 70),), timer=_host_timer,
+        dev_timer=_no_device_timer)
+    mains = {"cholesky_jittered": (6, 3), "cholesky_logdet": (5, 33),
+             "cholesky_inv_logdet": (5, 33), "cholesky_cascade": (6, 70)}
+    assert set(chip_smoke.LIBRARY) == set(mains)
+    for name, (b, p) in mains.items():
+        for key in (name, name + "_clean"):
+            rec = times[key, b, p]
+            assert rec["ms"] > 0 and rec["plain_ms"] > 0
+            assert rec["library_ms"] > 0
+    m, jit = (torch.as_tensor(x) for x in chip_smoke.clean_case(
+        np.random.default_rng(1), 5, 33))
+    ld, f = tl.cholesky_logdet(m, jit)
+    assert (f == 1.0).all()
+    assert chip_smoke.work("cholesky_logdet", [m, jit], [ld, f])[1] == (
+        5 * 33 ** 3 / 3)
 
 
 def test_work_counts_bytes_and_escalated_attempts():
@@ -173,6 +202,35 @@ def test_kernel_scaling_times_k1_k4_and_k3(monkeypatch):
     wide = ks._time(2, 96, None,
                     low=torch.as_tensor(chip_smoke.lower_case(rng, 2, 96)))
     assert set(wide) == {"triangular_inverse_lower"}
+
+
+def test_kernel_scaling_times_k6_k7_per_step(monkeypatch):
+    # tools/kernel_scaling.py --logdet on CPU tensors, its timer replaced
+    # by the host clock: K6, K7, their library calls and K3 a row, the
+    # time of a step being the call's over P
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_scaling", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                       "tools", "kernel_scaling.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=10: _host_timer(fn, 2))
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn: (_host_timer(fn, 2), 1.0))
+    monkeypatch.setattr(ks, "LOGDET_B", 4)
+    res = ks._time_logdet(np.random.default_rng(0), "cpu", (5, 9))
+    assert set(res) == {5, 9}
+    assert set(res[9]) == {"triangular_inverse_lower", "cholesky_logdet",
+                           "cholesky_logdet_library", "cholesky_inv_logdet",
+                           "cholesky_inv_logdet_library"}
+    for p, row in res.items():
+        for rec in row.values():
+            assert rec["ms"] > 0 and rec["device_launches"] == 1.0
+            assert rec["us_per_step"] == pytest.approx(
+                rec["device_ms"] * 1e3 / p)
 
 
 def test_backward_phase_passes_with_twins():

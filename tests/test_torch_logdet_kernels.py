@@ -12,8 +12,13 @@ The same inputs, made with numpy from a seed, go to both:
   on the first attempt, and one (-I) that fails every factor;
 * float64 backward against ``jax.vjp`` on the same cotangents, rtol 1e-9
   (the same formulas; K7's pullback takes an exact identity where the JAX
-  VJP re-inverts, which float64 does not see), and ``gradcheck``.
+  VJP re-inverts, which float64 does not see), and ``gradcheck``;
+* the launch on the card, on ``meta`` tensors with the kernel library
+  replaced by a recorder: one launch a call at the register-tiled core's
+  width tier ``tile_tier(P)``, P > 64 refused before any launch.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -31,7 +36,8 @@ from tests.torch_fixtures import jax_native_planner  # noqa: F401
 from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
-WIDTHS = [5, 17, 49]
+#: the edges of the CUDA kernels' width tiers (16, 32, 48, 64), and 5
+WIDTHS = [1, 5, 16, 17, 32, 33, 48, 49, 64]
 
 
 def _with_all_fail(p):
@@ -51,9 +57,10 @@ def test_cholesky_logdet_ref_matches_pallas(p):
     np.testing.assert_array_equal(torch.isfinite(ld).numpy(), ok)
     np.testing.assert_allclose(ld.numpy()[ok], np.asarray(want_ld)[ok],
                                rtol=RTOL, atol=ATOL)
-    # the indefinite member and the exact zero pivot escalated; -I failed
-    # every factor and keeps a non-finite sum
-    assert f[7] > 1.0 and f[8] == 1e2 and f[9] == 1e4 and not ok[9]
+    # the indefinite member (at P > 1) and the exact zero pivot escalated;
+    # -I failed every factor and keeps a non-finite sum
+    assert (f[7] > 1.0) == (p > 1)
+    assert f[8] == 1e2 and f[9] == 1e4 and not ok[9]
     assert ok[:9].all()
 
 
@@ -198,3 +205,55 @@ def test_all_fail_member_keeps_nan_to_itself():
     assert torch.isfinite(g[[0, 2]]).all() and torch.isnan(g[1]).any()
     np.testing.assert_allclose(torch.diagonal(g[0]).numpy(),
                                np.full(4, 1.0 / (2 + 1e-6)), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the launch on the card: one a call, at the core's width tier
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The kernel library replaced by a recorder of each launch's (batch, P,
+    tier, f0, f1, f2); ``meta`` tensors stand in for CUDA ones (the device
+    check sees a CUDA tensor of their shape)."""
+    calls = []
+
+    def recorder(kernel):
+        def launch(*args):
+            # ..., batch, p, tier, f0, f1, f2, device, stream
+            calls.append((kernel,) + tuple(args[-8:-2]))
+            return 0
+        return launch
+
+    lib = types.SimpleNamespace(
+        pymra_chol_logdet=recorder("chol_logdet"),
+        pymra_chol_inv_logdet=recorder("chol_inv_logdet"))
+    real = tl._check_square
+    monkeypatch.setattr(tl, "_check_square", lambda name, t: real(
+        name, types.SimpleNamespace(device=torch.device("cuda"),
+                                    ndim=t.ndim, shape=t.shape)))
+    monkeypatch.setattr(tl.build, "load_library", lambda: lib)
+    monkeypatch.setattr(tl, "_where", lambda t: (0, 0))
+    for fn in (tl.cholesky_logdet, tl.cholesky_inv_logdet):
+        monkeypatch.setattr(fn, "launches", 0)
+    return calls
+
+
+@pytest.mark.parametrize("name, kernel", [
+    ("cholesky_logdet", "chol_logdet"),
+    ("cholesky_inv_logdet", "chol_inv_logdet")])
+def test_one_launch_a_call_at_the_tile_tier(recorded, name, kernel):
+    fn = getattr(tl, name)
+    widths = (1, 15, 16, 17, 49, 64)
+    for n, p in enumerate(widths, 1):
+        out = fn(torch.empty((3, p, p), device="meta"),
+                 torch.empty(3, device="meta"))
+        assert out[-1].shape == (3,) and fn.launches == n
+    assert [tl.tile_tier(p) for p in widths] == [16, 16, 16, 32, 64, 64]
+    assert recorded == [(kernel, 3, p, tl.tile_tier(p)) + tl.FACTORS
+                        for p in widths]
+    recorded.clear()
+    with pytest.raises(ValueError, match="P=65"):
+        fn(torch.empty((3, 65, 65), device="meta"),
+           torch.empty(3, device="meta"))
+    assert recorded == [] and fn.launches == len(widths)

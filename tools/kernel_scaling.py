@@ -12,23 +12,39 @@ and linearly in B; one bound by the latency of its serial column steps
 grows as the number of steps and stays flat in B until the card is full. Prints one line per shape, the fitted
 exponents, the per-member time and the rate of useful float32 operations
 (``chip_smoke.work``), and with ``--out`` writes them as JSON. Run from the
-root of the tree to time (its ``chip_smoke.py`` and package are the ones
-imported) on a machine with an NVIDIA GPU::
+root of the tree to time on a machine with an NVIDIA GPU::
 
-    python3 tools/kernel_scaling.py [--out FILE] [--quick]
+    python3 tools/kernel_scaling.py [--out FILE] [--quick | --logdet]
 
 ``--quick`` times P = 64, B = 16384 and K3 at 4096 x 256 only.
+``--logdet`` times K6 ``cholesky_logdet`` and K7 ``cholesky_inv_logdet``
+instead, with their library calls (``chip_smoke.LIBRARY``) and K3, on
+clean batches (``chip_smoke.clean_case``: one attempt a member) at the
+dense-R path's B = 256 for P from 8 to 64, per call and on the device
+alone (``chip_smoke.device_ms``): there a launch lasts one member's chain
+of P steps, so device ms / P is the time of one step (a call at that
+batch is mostly the host's).
+
+The kernels timed are the package of the working directory's tree;
+``chip_smoke``'s helpers are those of the tree this tool lies in, so the
+tool of a newer tree can time an older one on the same card: run it from
+the older tree's root as ``python3 NEWER/tools/kernel_scaling.py``.
 """
 import argparse
 import json
 import os
 import sys
 
-sys.path.insert(0, os.getcwd())
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import numpy as np  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+# chip_smoke imports the package only when a phase runs: from here on,
+# the working directory's
+sys.path.insert(0, os.getcwd())
 
 WIDTHS = (16, 32, 48, 64)
 BATCHES = (1024, 2048, 4096, 8192, 16384, 32768)
@@ -78,6 +94,51 @@ def _time(b, p, leaf, chol=None, low=None):
     return row
 
 
+#: K6 and K7 at the dense-R batch, over P
+LOGDET_B = 256
+LOGDET_WIDTHS = (8, 16, 24, 32, 40, 49, 56, 64)
+
+
+def _time_logdet(rng, device="cuda", widths=LOGDET_WIDTHS):
+    """K6, K7, their library calls and K3 at LOGDET_B over ``widths``: ms
+    a call, device ms and microseconds a step (device ms / P; None where
+    the device time was not measured)."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    res = {}
+    for p in widths:
+        m, jit = (torch.as_tensor(x, device=device)
+                  for x in cs.clean_case(rng, LOGDET_B, p))
+        eye = torch.eye(p, device=device)
+        low = tl.cholesky(m + jit[:, None, None] * eye)
+        runs = {"triangular_inverse_lower":
+                lambda: tl.triangular_inverse_lower(low)}
+        for name in ("cholesky_logdet", "cholesky_inv_logdet"):
+            fn, lib = getattr(tl, name), cs.LIBRARY[name]
+            runs[name] = lambda fn=fn: fn(m, jit)
+            runs[name + "_library"] = lambda lib=lib: lib(m, jit, eye)
+        res[p] = {}
+        for name, run in runs.items():
+            ms = cs.time_ms(run)
+            dev, launches = cs.device_ms(run)
+            step = None if dev is None else dev * 1e3 / p
+            res[p][name] = {"ms": ms, "device_ms": dev,
+                            "device_launches": launches,
+                            "us_per_step": step}
+            print(f"{name} B={LOGDET_B} P={p}: {ms:.4f} ms a call, device "
+                  f"{cs._ms(dev)} ({launches:g} launches), "
+                  f"{'n/m' if step is None else f'{step:.3f}'} us a step",
+                  flush=True)
+    for name in res[widths[0]]:
+        dev_p = [res[p][name]["device_ms"] for p in widths]
+        if None not in dev_p:
+            print(f"{name}: device time ~ P^{_slope(widths, dev_p):.2f} "
+                  f"at B={LOGDET_B}")
+    return res
+
+
 def _wide_case(rng, b, p):
     import torch
 
@@ -92,11 +153,15 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out")
     parser.add_argument("--quick", action="store_true")
+    parser.add_argument("--logdet", action="store_true")
     args = parser.parse_args()
     card = cs.phase_device()
     cs.phase_build()
     rng = np.random.default_rng(0)
     res = {"card": card, "widths": {}, "batches": {}}
+    if args.logdet:
+        _report({"card": card, "logdet": _time_logdet(rng)}, args.out)
+        return
     if args.quick:
         _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))
         _time(WIDE_B, 256, None, low=_wide_case(rng, WIDE_B, 256))
@@ -132,11 +197,14 @@ def main():
         print(f"{name}: time ~ P^{res[f'{name}_exponent_in_p']:.2f} at "
               f"B={MAIN_B}, ~ B^{res[f'{name}_exponent_in_b']:.2f} for B >= "
               f"{BATCHES[2]} at P=64")
+    _report(res, args.out)
+
+
+def _report(res, out):
     print(json.dumps(res))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fh:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
             json.dump(res, fh, indent=1)
 
 
