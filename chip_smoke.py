@@ -16,8 +16,9 @@ non-zero exit code and no result line:
    ``chol_wide.cu``, as K8 ``cholesky_blocked`` and as KC
    ``cholesky_cascade``; K3 ``triangular_inverse_lower`` as ``tri_inv.cu``
    up to 64 and ``tri_inv_wide.cu`` above) against its plain PyTorch twin
-   on the card at every shipped width (K2 and K5 at every width of their
-   sub-warp kernels too), escalation and NaN cases included, and kernel,
+   on the card at every shipped width (K2 at every width of its sub-warp
+   kernel too, K5 with one right-hand side and with P of them, in both
+   directions), escalation and NaN cases included, and kernel,
    twin and one PyTorch library call (a yardstick the port never calls)
    timed at the paths' shapes, per call (CUDA events) and on the device
    alone (``torch.profiler``), beside the roofline bound of the same work
@@ -28,7 +29,8 @@ non-zero exit code and no result line:
    twins and library calls, on a clean batch where no member escalates
    (one attempt of the library call is then the whole function);
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
-   the same tensors, member by member, timed as in phase 3; the autograd
+   the same tensors, member by member, timed as in phase 3 at every
+   interior level's shape of the main paths; the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
    calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``,
    ``cholesky_cascade`` and ``cholesky_blocked`` on the card against the
@@ -147,16 +149,27 @@ RAGGED_BATCH = 1000
 #: and N=10^6 (r=8, leaves P=64)
 CHOL_MAIN = ((64, 4), (4096, 8))
 LEAF_MAIN = ((256, 49), (16384, 64))
-#: (batch, P) of K3 and K4 in the leaf backward (the leaf shapes), and of
-#: K5 at the shape of the pullback's solves (the r x r interior blocks,
-#: Q = r)
+#: (batch, P) of K3 and K4 in the leaf backward (the leaf shapes)
 TRI_MAIN = LEAF_MAIN
-SOLVE_MAIN = CHOL_MAIN
-#: (batch, P) of the fused Cholesky pullback: K2's backward on the interior
-#: blocks, widths of both group sizes, the first width of the shared-memory
-#: kernel and a dense-R block width
-PULLBACK_SHAPES = CHOL_MAIN + tuple((RAGGED_BATCH, p) for p in (1, 3, 5, 9,
-                                                                 49))
+#: (batch, P, Q, transpose) K5 is timed at: the dense-R path's one call
+#: (phase 10's ``yw = L_R^-1 y0`` at the N=10^4 leaves, forward; the
+#: basis whitening, Q = 65, is wider than the sweep sends to K5), last, and
+#: the shape of the pullback's solves before KP fused them (4096 x 8 x 8,
+#: transposed), which keeps the earlier records comparable
+SOLVE_MAIN = ((4096, 8, 8, True), (256, 49, 1, False))
+#: (batch, P) of the fused Cholesky pullback on the main paths: K2's
+#: backward at every interior level, 4^m blocks of r x r (N=10^6: r=8, m =
+#: 0..6; N=10^4: r=4, m = 0..3)
+PULLBACK_MAIN = (tuple((4 ** m, 8) for m in range(7))
+                 + tuple((4 ** m, 4) for m in range(4)))
+#: the pullback's checks: the main-path shapes, widths of both lane
+#: layouts, the first width of the shared-memory kernel and a dense-R
+#: block width
+PULLBACK_SHAPES = PULLBACK_MAIN + tuple((RAGGED_BATCH, p)
+                                        for p in (1, 3, 5, 9, 49))
+#: device time of the pullback over this many launches a profile: a launch
+#: at 64 x 4 lasts a few microseconds
+PULLBACK_DEVICE_REPS = 100
 #: (batch, P) of K6 and K7 on the dense-R path (N=10^4, leaves P=49), and
 #: their widths: K2's and the edges of the core's width tiers
 LOGDET_MAIN = ((256, 49),)
@@ -243,11 +256,16 @@ def device_ms(fn, reps: int = 10,
     of the device activities (kernels, copies, fills) ``torch.profiler``
     records over ``reps`` calls after one warm-up, and how many there were
     per call. The profiler can miss activities (on an H100 it recorded
-    half of one kernel's launches in some sessions), so a profile that
-    recorded fewer of the port's kernels than its wrappers launched is
-    taken again, ``tries`` times in all; then, or when it recorded no device
-    activity, the time is not measured: ``None``. Library kernels have no
-    such count to check against."""
+    half of one kernel's launches in some sessions, and 95 of 100
+    one-launch calls of the Cholesky pullback), so a profile that recorded
+    fewer of the port's kernels than its wrappers launched is taken again,
+    ``tries`` times in all. Where every profile missed some, but the last
+    recorded nothing but the port's kernels and at least 90% of their
+    launches, a call is the mean of the launches it recorded times the
+    launches a call (its launches per call then read the wrappers'
+    count); else, or when it recorded no device activity, the time is not
+    measured: ``None``. Library kernels have no such count to check
+    against."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,6 +292,8 @@ def device_ms(fn, reps: int = 10,
                     own += evt.count
         if count and own == launched:
             return us / 1e3 / reps, count / reps
+    if own and own == count and own >= 0.9 * launched:
+        return us / own / 1e3 * launched / reps, launched / reps
     return None, count / reps
 
 
@@ -449,8 +469,8 @@ def tri_case(rng, b, p):
 def check_tri_inv(name, got, lt):
     """K3's result against its twin, each member held to its own scale,
     identical inf and NaN patterns, and exact zeros above the diagonal of
-    every member whose result is finite. Returns the max error over those
-    members (the others' finite entries reach 1e35)."""
+    every member whose result is finite. Returns the max error over
+    ``tri_case``'s healthy members (:func:`healthy_err`)."""
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -464,7 +484,17 @@ def check_tri_inv(name, got, lt):
     fin = torch.isfinite(w).flatten(1).all(1)
     check(bool((torch.triu(g[fin], 1) == 0).all()),
           f"{name}: a finite member has a nonzero above the diagonal")
-    return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+    return healthy_err(g, w)
+
+
+def healthy_err(got, want) -> float:
+    """max|got - want| over ``tri_case``'s healthy members (all but 1-4):
+    the others' entries reach 1e35 where finite, so their differences say
+    nothing of the kernel's rounding (``compare`` holds each to its own
+    scale)."""
+    g, w = got.detach().cpu(), want.detach().cpu()
+    keep = [b for b in range(len(w)) if not 1 <= b <= 4]
+    return float((g[keep] - w[keep]).abs().max()) if keep else 0.0
 
 
 def compare(name, got, want, factor_idx=frozenset(), per_member=False):
@@ -811,32 +841,43 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         print(line)
         del lt
 
-    # K5 with Q = P, both directions; the dense-R whitening solves forward,
-    # the Cholesky pullback solved with the transpose
-    shapes = [(ragged, p) for p in CHOL_WIDTHS] + list(solve_main)
-    for b, p in shapes:
+    # K5 at every width with Q = 1 and Q = P, both directions, tri_case's
+    # members that take the twin's whole-row substitution in the kernel
+    # included (each member held to its own scale; the error reported is
+    # the healthy members'); timed at the paths' shapes on healthy factors
+    for p in CHOL_WIDTHS:
+        lt = dv(tri_case(rng, ragged, p))
+        for q in sorted({1, p}):
+            rhs = dv(rng.standard_normal((ragged, p, q)).astype(np.float32))
+            for transpose in (False, True):
+                got = tl.solve_triangular_batched(lt, rhs, transpose)
+                want = tl.solve_triangular_batched_ref(lt, rhs, transpose)
+                compare(f"solve_triangular_batched {ragged}x{p}x{q} "
+                        f"T={transpose}", (got,), (want,), per_member=True)
+                e = healthy_err(got, want)
+                err["solve_triangular_batched"] = max(
+                    err["solve_triangular_batched"], e)
+                print(f"solve_triangular_batched B={ragged} P={p} Q={q} "
+                      f"transpose={transpose}: max|diff| {e:.3g}")
+    for b, p, q, transpose in solve_main:
         lt = dv(lower_case(rng, b, p))
-        rhs = dv(rng.standard_normal((b, p, p)).astype(np.float32))
-        for transpose in (False, True):
-            got = tl.solve_triangular_batched(lt, rhs, transpose)
-            want = tl.solve_triangular_batched_ref(lt, rhs, transpose)
-            e = compare(f"solve_triangular_batched {b}x{p} T={transpose}",
-                        (got,), (want,))
-            err["solve_triangular_batched"] = max(
-                err["solve_triangular_batched"], e)
-            line = (f"solve_triangular_batched B={b} P=Q={p} "
-                    f"transpose={transpose}: max|diff| {e:.3g}")
-            if transpose and (b, p) in solve_main:
-                lt_t = lt.transpose(-1, -2)
-                line += timed(
-                    times, ("solve_triangular_batched", b, p), timer,
-                    dev_timer,
-                    lambda: tl.solve_triangular_batched(lt, rhs, True),
-                    lambda: tl.solve_triangular_batched_ref(lt, rhs, True),
-                    lambda: torch.linalg.solve_triangular(lt_t, rhs,
-                                                          upper=True),
-                    [lt, rhs])
-            print(line)
+        rhs = dv(rng.standard_normal((b, p, q)).astype(np.float32))
+        e = compare(f"solve_triangular_batched {b}x{p}x{q} T={transpose}",
+                    (tl.solve_triangular_batched(lt, rhs, transpose),),
+                    (tl.solve_triangular_batched_ref(lt, rhs, transpose),))
+        err["solve_triangular_batched"] = max(
+            err["solve_triangular_batched"], e)
+        # the library's solve of op(L) x = b, op(L) = L^T upper
+        op_l = lt.transpose(-1, -2) if transpose else lt
+        print(f"solve_triangular_batched B={b} P={p} Q={q} "
+              f"transpose={transpose}: max|diff| {e:.3g}" + timed(
+                  times, ("solve_triangular_batched", b, p), timer,
+                  dev_timer,
+                  lambda: tl.solve_triangular_batched(lt, rhs, transpose),
+                  lambda: tl.solve_triangular_batched_ref(lt, rhs,
+                                                          transpose),
+                  lambda: torch.linalg.solve_triangular(
+                      op_l, rhs, upper=transpose), [lt, rhs]))
 
     # K6 and K7: chol_case's escalated, exact-zero-pivot and all-fail
     # members, where the kernel runs up to three attempts and the library
@@ -1016,7 +1057,8 @@ def time_backward(m, jit, lbar, device, timer, dev_timer) -> dict:
 
 def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                    logdet_main=LOGDET_MAIN, wide_main=WIDE_MAIN[:1],
-                   pullback_shapes=PULLBACK_SHAPES, timer=time_ms,
+                   pullback_shapes=PULLBACK_SHAPES,
+                   pullback_main=PULLBACK_MAIN, timer=time_ms,
                    dev_timer=device_ms):
     import torch
 
@@ -1034,7 +1076,8 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
 
     # the fused pullback at K2's factors (escalated and all-fail members
     # included) against the composition it fuses, on the same tensors; its
-    # own draws, so that the checks below keep their inputs
+    # own draws, so that the checks below keep their inputs; timed at every
+    # main-path shape, on the device over PULLBACK_DEVICE_REPS launches
     rng = np.random.default_rng(11)
     for b, p in pullback_shapes:
         m, jit = chol_case(rng, b, p)
@@ -1048,9 +1091,10 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                     tl.cholesky_pullback_ref(*args), per_member=True)
         err["cholesky_pullback"] = max(err["cholesky_pullback"], e)
         line = f"cholesky_pullback B={b} P={p}: max|diff| {e:.3g}"
-        if (b, p) in chol_main:
+        if (b, p) in pullback_main:
             line += timed(times, ("cholesky_pullback", b, p), timer,
-                          dev_timer, lambda: tl.cholesky_pullback(*args),
+                          lambda fn: dev_timer(fn, PULLBACK_DEVICE_REPS),
+                          lambda: tl.cholesky_pullback(*args),
                           lambda: tl.cholesky_pullback_ref(*args), None,
                           list(args))
         print(line)
@@ -2003,7 +2047,8 @@ def phase_nuts_n1m(n1m, theta0, ms_grad, device="cuda", R=1e-2,
 # ---------------------------------------------------------------------------
 
 #: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
-#: replaces, the path shape of its record)
+#: replaces, the path shape of its record: (batch, P), or K5's (batch, P,
+#: Q))
 KERNELS = (
     ("leaf_factor", "leaf_factor.cu",
      "pymra_tpu/ops/pallas/linalg.py:255,309", LEAF_MAIN[-1]),
@@ -2016,9 +2061,9 @@ KERNELS = (
     ("cholesky", "cholesky.cu", "pymra_tpu/ops/pallas/linalg.py:99",
      TRI_MAIN[-1]),
     ("solve_triangular_batched", "tri_solve.cu",
-     "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1]),
+     "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1][:3]),
     ("cholesky_pullback", "tri_solve.cu",
-     "pymra_tpu/ops/pallas/linalg.py:1161", PULLBACK_SHAPES[1]),
+     "pymra_tpu/ops/pallas/linalg.py:1161", (4096, 8)),
     ("cholesky_logdet", "chol_logdet.cu",
      "pymra_tpu/ops/pallas/linalg.py:394", LOGDET_MAIN[-1]),
     ("cholesky_inv_logdet", "chol_inv_logdet.cu",
@@ -2124,7 +2169,8 @@ def main() -> int:
     print_precision()
 
     rec = []
-    for name, src, replaces, (b, p) in KERNELS:
+    for name, src, replaces, shape in KERNELS:
+        b, p = shape[:2]
         launches = (forward if name in FORWARD_KERNELS else
                     gradient if name in GRADIENT_KERNELS else slice3)
         n_launch = launches[name]
@@ -2149,7 +2195,15 @@ def main() -> int:
         if name == "cholesky_pullback":
             extra = {"fuses": "_cholesky_bwd: the L^T Lbar product, K5 "
                               "_tri_solve_kernel (:366) twice and the "
-                              "symmetrization"}
+                              "symmetrization",
+                     "levels": {f"{lb}x{lp}x{lp}": times[(name, lb, lp)]
+                                for lb, lp in PULLBACK_MAIN
+                                if (lb, lp) != (b, p)}}
+        if name == "solve_triangular_batched":
+            extra = {"other_shapes": {
+                f"{sb}x{sp}x{sq}{' transposed' if st else ''}":
+                    times[(name, sb, sp)]
+                for sb, sp, sq, st in SOLVE_MAIN[:-1]}}
         if name == "triangular_inverse_lower":
             extra = {"small": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
                                for sb, sp in TRI_MAIN[:-1]}}
@@ -2166,7 +2220,8 @@ def main() -> int:
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),
                     **times[(name, b, p)],
-                    "shape": f"{b}x{p}x{p}", **extra})
+                    "shape": "x".join(map(str, (shape + (p,))[:3])),
+                    **extra})
     print(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "pymra_tri_inv": [_P, _P, _I, _I, _I, _I, _P],
     # l, x, batch, p, device, stream
     "pymra_tri_inv_wide": [_P, _P, _I, _I, _I, _P],
-    # l, b, x, batch, p, q, transpose, device, stream
-    "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # l, b, x, batch, p, q, transpose, tier, cols, device, stream
+    "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, device,
     # stream
     "pymra_chol_pullback": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -1,10 +1,12 @@
 // Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
 // shared by K1 leaf_factor.cu, K4 cholesky.cu, K6 chol_logdet.cu, K7
-// chol_inv_logdet.cu and K3 tri_inv.cu and tri_inv_wide.cu.
+// chol_inv_logdet.cu, K3 tri_inv.cu and tri_inv_wide.cu and K5
+// tri_solve.cu.
 //
 // Replaces the column loops of the TPU kernels _chol_kernel (K4),
 // _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1), _chol_logdet_kernel
-// (K6), _chol_inv_logdet_kernel (K7) and _tri_inv_kernel (K3) in
+// (K6), _chol_inv_logdet_kernel (K7), _tri_inv_kernel (K3) and
+// _tri_solve_kernel (K5, the solve mode at the end of this header) in
 // pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one member,
 // in three modes: the half log-pivot sum alone (K1's prior, K6), the
 // factor (K4), and the factor's inverse formed alongside it (K1's
@@ -366,6 +368,271 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
     }
   }
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// The solve mode (K5, tri_solve.cu): X = L^-1 B, or L^-T B, for a given
+// lower factor L of width p <= 8 NB and one slab of at most C columns of B
+// (C = 1, 2, 4 or 8, chosen by the host from B's width; a wider B is split
+// into slabs, one block each).
+//
+// L sits in the tile map as in kTriInv (assemble: its lower triangle,
+// padding the identity) and never changes. X sits in registers on a grid
+// of kR x C threads, kR = kThreads / C: thread (xr, xc) = (tid / C, tid %
+// C) holds X[xr + kR a][xc], a < kNA, so that at C = 1 the rows spread
+// over all 64 threads. Forward step j (j ascending): at the end of step
+// j - 1 the owners of row j of X scaled it by L[j][j] with the quotient
+// and put it into the step's buffer, and the owners of column j of L put
+// that column beside it; each thread reads the row's value of its column
+// and L[i][j] of its rows i > j and takes X[i] -= L[i][j] X[j] on
+// registers: _forward_subst's order, the subtractions in ascending j, then
+// the division. Transposed step j (j descending): row j of L is put as
+// the column of L^T and the rows i < j update, the twin's back
+// substitution. One barrier a step, at its start; the buffers are
+// double-buffered by the parity of j. The arithmetic is the twins' but for
+// FMA contraction of the updates: the quotient is their division where
+// regular() holds, and a member with an entry it refuses takes
+// substitute_solve, the twins' whole-row substitution with division.
+//
+// Who runs a thread's part is the caller's `team`: on the card each thread
+// of the member's block runs its own (tri_solve.cu); a host build of this
+// header runs all kThreads parts one after another between barriers
+// (tests/test_torch_tri_solve.py). team.each(f) calls f(part, tid) for the
+// parts it runs, team.any(f) is a barrier that returns whether f is true
+// for any part, team.sync() is a barrier.
+// ---------------------------------------------------------------------------
+
+template <int NB, int C>
+struct SolveGrid {
+  static constexpr int kR = kThreads / C;  // rows of the grid over X
+  static constexpr int kNA = (NB * C + kGrid - 1) / kGrid;  // rows a thread
+};
+
+// one thread's registers
+template <int NB, int C>
+struct SolvePart {
+  float s[NB][NB];                     // L in the tile map
+  float x[SolveGrid<NB, C>::kNA];      // X[xr + kR a][xc]
+  float d[SolveGrid<NB, C>::kNA];      // L[i][i] of those rows
+  float r[SolveGrid<NB, C>::kNA];      // and 1 / L[i][i]
+  bool odd;                            // an entry regular() refuses
+};
+
+// the member's shared memory
+template <int NB, int C>
+struct SolveBuffers {
+  float col[2][kGrid * NB];  // column j of L (transposed: row j), entry
+                             // g + 8 m at g * NB + m
+  float xrow[2][C];          // row j of X, scaled
+  float diag[kGrid * NB];    // L's diagonal
+};
+
+// column c < q of X over whole rows, the twins' substitution in their
+// order: X[i][c] = (B[i][c] - sum_k L[i][k] X[k][c]) / L[i][i], k
+// ascending below i (transposed: L[k][i], k descending above i). It reads
+// back only its own column of x. The path of the members regular()
+// refuses.
+template <bool T>
+__device__ __forceinline__ void substitute_solve(const float* l,
+                                                 const float* b, float* x,
+                                                 int p, int q, int c) {
+  if (c >= q) return;
+  for (int s = 0; s < p; ++s) {
+    const int i = T ? p - 1 - s : s;
+    float acc = b[i * q + c];
+    if (T) {
+      for (int k = p - 1; k > i; --k) acc -= l[k * p + i] * x[k * q + c];
+    } else {
+      for (int k = 0; k < i; ++k) acc -= l[i * p + k] * x[k * q + c];
+    }
+    x[i * q + c] = acc / l[i * p + i];
+  }
+}
+
+// The owners of step j = 8 bn + jc put its buffers: column j of L (T: row
+// j), and row j of X scaled by L[j][j] (the quotient with the reciprocal
+// they hold), which they keep.
+template <int NB, int C, bool T>
+__device__ __forceinline__ void solve_put(SolvePart<NB, C>& pt,
+                                          SolveBuffers<NB, C>& buf, int bn,
+                                          int jc, int tid) {
+  using Grid = SolveGrid<NB, C>;
+  const int j = kGrid * bn + jc, par = j & 1;
+  const Place t = place(tid);
+  if (!T && t.c == jc) {
+#pragma unroll
+    for (int a = 0; a < NB; ++a)
+      if (a >= bn) buf.col[par][t.r * NB + a] = pt.s[a][bn];
+  }
+  if (T && t.r == jc) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b <= bn) buf.col[par][t.c * NB + b] = pt.s[bn][b];
+  }
+  const int aj = kGrid * bn / Grid::kR;  // row j of X is at a = aj
+  if (tid / C == j % Grid::kR) {
+    pt.x[aj] = quotient(pt.x[aj], pt.d[aj], pt.r[aj]);
+    buf.xrow[par][tid % C] = pt.x[aj];
+  }
+}
+
+// the first step's buffers (T: step p - 1, in block (p - 1) / 8), with
+// the block index a constant
+template <int NB, int C, bool T, int BN = 0>
+__device__ __forceinline__ void solve_put_first(SolvePart<NB, C>& pt,
+                                                SolveBuffers<NB, C>& buf,
+                                                int p, int tid) {
+  if (!T || BN == (p - 1) / kGrid) {
+    solve_put<NB, C, T>(pt, buf, BN, T ? (p - 1) % kGrid : 0, tid);
+    return;
+  }
+  if constexpr (BN + 1 < NB) solve_put_first<NB, C, T, BN + 1>(pt, buf, p,
+                                                               tid);
+}
+
+// Step j = 8 b + jc: the rows past j (T: before j) take X[i] -= L[i][j]
+// X[j] (T: L[j][i] X[j]); then the next step's buffers.
+template <int NB, int C, bool T>
+__device__ __forceinline__ void solve_step(SolvePart<NB, C>& pt,
+                                           SolveBuffers<NB, C>& buf, int b,
+                                           int jc, int p, int tid) {
+  using Grid = SolveGrid<NB, C>;
+  const int j = kGrid * b + jc, par = j & 1;
+  const int xr = tid / C;
+  const float xv = buf.xrow[par][tid % C];
+  const int aj = kGrid * b / Grid::kR;
+#pragma unroll
+  for (int a = 0; a < Grid::kNA; ++a) {
+    if (T ? a > aj : a < aj) continue;
+    const int i = xr + Grid::kR * a;
+    if (T ? i < j : (i > j && i < p))
+      pt.x[a] -= buf.col[par][(i % kGrid) * NB + i / kGrid] * xv;
+  }
+  if (T) {
+    if (jc > 0)
+      solve_put<NB, C, T>(pt, buf, b, jc - 1, tid);
+    else if (b > 0)
+      solve_put<NB, C, T>(pt, buf, b > 0 ? b - 1 : 0, kGrid - 1, tid);
+  } else if (j + 1 < p) {
+    if (jc + 1 < kGrid)
+      solve_put<NB, C, T>(pt, buf, b, jc + 1, tid);
+    else if (b + 1 < NB)
+      solve_put<NB, C, T>(pt, buf, b + 1 < NB ? b + 1 : b, 0, tid);
+  }
+}
+
+// The steps of column block B = U (T: NB - 1 - U) and the blocks after
+// it, one barrier a step: the block index is a constant in each, so that
+// every register index is.
+template <int NB, int C, bool T, int U = 0, class Team>
+__device__ __forceinline__ void solve_steps(Team& team,
+                                            SolveBuffers<NB, C>& buf,
+                                            int p) {
+  constexpr int B = T ? NB - 1 - U : U;
+  for (int v = 0; v < kGrid; ++v) {
+    const int jc = T ? kGrid - 1 - v : v;
+    if (kGrid * B + jc >= p) {
+      if (T) continue;
+      return;
+    }
+    team.sync();
+    team.each([&](SolvePart<NB, C>& pt, int tid) {
+      solve_step<NB, C, T>(pt, buf, B, jc, p, tid);
+    });
+  }
+  if constexpr (U + 1 < NB) solve_steps<NB, C, T, U + 1>(team, buf, p);
+}
+
+// Slab `slab` of one member: l [p, p] (its lower triangle read), b and
+// out [p, q], columns C slab .. C slab + C - 1.
+template <int NB, int C, bool T, class Team>
+__device__ __forceinline__ void solve(Team& team, SolveBuffers<NB, C>& buf,
+                                      const float* __restrict__ l,
+                                      const float* __restrict__ b,
+                                      float* __restrict__ out, int p, int q,
+                                      int slab) {
+  using Grid = SolveGrid<NB, C>;
+  using Part = SolvePart<NB, C>;
+  const int c0 = C * slab;
+  team.each([&](Part& pt, int tid) {
+    if (tid < p) buf.diag[tid] = l[tid * (p + 1)];
+    bool odd = false;
+    assemble<NB>(pt.s, p, place(tid), [&](int i, int k) {
+      const float v = l[i * p + k];
+      odd |= !regular(v, i == k);
+      return v;
+    });
+    pt.odd = odd;
+    const int c = c0 + tid % C;
+#pragma unroll
+    for (int a = 0; a < Grid::kNA; ++a) {
+      const int i = tid / C + Grid::kR * a;
+      pt.x[a] = (i < p && c < q) ? b[i * q + c] : 0.f;
+    }
+  });
+  if (team.any([](const Part& pt, int) { return pt.odd; })) {
+    team.each([&](Part&, int tid) {
+      if (tid < C) substitute_solve<T>(l, b, out, p, q, c0 + tid);
+    });
+    return;
+  }
+  // each thread's diagonal entries and their reciprocals, taken once;
+  // then the first step's buffers and the steps
+  team.each([&](Part& pt, int tid) {
+#pragma unroll
+    for (int a = 0; a < Grid::kNA; ++a) {
+      const int i = tid / C + Grid::kR * a;
+      pt.d[a] = i < p ? buf.diag[i] : 1.f;
+      pt.r[a] = 1.f / pt.d[a];
+    }
+    solve_put_first<NB, C, T>(pt, buf, p, tid);
+  });
+  solve_steps<NB, C, T>(team, buf, p);
+  team.each([&](Part& pt, int tid) {
+    const int c = c0 + tid % C;
+    if (c >= q) return;
+#pragma unroll
+    for (int a = 0; a < Grid::kNA; ++a) {
+      const int i = tid / C + Grid::kR * a;
+      if (i < p) out[i * q + c] = pt.x[a];
+    }
+  });
+}
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// f(Int<NB>(), Int<C>(), Int<T>()) for the tier's NB (2, 4, 6 or 8), the
+// slab width C (1, 2, 4 or 8) and the direction T (0 or 1); false where
+// there is no such instance
+template <class F>
+inline bool solve_dispatch(int nb, int c, int t, F f) {
+  auto by_t = [&](auto nbv, auto cv) {
+    if (t) {
+      f(nbv, cv, Int<1>());
+    } else {
+      f(nbv, cv, Int<0>());
+    }
+    return true;
+  };
+  auto by_c = [&](auto nbv) {
+    switch (c) {
+      case 1: return by_t(nbv, Int<1>());
+      case 2: return by_t(nbv, Int<2>());
+      case 4: return by_t(nbv, Int<4>());
+      case 8: return by_t(nbv, Int<8>());
+      default: return false;
+    }
+  };
+  switch (nb) {
+    case 2: return by_c(Int<2>());
+    case 4: return by_c(Int<4>());
+    case 6: return by_c(Int<6>());
+    case 8: return by_c(Int<8>());
+    default: return false;
+  }
 }
 
 // the tier's NB from the host's width tier (16, 32, 48 or 64), 0 if none

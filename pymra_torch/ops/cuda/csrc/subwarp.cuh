@@ -1,11 +1,13 @@
 // Sub-warp groups for the batched small-matrix kernels, Hopper (sm_90a).
 //
 // A member [P, P] with P <= kMaxP = 8 (the interior blocks of the MRA
-// sweep, r = 4 or 8) is owned by a group of G = 4 or 8 lanes, the next
-// power of two >= P (at least 4): lane i of the group holds row (or column)
-// i of the member in registers, G entries, fully unrolled, and the column
-// steps exchange values with __shfl_sync within the group. Wider members
-// take each source's shared-memory kernel.
+// sweep, r = 4 or 8) is owned by a group of lanes sized from G = 4 or 8,
+// the next power of two >= P (at least 4). In K2 (cholesky_jittered.cu)
+// lane i of a group of G holds row i of the member in registers, G
+// entries, fully unrolled, and the column steps exchange values with
+// __shfl_sync within the group; the Cholesky pullback (tri_solve.cu) gives
+// each lane one or two entries instead. Wider members take each source's
+// shared-memory kernel.
 // A warp holds 32 / G members; lanes i >= P and members past the batch
 // ride along with zeros (every shuffle names the whole warp) and store
 // nothing.
@@ -58,23 +60,19 @@ __device__ inline WarpSlice warp_slice(int batch) {
   return {first, left < 0 ? 0 : (left < per_warp ? left : per_warp)};
 }
 
-// the lane's share of a coalesced read of `count` contiguous [p, p]
-// members: at most 32 G floats, so at most G a lane, all in flight at once
+// coalesced copy of `count` contiguous [p, p] members into the tile, then
+// a warp barrier: at most 32 G floats, so at most G a lane, all in flight
+// at once
 template <int G>
-__device__ inline void tile_fetch(float (&v)[G], const float* __restrict__ src,
-                                  int count, int p, int lane) {
+__device__ inline void tile_load(float* tile, const float* __restrict__ src,
+                                 int count, int p, int lane) {
+  const int pp = p * p;
+  float v[G];
 #pragma unroll
   for (int u = 0; u < G; ++u) {
     const int e = lane + u * kWarp;
-    if (e < count * p * p) v[u] = src[e];
+    if (e < count * pp) v[u] = src[e];
   }
-}
-
-// the fetched floats into the tile, then a warp barrier
-template <int G>
-__device__ inline void tile_put(float* tile, const float (&v)[G], int count,
-                                int p, int lane) {
-  const int pp = p * p;
 #pragma unroll
   for (int u = 0; u < G; ++u) {
     const int e = lane + u * kWarp;
@@ -84,15 +82,6 @@ __device__ inline void tile_put(float* tile, const float (&v)[G], int count,
     }
   }
   __syncwarp();
-}
-
-// coalesced copy of `count` contiguous [p, p] members into the tile
-template <int G>
-__device__ inline void tile_load(float* tile, const float* __restrict__ src,
-                                 int count, int p, int lane) {
-  float v[G];
-  tile_fetch<G>(v, src, count, p, lane);
-  tile_put<G>(tile, v, count, p, lane);
 }
 
 // coalesced copy of the tile's `count` [p, p] members to device memory

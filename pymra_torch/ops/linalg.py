@@ -18,7 +18,9 @@ custom VJP, or a composition of such):
   composition (the JAX package's ``_tri_inv_recursive``: the first kernel
   on 64-wide diagonal blocks, ``torch.matmul`` for the off-diagonal ones).
 * :func:`solve_triangular_batched` — ``L x = b`` or ``L^T x = b``
-  (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``.
+  (replaces K5, ``_tri_solve_kernel``); ``ops/cuda/csrc/tri_solve.cu``, on
+  the register-tiled core's solve mode (width tier from :func:`tile_tier`,
+  slabs of ``b``'s columns from :func:`solve_cols`).
 * :func:`cholesky_pullback` — the Cholesky pullback of K2 and K4 (and KC
   up to P = 64) in one launch: product, both K5 substitutions and the
   symmetrization of the JAX package's ``_cholesky_bwd``;
@@ -80,6 +82,7 @@ from torch.autograd.function import once_differentiable
 from pymra_torch.ops.cuda import build
 
 __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
+           "solve_cols",
            "cholesky", "cholesky_ref", "triangular_inverse_lower",
            "triangular_inverse_lower_ref", "solve_triangular_batched",
            "solve_triangular_batched_ref", "cholesky_pullback",
@@ -96,8 +99,6 @@ FACTORS = (1.0, 1e2, 1e4)
 #: compositions (K8 ``cholesky_blocked``, the blocked
 #: ``triangular_inverse_lower``, KC ``cholesky_cascade``)
 MAX_P = 64
-#: shared-memory budget of one K5 block (the kernel's static limit)
-_SOLVE_SMEM = 48 * 1024
 
 
 def set_matmul_precision() -> None:
@@ -507,6 +508,16 @@ def tile_tier(p: int) -> int:
     return 16 * -(-p // 16)
 
 
+def solve_cols(q: int) -> int:
+    """Columns of ``b`` one block of K5 takes (``chol_tile.cuh``'s solve
+    mode, its thread grid (64 / C) x C): 1, 2, 4 or 8, the least that holds
+    ``q`` up to 8; a wider ``b`` is split into ``ceil(q / 8)`` slabs of 8
+    columns, one block each."""
+    if q < 1:
+        raise ValueError(f"solve_cols: Q={q} < 1")
+    return 1 if q == 1 else 2 if q == 2 else 4 if q <= 4 else 8
+
+
 def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     if mat.device.type == "cpu":
         return cholesky_ref(mat)
@@ -591,16 +602,16 @@ def _tri_solve_fwd(l: torch.Tensor, b: torch.Tensor,
     q = b.shape[-1]
     _check("solve_triangular_batched: l", l, l.shape, l.device)
     _check("solve_triangular_batched: b", b, batch + (p, q), l.device)
-    if (p * (p + 1) + p * q) * 4 > _SOLVE_SMEM or q > 1024:
-        raise NotImplementedError(
-            f"solve_triangular_batched: P={p}, Q={q} exceeds one block's "
-            "shared memory; the kernel takes Q up to ~(12288 - P(P+1))/P")
+    cols = solve_cols(q)
     out = torch.empty_like(b)
     n = out.numel() // (p * q)
+    if n * -(-q // cols) >= 2 ** 31:
+        raise ValueError(f"solve_triangular_batched: {n} members of {q} "
+                         "columns exceed the kernel's grid")
     if n:
         _launched("solve_triangular_batched", lib.pymra_tri_solve(
             l.data_ptr(), b.data_ptr(), out.data_ptr(), n, p, q,
-            int(bool(transpose)), *_where(l)))
+            int(bool(transpose)), tile_tier(p), cols, *_where(l)))
         solve_triangular_batched.launches += 1
     return out
 
@@ -1125,7 +1136,12 @@ triangular_inverse_lower.composed = 0
 def solve_triangular_batched(l: torch.Tensor, b: torch.Tensor,
                              transpose: bool = False) -> torch.Tensor:
     """Batched triangular solve with a lower factor: ``L x = b`` (or
-    ``L^T x = b`` with ``transpose=True``); ``b`` is ``[..., P, Q]``."""
+    ``L^T x = b`` with ``transpose=True``); ``b`` is ``[..., P, Q]``, only
+    ``L``'s lower triangle is read.
+
+    On the card one launch of ``ops/cuda/csrc/tri_solve.cu`` for P <= 64
+    and any Q (a block a member and slab of :func:`solve_cols` columns, at
+    the width tier :func:`tile_tier`); on the CPU the twin."""
     return _TriSolve.apply(l, b, bool(transpose))
 
 

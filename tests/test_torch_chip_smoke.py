@@ -42,7 +42,9 @@ def _no_device_timer(fn, reps=10):
 def test_kernel_phase_passes_with_twins():
     err, times = chip_smoke.phase_kernels(
         "cpu", ragged=9, chol_main=((8, 4),), leaf_main=((6, 17),),
-        tri_main=((5, 17),), solve_main=((8, 4),), logdet_main=((7, 9),),
+        tri_main=((5, 17),),
+        solve_main=((8, 4, 4, True), (6, 17, 1, False)),
+        logdet_main=((7, 9),),
         wide_widths=(65, 130), wide_main=((6, 96),), timer=_host_timer,
         dev_timer=_no_device_timer)
     # on the CPU each wrapper runs its twin, so kernel and twin agree
@@ -58,6 +60,7 @@ def test_kernel_phase_passes_with_twins():
                           ("cholesky", 5, 17),
                           ("triangular_inverse_lower", 5, 17),
                           ("solve_triangular_batched", 8, 4),
+                          ("solve_triangular_batched", 6, 17),
                           ("cholesky_logdet", 7, 9),
                           ("cholesky_inv_logdet", 7, 9),
                           ("cholesky_blocked", 6, 96),
@@ -84,7 +87,8 @@ def test_kernel_phase_times_jittered_kernels_on_both_batches():
     # its library call; the clean batch's work counts one attempt a member
     _, times = chip_smoke.phase_kernels(
         "cpu", ragged=5, chol_main=((6, 3),), leaf_main=((5, 16),),
-        tri_main=((5, 16),), solve_main=((6, 3),), logdet_main=((5, 33),),
+        tri_main=((5, 16),), solve_main=((6, 3, 1, False),),
+        logdet_main=((5, 33),),
         wide_widths=(65,), wide_main=((6, 70),), timer=_host_timer,
         dev_timer=_no_device_timer)
     mains = {"cholesky_jittered": (6, 3), "cholesky_logdet": (5, 33),
@@ -233,11 +237,81 @@ def test_kernel_scaling_times_k6_k7_per_step(monkeypatch):
                 rec["device_ms"] * 1e3 / p)
 
 
+def test_kernel_scaling_times_k5_and_the_pullback_at_path_shapes(
+        monkeypatch):
+    # tools/kernel_scaling.py --solve on CPU tensors, its timers replaced by
+    # the host clock: K5 and its library call at each SOLVE_MAIN shape, the
+    # pullback at each PULLBACK_MAIN shape with the longer device loop
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_scaling", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                       "tools", "kernel_scaling.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    reps = []
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=10: _host_timer(fn, 1))
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=10: (
+        reps.append(n) or _host_timer(fn, 1), 1.0))
+    monkeypatch.setattr(chip_smoke, "SOLVE_MAIN",
+                        ((8, 4, 4, True), (6, 17, 1, False)))
+    monkeypatch.setattr(chip_smoke, "PULLBACK_MAIN", ((4, 8), (16, 4)))
+    res = ks._time_solve(np.random.default_rng(0), "cpu")
+    assert set(res) == {
+        "solve_triangular_batched 8x4x4 transposed",
+        "solve_triangular 8x4x4 transposed",
+        "solve_triangular_batched 6x17x1", "solve_triangular 6x17x1",
+        "cholesky_pullback 4x8x8", "cholesky_pullback 16x4x4"}
+    assert all(r["ms"] > 0 and r["device_launches"] == 1.0
+               for r in res.values())
+    assert reps == [10] * 4 + [chip_smoke.PULLBACK_DEVICE_REPS] * 2
+
+
+def test_solve_and_pullback_are_timed_at_their_paths_shapes(monkeypatch):
+    # K5's record is the one call the dense-R path makes per evaluation
+    # (phase 10's tree and R: yw = L_R^-1 y0 at the 256 leaves of 49,
+    # forward; L_R and y0 are free of theta, so no backward solve), and the
+    # N=10^4 gradient hands the pullback each of its interior levels twice,
+    # shapes PULLBACK_MAIN times
+    locs, y = load_data("large")
+    model = MRAModel(locs, r=4, M=4, dtype=torch.float32, device="cpu",
+                     config=PlanConfig(r=4, kmeans_impl="native"))
+    solves, pullbacks = [], []
+    real_solve, real_pullback = sweep.solve_triangular_batched, \
+        tl.cholesky_pullback
+    monkeypatch.setattr(sweep, "solve_triangular_batched",
+                        lambda l, b, t=False: solves.append(
+                            (*b.shape, t)) or real_solve(l, b, t))
+    monkeypatch.setattr(tl, "cholesky_pullback",
+                        lambda l, *a: pullbacks.append(l.shape[:2])
+                        or real_pullback(l, *a))
+    th = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+          for k, v in (("l", 2.0), ("sig", 1.0))}
+    model.sweep(Kernel("exponential", l=th["l"], sig=th["sig"]),
+                torch.as_tensor(y, dtype=torch.float32),
+                chip_smoke.correlated_r(locs, "cpu"),
+                compute_posterior=False).loglik.backward()
+    assert solves == [chip_smoke.SOLVE_MAIN[-1]]
+    assert chip_smoke.KERNELS[[n for n, *_ in chip_smoke.KERNELS].index(
+        "solve_triangular_batched")][3] == chip_smoke.SOLVE_MAIN[-1][:3]
+    pullbacks.clear()
+    f = model.loglik_fn(torch.as_tensor(y, dtype=torch.float32), 1e-4,
+                        kernel_builder=chip_smoke.exponential_builder)
+    chip_smoke.value_and_grad(f, 2.0, 1.0)
+    n10k = [(4 ** m, 4) for m in range(4)]
+    assert sorted(pullbacks) == sorted(2 * n10k)
+    assert set(n10k) <= set(chip_smoke.PULLBACK_MAIN)
+    assert set(chip_smoke.PULLBACK_MAIN) <= set(chip_smoke.PULLBACK_SHAPES)
+
+
 def test_backward_phase_passes_with_twins():
     err, times = chip_smoke.phase_backward(
         "cpu", chol_main=((8, 4),), leaf_main=((6, 17),),
         logdet_main=((7, 9),), wide_main=((5, 70),),
-        pullback_shapes=((8, 4), (9, 49)), timer=_host_timer,
+        pullback_shapes=((8, 4), (9, 49)), pullback_main=((8, 4),),
+        timer=_host_timer,
         dev_timer=_no_device_timer)
     assert err == dict.fromkeys(
         ["cholesky_pullback", "cholesky_jittered", "leaf_factor",
@@ -247,6 +321,62 @@ def test_backward_phase_passes_with_twins():
                           ("cholesky_pullback", 8, 4)}
     assert times["cholesky_jittered_backward", 8, 4]["ms"] > 0
     assert times["cholesky_pullback", 8, 4]["library_ms"] is None
+
+
+def _fake_profile(recorded, other=0):
+    """A ``torch.profiler.profile`` stand-in whose profiles recorded
+    ``recorded`` launches of a port kernel (2 us each) and ``other`` of a
+    library kernel."""
+    import types
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            evts = [types.SimpleNamespace(
+                device_type=cuda, key="chol_pullback_lanes<8>",
+                self_device_time_total=2.0 * recorded, count=recorded)]
+            if other:
+                evts.append(types.SimpleNamespace(
+                    device_type=cuda, key="sm90_gemm",
+                    self_device_time_total=1.0 * other, count=other))
+            return evts
+    return Profile
+
+
+@pytest.mark.parametrize("recorded, other, want", [
+    (100, 0, (0.002, 1.0)), (95, 0, (0.002, 1.0)), (80, 0, (None, 0.8)),
+    (95, 5, (None, 1.0))])
+def test_device_ms_reads_the_recorded_launches(monkeypatch, recorded, other,
+                                               want):
+    # all 100 launches recorded: their summed time; 95 of them and nothing
+    # else: the mean of those 95 a launch; fewer, or another device
+    # activity beside them: not measured
+    launched = [0]
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _fake_profile(recorded, other))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "_spin", lambda: None)
+    monkeypatch.setattr(chip_smoke, "_wrapper_launches", lambda: launched[0])
+
+    def call():
+        launched[0] += 1
+
+    got = chip_smoke.device_ms(call, reps=100)
+    assert got[1] == pytest.approx(want[1])
+    if want[0] is None:
+        assert got[0] is None
+    else:
+        assert got[0] == pytest.approx(want[0])
 
 
 def test_compare_refuses_differing_factors_and_nan_patterns():

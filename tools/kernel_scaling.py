@@ -14,7 +14,8 @@ exponents, the per-member time and the rate of useful float32 operations
 (``chip_smoke.work``), and with ``--out`` writes them as JSON. Run from the
 root of the tree to time on a machine with an NVIDIA GPU::
 
-    python3 tools/kernel_scaling.py [--out FILE] [--quick | --logdet]
+    python3 tools/kernel_scaling.py [--out FILE] [--quick | --logdet |
+                                     --solve]
 
 ``--quick`` times P = 64, B = 16384 and K3 at 4096 x 256 only.
 ``--logdet`` times K6 ``cholesky_logdet`` and K7 ``cholesky_inv_logdet``
@@ -24,6 +25,12 @@ dense-R path's B = 256 for P from 8 to 64, per call and on the device
 alone (``chip_smoke.device_ms``): there a launch lasts one member's chain
 of P steps, so device ms / P is the time of one step (a call at that
 batch is mostly the host's).
+``--solve`` times K5 ``solve_triangular_batched`` at
+``chip_smoke.SOLVE_MAIN`` (beside ``torch.linalg.solve_triangular``) and
+the fused ``cholesky_pullback`` at every shape of
+``chip_smoke.PULLBACK_MAIN``, per call and on the device alone (the
+pullback over ``chip_smoke.PULLBACK_DEVICE_REPS`` launches a profile), on
+the inputs of phases 3 and 3b.
 
 The kernels timed are the package of the working directory's tree;
 ``chip_smoke``'s helpers are those of the tree this tool lies in, so the
@@ -139,6 +146,48 @@ def _time_logdet(rng, device="cuda", widths=LOGDET_WIDTHS):
     return res
 
 
+def _time_solve(rng, device="cuda"):
+    """K5 at ``cs.SOLVE_MAIN`` with its library call, and the pullback at
+    ``cs.PULLBACK_MAIN``: ms a call, device ms and launches a call."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    def run(tag, fn, reps=10):
+        ms = cs.time_ms(fn)
+        dev, launches = cs.device_ms(fn, reps)
+        print(f"{tag}: {ms:.4f} ms a call, device {cs._ms(dev)} "
+              f"({launches:g} launches)", flush=True)
+        return {"ms": ms, "device_ms": dev, "device_launches": launches}
+
+    res = {}
+    for b, p, q, trans in cs.SOLVE_MAIN:
+        lt = torch.as_tensor(cs.lower_case(rng, b, p), device=device)
+        rhs = torch.as_tensor(rng.standard_normal((b, p, q)).astype(
+            np.float32), device=device)
+        op_l = lt.transpose(-1, -2) if trans else lt
+        key = f"{b}x{p}x{q}{' transposed' if trans else ''}"
+        res["solve_triangular_batched " + key] = run(
+            f"solve_triangular_batched {key}",
+            lambda: tl.solve_triangular_batched(lt, rhs, trans))
+        res["solve_triangular " + key] = run(
+            f"torch.linalg.solve_triangular {key}",
+            lambda: torch.linalg.solve_triangular(op_l, rhs, upper=trans))
+    for b, p in cs.PULLBACK_MAIN:
+        m, jit = cs.chol_case(rng, b, p)
+        l, _, f = tl.cholesky_jittered(torch.as_tensor(m, device=device),
+                                       torch.as_tensor(jit, device=device))
+        lbar = torch.as_tensor(rng.standard_normal(m.shape).astype(
+            np.float32), device=device)
+        ldbar = torch.as_tensor(rng.standard_normal(b).astype(np.float32),
+                                device=device)
+        res[f"cholesky_pullback {b}x{p}x{p}"] = run(
+            f"cholesky_pullback {b}x{p}x{p}",
+            lambda: tl.cholesky_pullback(l, lbar, ldbar, f),
+            cs.PULLBACK_DEVICE_REPS)
+    return res
+
+
 def _wide_case(rng, b, p):
     import torch
 
@@ -154,6 +203,7 @@ def main():
     parser.add_argument("--out")
     parser.add_argument("--quick", action="store_true")
     parser.add_argument("--logdet", action="store_true")
+    parser.add_argument("--solve", action="store_true")
     args = parser.parse_args()
     card = cs.phase_device()
     cs.phase_build()
@@ -161,6 +211,9 @@ def main():
     res = {"card": card, "widths": {}, "batches": {}}
     if args.logdet:
         _report({"card": card, "logdet": _time_logdet(rng)}, args.out)
+        return
+    if args.solve:
+        _report({"card": card, "solve": _time_solve(rng)}, args.out)
         return
     if args.quick:
         _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))
