@@ -77,16 +77,45 @@ non-zero exit code and no result line:
    fit (run before phase 5's plan is freed): finite draws and log_prob,
    ms per draw, acceptance, divergences and the roughness;
 14. launch counters over phases 13-13b: K1-K4 and the pullback launched,
-   no twin ran on a CUDA tensor.
+   no twin ran on a CUDA tensor;
+15. a dense covariance matrix at N=10^4: ``MRATree`` with the exponential
+   (l=2) as an ``[N, N]`` float32 matrix on the card (index-mode plan,
+   ``MatrixKernel``) against the float64 golden and the coordinate path's
+   objective, ``setPrior(2 Sigma)`` against a tree built with 2 Sigma
+   (and, reported, the kernel at sig=2), ms per evaluation beside phase
+   4's, peak memory;
+16. general-nu Matern (nu=0.8, Bessel K by ``kv_frac``) at N=10^4:
+   objective and gradient in (l, sig) against frozen float64 goldens at
+   R=1e-2 (R=1e-4 reported), ms per forward and per value-and-gradient
+   evaluation, device launches per covariance call and per sweep beside
+   the exponential's;
+17. ``keep_internals`` at N=10^4 (K2 and K3 at the leaves): objective
+   against the golden, posterior against the default sweep's; the
+   posterior basis matrix's row sums of squares against the sweep's
+   variance; ``getB_lk`` against the sweep's ancestor basis block;
+   ``drawBasisFunctions`` to ``chiprun_out/`` (without matplotlib: the
+   arrays it draws);
+18. the triangular leaf route (``PYMRA_LEAF_SOLVE=tri``: K6, K2, K5) at
+   N=10^4: objective and gradient against the goldens, ms on both routes,
+   the float32 roughness of both routes at phase 13's points (R=1e-2 and
+   1e-4); 18b, run after phase 14 on phase 5's plan before it is freed:
+   the N=10^6 objective against its golden and likelihood-only ms on both
+   routes, with its own launch counters (K2, K5, K6);
+19. launch counters over phases 15-18: K1, K2, K3, K5 and K6 launched, no
+   twin ran on a CUDA tensor.
 
-Phases 13-14 run after phase 9, before phase 10.
+Phases 13-14 and 18b run after phase 9, before phase 10; phases 15-19
+after phase 12. Phase 3 also times K2, K5 and K6 at the side paths'
+shapes (``CHOL_SIDE``, ``SOLVE_SIDE``, ``LOGDET_SIDE``).
 
 The last two lines are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -179,6 +208,18 @@ LOGDET_WIDTHS = tuple(sorted(set(CHOL_WIDTHS) | {1, 16, 32, 33}))
 #: grid at M=6 (P=256)
 WIDE_WIDTHS = (65, 96, 128, 169, 192, 256)
 WIDE_MAIN = ((64, 169), (4096, 256))
+#: shapes the side paths of phases 17-18 hand the kernels, timed in phase 3
+#: too: K2 (batch, P) at the N=10^4 leaves (keep_internals' prior and
+#: posterior factors, the triangular route's posterior factor) and the
+#: N=10^6 leaves (the triangular route); K5 (batch, P, Q, transpose) at
+#: the triangular route's leaf solves of the head block (Q = S = 16) and
+#: of the posterior's half (Q = P) at N=10^4, and of v (Q = 1) at N=10^6
+#: (256 x 49 x 1 is SOLVE_MAIN's); K6 at the N=10^6 triangular route's
+#: prior log-determinant
+CHOL_SIDE = ((256, 49), (16384, 64))
+SOLVE_SIDE = ((256, 49, 16, False), (256, 49, 49, False),
+              (16384, 64, 1, False))
+LOGDET_SIDE = ((16384, 64),)
 
 
 def fail(msg: str) -> None:
@@ -709,7 +750,11 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   leaf_main=LEAF_MAIN, tri_main=TRI_MAIN,
                   solve_main=SOLVE_MAIN, logdet_main=LOGDET_MAIN,
                   wide_widths=WIDE_WIDTHS, wide_main=WIDE_MAIN,
-                  timer=time_ms, dev_timer=device_ms):
+                  timer=time_ms, dev_timer=device_ms, chol_side=(),
+                  solve_side=(), logdet_side=()):
+    """Every kernel against its twin; timed at the main paths' shapes and
+    at the side paths' (``*_side``: K2 and K6 recorded under ``(name, b,
+    p)``, K5 under ``(name, b, p, q)``)."""
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -725,7 +770,8 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
     def dv(x):
         return torch.as_tensor(x, device=dev)
 
-    shapes = [(ragged, p) for p in SUBWARP_WIDTHS] + list(chol_main)
+    shapes = ([(ragged, p) for p in SUBWARP_WIDTHS] + list(chol_main)
+              + list(chol_side))
     for b, p in shapes:
         m, jit = chol_case(rng, b, p)
         mt, jt = dv(m), dv(jit)
@@ -739,7 +785,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                   f"cholesky_jittered {b}x{p}: escalation factors "
                   f"{f[1:4]}, expected [100, 100, 10000]")
         line = f"cholesky_jittered B={b} P={p}: max|diff| {e:.3g}"
-        if (b, p) in chol_main:
+        if (b, p) in chol_main or (b, p) in chol_side:
             eye = torch.eye(p, device=dev)
             line += timed(
                 times, ("cholesky_jittered", b, p), timer, dev_timer,
@@ -859,7 +905,11 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
                     err["solve_triangular_batched"], e)
                 print(f"solve_triangular_batched B={ragged} P={p} Q={q} "
                       f"transpose={transpose}: max|diff| {e:.3g}")
-    for b, p, q, transpose in solve_main:
+    # the main paths' shapes recorded under (name, b, p), the side paths'
+    # under (name, b, p, q)
+    solves = ([(shape, shape[:2]) for shape in solve_main]
+              + [(shape, shape[:3]) for shape in solve_side])
+    for (b, p, q, transpose), key in solves:
         lt = dv(lower_case(rng, b, p))
         rhs = dv(rng.standard_normal((b, p, q)).astype(np.float32))
         e = compare(f"solve_triangular_batched {b}x{p}x{q} T={transpose}",
@@ -871,7 +921,7 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
         op_l = lt.transpose(-1, -2) if transpose else lt
         print(f"solve_triangular_batched B={b} P={p} Q={q} "
               f"transpose={transpose}: max|diff| {e:.3g}" + timed(
-                  times, ("solve_triangular_batched", b, p), timer,
+                  times, ("solve_triangular_batched",) + key, timer,
                   dev_timer,
                   lambda: tl.solve_triangular_batched(lt, rhs, transpose),
                   lambda: tl.solve_triangular_batched_ref(lt, rhs,
@@ -882,7 +932,8 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
     # K6 and K7: chol_case's escalated, exact-zero-pivot and all-fail
     # members, where the kernel runs up to three attempts and the library
     # yardstick one; then the clean batch, where both run one
-    shapes = [(ragged, p) for p in LOGDET_WIDTHS] + list(logdet_main)
+    shapes = ([(ragged, p) for p in LOGDET_WIDTHS] + list(logdet_main)
+              + list(logdet_side))
     for b, p in shapes:
         m, jit = chol_case(rng, b, p)
         mt, jt = dv(m), dv(jit)
@@ -896,7 +947,8 @@ def phase_kernels(device="cuda", ragged=RAGGED_BATCH, chol_main=CHOL_MAIN,
             if p > 1 and b >= 4:
                 _check_escalation(f"{name} {b}x{p}", got[fidx])
             line = f"{name} B={b} P={p}: max|diff| {e:.3g}"
-            if (b, p) in logdet_main:
+            if (b, p) in logdet_main or (
+                    name == "cholesky_logdet" and (b, p) in logdet_side):
                 line += timed(times, (name, b, p), timer, dev_timer,
                               lambda: fn(mt, jt), lambda: twin(mt, jt),
                               lambda: LIBRARY[name](mt, jt, eye), [mt, jt])
@@ -2045,6 +2097,462 @@ def phase_nuts_n1m(n1m, theta0, ms_grad, device="cuda", R=1e-2,
 
 
 # ---------------------------------------------------------------------------
+# phases 15-19: the side paths — a dense covariance matrix, general-nu
+# Matern, keep_internals with the basis matrices, the triangular leaf route
+# ---------------------------------------------------------------------------
+
+#: phase 16's Matern smoothness, and the float64 objective and gradient
+#: (l=2, sig=1) of the N=10^4 tree under it at each measurement error, from
+#: the JAX package with jitter 0 (``tools/golden_matern_n10k.py``)
+MATERN_NU = 0.8
+GOLDEN_MATERN_N10K = {
+    1e-2: {"objective": 96376.07112857478, "l": -14391.265102098578,
+           "sig": 18013.959397506536},
+    1e-4: {"objective": 1939358.5836223047, "l": -539220.3146021592,
+           "sig": 674103.619413083},
+}
+#: phase 16 holds the Matern at this R. At R=1e-4 the float32 sweep is
+#: 4.1e-3 off the objective and 6.9e-3 / 7.0e-3 off the gradient on the CPU
+#: twins, and 4.0e-3 with the covariance taken in float64 and rounded once:
+#: the sweep's float32 conditioning, not kv_frac (whose float32 values are
+#: within 1.9e-6 of float64 on these distances). The phase reports R=1e-4
+#: unchecked
+MATERN_R = 1e-2
+#: phase 17: the keep_internals sweep's posterior against the default
+#: (fused) sweep's: each is within 0.0453 / 0.0517 (mean) and 8.40e-5 /
+#: 8.40e-5 (var) of the float64 sweep on the CPU twins at N=10^4, so the two
+#: may differ by their sum, here rounded up
+KEEP_MEAN_ATOL, KEEP_VAR_ATOL = 0.1, 2e-4
+#: the posterior basis matrix's row sums of squares against the
+#: keep_internals sweep's var: 1.68e-7 on the CPU twins at N=10^4 (float32
+#: solves of the sweep against the float64 assembly from the same stash)
+BASIS_VAR_ATOL = 2e-6
+#: getB_lk (a dense float32 solve against the joint ancestor knots) against
+#: the sweep's ancestor basis block, relative to its largest entry: 4.2e-6
+#: on the CPU twins at N=10^4
+B_LK_RTOL = 1e-3
+#: phase 15: setPrior's objective against a tree built with the same matrix
+#: (the same computation on the same plan: equal on the CPU twins)
+SET_PRIOR_RTOL = 1e-6
+#: where phase 17 writes its drawing
+OUT_DIR = "chiprun_out"
+#: the leaf routes of phase 18: the default (``auto``: the inverse route at
+#: the bench trees' leaves) and the triangular one
+ROUTES = ("auto", "tri")
+#: kernels phases 15-18 must launch: K1 (matrix-covariance and Matern
+#: sweeps), K2 (keep_internals leaves, the triangular route), K3
+#: (keep_internals), K5 and K6 (the triangular route)
+SIDE_KERNELS = ("leaf_factor", "cholesky_jittered",
+                "triangular_inverse_lower", "solve_triangular_batched",
+                "cholesky_logdet")
+#: kernels the N=10^6 triangular route (phase 18b) must launch
+TRI_KERNELS = ("cholesky_jittered", "solve_triangular_batched",
+               "cholesky_logdet")
+
+
+@contextlib.contextmanager
+def leaf_route(mode: str):
+    """The sweep's leaf route (the port's flag ``PYMRA_LEAF_SOLVE``) for
+    the block."""
+    old = os.environ.get("PYMRA_LEAF_SOLVE")
+    os.environ["PYMRA_LEAF_SOLVE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PYMRA_LEAF_SOLVE"]
+        else:
+            os.environ["PYMRA_LEAF_SOLVE"] = old
+
+
+def _reset_peak(device):
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    return (torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
+            else float("nan"))
+
+
+def _rel(tag, got, want, limit):
+    rel = abs(got - want) / abs(want)
+    print(f"{tag}: {got!r} against {want!r}, rel diff {rel:.3g} (limit "
+          f"{limit})")
+    check(rel <= limit, f"{tag}: rel diff {rel:.3g}")
+
+
+def _posterior_finite(tag, res, n):
+    import torch
+
+    for name, v in (("mean", res.mean), ("var", res.var)):
+        check(tuple(v.shape) == (n,) and bool(torch.isfinite(v).all()),
+              f"{tag} posterior {name} not finite of shape [{n}]")
+
+
+def _tree(data, r, M, cov, R, device):
+    """``MRATree`` on a bundled dataset in float32."""
+    import torch
+
+    from pymra_torch import MRATree, load_data
+
+    locs, y_obs = load_data(data)
+    return MRATree(locs, r, cov, y_obs, R, M=M, dtype=torch.float32,
+                   device=device)
+
+
+def dense_sigma(locs, device, l=2.0):
+    """The exponential covariance at ``locs`` as an ``[N, N]`` matrix:
+    formed in float64 on the host, moved to ``device`` as float32."""
+    import torch
+
+    from pymra_torch import Kernel
+
+    s = torch.as_tensor(np.asarray(locs), dtype=torch.float64)
+    return Kernel("exponential", l=l)(s).to(device, torch.float32)
+
+
+def phase_matrix_cov(device="cuda", timer=time_ms, n_evals=10,
+                     data="large", r=4, M=4, R=1e-4, golden=GOLDEN_N10K,
+                     ms_coord=None, sigma_of=dense_sigma):
+    """A dense covariance matrix through ``MRATree`` (index mode,
+    ``MatrixKernel``) and ``setPrior``; ``sigma_of(locs, device)`` gives
+    the matrix."""
+    import torch
+
+    from pymra_torch import Kernel, MatrixKernel, MRAModel, load_data
+    from pymra_torch.tree.sweep import mra_sweep, prepare_obs
+
+    t_phase = time.perf_counter()
+    _reset_peak(device)
+    tree = _tree(data, r, M, sigma_of(load_data(data)[0], device), R,
+                 device)
+    model, n = tree.model, tree.model.plan.n_locs
+    tag = f"matrix covariance N={n}"
+    print(f"== phase 15: a dense covariance matrix at N={n} (bundled {data},"
+          f" r={r}, M={M}, the exponential l=2 as an [N, N] float32 matrix "
+          f"on the card, R={R})")
+    points = model.dplan.levels[-1].leaf_locs
+    check(model.index_mode and isinstance(tree.cov, MatrixKernel)
+          and points.dtype == torch.long and points.shape[-1] == 1,
+          f"{tag}: the tree did not plan location indices")
+    _anchor(tag, tree.getLikelihood(), golden)
+    coord = _tree(data, r, M, Kernel("exponential", l=2.0), R, device)
+    coord_model = coord.model
+    _rel(f"{tag} objective against the coordinate path's",
+         tree.getLikelihood(), coord.getLikelihood(), ANCHOR_RTOL)
+    mean, sd = tree.predict()
+    check(bool(np.isfinite(mean).all() and np.isfinite(sd).all()),
+          f"{tag}: posterior not finite")
+
+    # setPrior on the coordinate tree re-plans it in index mode on its
+    # plan; as in the JAX package's test, the result must move and equal a
+    # tree built with the scaled matrix (the same computation)
+    plan, before = coord.model.plan, coord.getLikelihood()
+    coord.setPrior(Sigma=2.0 * tree.cov.matrix)
+    check(coord.model.index_mode and coord.model.plan is plan,
+          f"{tag}: setPrior did not re-plan in index mode on the tree's plan")
+    after = coord.getLikelihood()
+    check(after != before, f"{tag}: setPrior left the objective {before}")
+    direct = _tree(data, r, M, 2.0 * tree.cov.matrix, R, device)
+    _rel(f"{tag} setPrior(2 Sigma) against a tree built with 2 Sigma",
+         after, direct.getLikelihood(), SET_PRIOR_RTOL)
+    del direct
+    # against the kernel at sig=2: float64 on the host (the plain
+    # structure) and float32 on the card, reported: rounding the matrix's
+    # entries to float32 alone moves this tree's objective by up to 1.8e-3
+    # at sig=2 and R=1e-4 on the CPU twins
+    k2 = Kernel("exponential", l=2.0, sig=2.0)
+    f64 = MRAModel(None, r, plan=plan, dtype=torch.float64, device="cpu")
+    want = float(f64.objective(k2, coord.obs, R))
+    f32 = float(coord_model.objective(k2, coord.obs, R))
+    print(f"{tag} setPrior(2 Sigma) {after!r} against the kernel at sig=2 "
+          f"(reported): float64 on the host {want!r}, rel diff "
+          f"{abs(after - want) / abs(want):.3g}; the coordinate path on the "
+          f"card {f32!r}, rel diff {abs(f32 - want) / abs(want):.3g}")
+    del coord, coord_model, f64
+
+    y = torch.as_tensor(tree.obs, dtype=torch.float32, device=device)
+    prep = prepare_obs(model.dplan, y, R)
+    ms = timer(lambda: mra_sweep(model.dplan, tree.cov, None, None,
+                                 jitter=model.jitter, prep=prep),
+               reps=n_evals)
+    peak = _peak_gib(device)
+    beside = "" if ms_coord is None else (
+        f" (the coordinate path: {ms_coord:.3f} ms/eval, phase 4)")
+    print(f"{tag} full likelihood+posterior: {ms:.3f} ms/eval ({n_evals} "
+          f"evals){beside}; peak device memory {peak:.2f} GiB (the matrix "
+          f"takes {tree.cov.matrix.numel() * 4 / 2**30:.2f}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ms": ms, "peak": peak}
+
+
+def matern_builder(theta):
+    from pymra_torch import Kernel
+
+    return Kernel("matern", l=theta["l"], sig=theta["sig"], nu=MATERN_NU)
+
+
+def phase_matern(device="cuda", timer=time_ms, dev_timer=device_ms,
+                 n_evals=10, data="large", r=4, M=4, R=MATERN_R,
+                 golden=GOLDEN_MATERN_N10K):
+    """General-nu Matern (Bessel K by ``kv_frac``) on the N=10^4 tree:
+    objective and gradient against their float64 goldens at ``R``, the
+    other goldens' R reported; ms per forward and per value and gradient;
+    device launches per covariance call and per sweep, beside the
+    exponential's."""
+    import torch
+
+    from pymra_torch import Kernel, MRAModel, PlanConfig, load_data
+    from pymra_torch.tree.sweep import mra_sweep, prepare_obs
+
+    t_phase = time.perf_counter()
+    locs, y_obs = load_data(data)
+    tag = f"Matern nu={MATERN_NU} N={len(locs)}"
+    print(f"== phase 16: general-nu Matern at N={len(locs)} (bundled {data}"
+          f", r={r}, M={M}, nu={MATERN_NU}, l=2, sig=1, R={R})")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    n_obs = int(np.isfinite(y_obs).sum())
+    for rr in [R] + [v for v in golden if v != R]:
+        f = model.loglik_fn(y, rr, kernel_builder=matern_builder)
+        value, grad = value_and_grad(f, 2.0, 1.0)
+        got = {"objective": -2.0 * value - n_obs * np.log(2.0 * np.pi),
+               **grad}
+        if rr == R:
+            _held(f"{tag} R={rr}", got, golden[rr], GRAD_RTOL)
+            continue
+        rel = {k: abs(v - golden[rr][k]) / abs(golden[rr][k])
+               for k, v in got.items()}
+        print(f"{tag} R={rr} (reported, not held): "
+              + ", ".join(f"{k} {v!r} rel err {rel[k]:.3g}"
+                          for k, v in got.items()))
+    dplan, jitter = model.dplan, model.jitter
+    prep = prepare_obs(dplan, y, R)
+
+    def evaluate(l, name="matern"):
+        kw = {"nu": MATERN_NU} if name == "matern" else {}
+        return mra_sweep(dplan, Kernel(name, l=l, **kw), None, None,
+                         jitter=jitter, prep=prep)
+
+    _posterior_finite(tag, evaluate(2.0), len(locs))
+    ls = np.linspace(1.5, 2.5, n_evals + 1)
+    ms_fwd = _sweep_timer(evaluate, ls, timer)
+    f = model.loglik_fn(y, R, kernel_builder=matern_builder)
+    ms_grad = _grad_timer(f, ls, timer)
+    # device launches: one covariance call at the leaves' self-covariance
+    # shape, and one sweep, the Matern's beside the exponential's
+    x = [lvl.leaf_locs for lvl in dplan.levels if lvl.leaf_locs.shape[0]][-1]
+    launches = {}
+    for name in ("matern", "exponential"):
+        kern = Kernel(name, l=2.0, **({"nu": MATERN_NU}
+                                      if name == "matern" else {}))
+        # (two sweeps a profile: a Matern sweep is ~1.6e4 launches)
+        launches[name] = {"covariance": dev_timer(lambda: kern(x, x)),
+                          "sweep": dev_timer(lambda: evaluate(2.0, name), 2)}
+    print(f"{tag} full likelihood+posterior: {ms_fwd:.3f} ms/eval; value "
+          f"and gradient: {ms_grad:.3f} ms/eval ({n_evals} evals each, l "
+          f"in [1.5, 2.5])")
+    for name, d in launches.items():
+        (c_ms, c_n), (s_ms, s_n) = d["covariance"], d["sweep"]
+        print(f"{name}: a covariance call at {tuple(x.shape)} x "
+              f"{tuple(x.shape)}: {c_n:g} launches (device {_ms(c_ms)}); "
+              f"a full sweep {s_n:g} launches (device {_ms(s_ms)})")
+    print(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"ms_fwd": ms_fwd, "ms_grad": ms_grad, "launches": launches}
+
+
+def phase_keep_internals(device="cuda", timer=time_ms, n_evals=5,
+                         data="large", r=4, M=4, R=1e-4, golden=GOLDEN_N10K,
+                         out_dir=OUT_DIR):
+    """``keep_internals`` (K2 and K3 at the leaves) against the golden and
+    the default sweep; the posterior basis matrix against the sweep's var;
+    ``getB_lk`` against the sweep's ancestor basis; ``drawBasisFunctions``
+    to a file."""
+    import importlib.util
+
+    import torch
+
+    from pymra_torch import Kernel
+    from pymra_torch.tree.basis import basis_matrix
+    from pymra_torch.tree.sweep import mra_sweep
+
+    t_phase = time.perf_counter()
+    tree = _tree(data, r, M, Kernel("exponential", l=2.0), R, device)
+    model = tree.model
+    n = model.plan.n_locs
+    tag = f"keep_internals N={n}"
+    print(f"== phase 17: keep_internals and the basis matrices at N={n} "
+          f"(bundled {data}, r={r}, M={M}, exponential l=2, R={R})")
+    y = torch.as_tensor(tree.obs, dtype=torch.float32, device=device)
+
+    def keep():
+        return mra_sweep(model.dplan, tree.cov, y, R, jitter=model.jitter,
+                         keep_internals=True)
+
+    res, internals = keep()
+    check(set(internals) == {"prior_L", "chain_Q", "chain_GG", "leaf",
+                             "interior"}, f"{tag}: stash keys {internals}")
+    _anchor(tag, float(res.objective), golden)
+    _posterior_finite(tag, res, n)
+    base = mra_sweep(model.dplan, tree.cov, y, R, jitter=model.jitter)
+    for name, limit in (("mean", KEEP_MEAN_ATOL), ("var", KEEP_VAR_ATOL)):
+        diff = float((getattr(res, name) - getattr(base, name)).abs().max())
+        print(f"{tag} {name} against the default sweep's: max|diff| "
+              f"{diff:.3g} (limit {limit})")
+        check(diff <= limit, f"{tag} {name} off the default sweep's by "
+                             f"{diff:.3g}")
+    ms_keep = timer(lambda: keep(), reps=n_evals)
+    ms_base = timer(lambda: mra_sweep(model.dplan, tree.cov, y, R,
+                                      jitter=model.jitter), reps=n_evals)
+
+    t0 = time.perf_counter()
+    B = tree.getBasisFunctionsMatrix("posterior", timesKC=True)
+    t_basis = time.perf_counter() - t0
+    var = res.var.detach().cpu().double().numpy()
+    diff = float(np.abs(np.einsum("ij,ij->i", B, B) - var).max())
+    print(f"{tag} posterior basis matrix (timesKC) {B.shape[0]} x "
+          f"{B.shape[1]} float64 ({B.nbytes / 2**30:.2f} GiB) in "
+          f"{t_basis:.2f} s: row sums of squares against the sweep's var, "
+          f"max|diff| {diff:.3g} (limit {BASIS_VAR_ATOL})")
+    check(diff <= BASIS_VAR_ATOL, f"{tag} basis row sums off the sweep's "
+                                  f"var by {diff:.3g}")
+    del B
+
+    m = len(model.dplan.levels) - 1
+    leaves = [nd for nd in model.plan.nodes[m] if nd.is_leaf]
+    leaf = leaves[0]
+    k = m - 1
+    got = tree.getB_lk(leaf.node_id, k)
+    want = internals["leaf"][m]["Bstack"][0][:leaf.n_locs, k * r:(k + 1) * r]
+    want = want.detach().cpu().double().numpy()
+    diff = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"{tag} getB_lk({leaf.node_id!r}, {k}) {got.shape} against the "
+          f"sweep's ancestor basis block: max|diff| / max|block| "
+          f"{diff:.3g} (limit {B_LK_RTOL})")
+    check(diff <= B_LK_RTOL, f"{tag} getB_lk off the sweep's block by "
+                             f"{diff:.3g}")
+
+    os.makedirs(out_dir, exist_ok=True)
+    fname = os.path.join(out_dir, "phase17_basis_functions")
+    if importlib.util.find_spec("matplotlib") is not None:
+        figs = tree.drawBasisFunctions(fname=fname)
+        print(f"{tag} drawBasisFunctions: {len(figs)} figures, "
+              f"{fname}.res*.png")
+    else:
+        # what drawBasisFunctions plots: the resolutions of at most 36
+        # prior basis functions
+        mats = basis_matrix(model, tree.cov, y=tree.obs, R=R,
+                            group_by_resolution=True)
+        kept = [i for i, b in enumerate(mats) if b.shape[1] <= 36]
+        for i in kept:
+            np.save(f"{fname}.res{i}.npy", mats[i])
+        print(f"{tag} drawBasisFunctions not run: matplotlib is not "
+              f"installed on this machine; the arrays it draws (resolutions "
+              f"{kept}) saved to {fname}.res*.npy")
+    print(f"{tag} sweep with internals: {ms_keep:.3f} ms/eval, the default "
+          f"sweep {ms_base:.3f} ({n_evals} evals each); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ms_keep": ms_keep, "ms_base": ms_base, "t_basis": t_basis}
+
+
+def phase_tri_route(device="cuda", timer=time_ms, n_evals=10,
+                    data="large", r=4, M=4, R=1e-4, golden=GOLDEN_N10K,
+                    golden_grad=GOLDEN_GRAD_N10K, rough=None):
+    """The triangular leaf route at N=10^4 against the goldens, ms per
+    evaluation on both routes, and the float32 roughness of each route at
+    the points of ``rough`` (phase 13's ``{R: {"mle", "sd"}}``)."""
+    import torch
+
+    from pymra_torch import Kernel, MRAModel, PlanConfig, load_data
+    from pymra_torch.tree.sweep import mra_sweep, prepare_obs
+
+    t_phase = time.perf_counter()
+    locs, y_obs = load_data(data)
+    tag = f"N={len(locs)}"
+    print(f"== phase 18: the triangular leaf route at {tag} (bundled {data}, "
+          f"r={r}, M={M}, exponential l=2 sig=1, R={R}; PYMRA_LEAF_SOLVE)")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    dplan, jitter = model.dplan, model.jitter
+    prep = prepare_obs(dplan, y, R)
+
+    def evaluate(l):
+        return mra_sweep(dplan, Kernel("exponential", l=l), None, None,
+                         jitter=jitter, prep=prep)
+
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder)
+    ls = np.linspace(1.5, 2.5, n_evals + 1)
+    out = {}
+    with leaf_route("tri"):
+        res = evaluate(2.0)
+        _anchor(f"{tag} triangular route", float(res.objective), golden)
+        _posterior_finite(f"{tag} triangular route", res, len(locs))
+        _, grad = value_and_grad(f, 2.0, 1.0)
+        _held(f"{tag} triangular route", grad, golden_grad, GRAD_RTOL)
+    for route in ROUTES:
+        with leaf_route(route):
+            out[route] = {"ms_fwd": _sweep_timer(evaluate, ls, timer),
+                          "ms_grad": _grad_timer(f, ls, timer)}
+    print(f"{tag} ms/eval (full likelihood+posterior; value and gradient; "
+          f"{n_evals} evals, l in [1.5, 2.5]): "
+          + "; ".join(f"{route} {t['ms_fwd']:.3f}, {t['ms_grad']:.3f}"
+                      for route, t in out.items()))
+    for rr, pt in (rough or {}).items():
+        f_r = model.loglik_fn(y, rr, kernel_builder=exponential_builder)
+        for route in ROUTES:
+            with leaf_route(route):
+                out[route][f"roughness_{rr}"] = roughness(
+                    f"{tag} R={rr} route {route}", f_r, pt["mle"], pt["sd"])
+    print(f"phase 18 wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_tri_n1m(n1m, device="cuda", timer=time_ms, golden=GOLDEN_N1M,
+                  n_evals=8):
+    """Phase 18b: the triangular route on phase 5's N=10^6 plan and data
+    (before they are freed): the objective against its golden, the
+    posterior finite, likelihood-only ms on both routes."""
+    from pymra_torch import Kernel
+    from pymra_torch.tree.sweep import mra_sweep, prepare_obs
+
+    model, y = n1m["model"], n1m["y"]
+    n = model.dplan.n_locs
+    tag = f"N={n}"
+    print(f"== phase 18b: the triangular leaf route at {tag} (phase 5's "
+          "grid and data, l=0.05, R=1e-2)")
+    dplan, jitter = model.dplan, model.jitter
+    prep = prepare_obs(dplan, y, 1e-2)
+
+    def evaluate(l, post=False):
+        return mra_sweep(dplan, Kernel("exponential", l=l), None, None,
+                         compute_posterior=post, jitter=jitter, prep=prep)
+
+    thetas = np.linspace(0.04, 0.06, n_evals + 1)
+    out = {}
+    with leaf_route("tri"):
+        _anchor(f"{tag} triangular route", float(evaluate(0.05).objective),
+                golden)
+        _posterior_finite(f"{tag} triangular route", evaluate(0.05, True), n)
+    for route in ROUTES:
+        with leaf_route(route):
+            out[route] = _sweep_timer(evaluate, thetas, timer)
+    print(f"{tag} likelihood-only ms/eval ({n_evals} evals, l in [0.04, "
+          "0.06]): " + "; ".join(f"{route} {ms:.3f}"
+                                 for route, ms in out.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 #: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
 #: replaces, the path shape of its record: (batch, P), or K5's (batch, P,
@@ -2135,13 +2643,14 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    err, times = phase_kernels()
+    err, times = phase_kernels(chol_side=CHOL_SIDE, solve_side=SOLVE_SIDE,
+                               logdet_side=LOGDET_SIDE)
     err_bwd, bwd_times = phase_backward()
     err["cholesky_pullback"] = err_bwd["cholesky_pullback"]
     times.update(bwd_times)
 
     reset_counters(tl)
-    phase_n10k()
+    ms_n10k = phase_n10k()
     n1m = phase_n1m()
     forward = read_counters(tl, "phase 6: launch counters over phases 4-5",
                             FORWARD_KERNELS)
@@ -2153,11 +2662,17 @@ def main() -> int:
         tl, "phase 9: launch counters over phases 7-8", GRADIENT_KERNELS)
 
     reset_counters(tl)
-    phase_samplers(ms_grad)
+    samplers = phase_samplers(ms_grad)
     phase_nuts_n1m(n1m, grad_n1m["theta"], grad_n1m["ms"])
     sampler = read_counters(
         tl, "phase 14: launch counters over phases 13 and 13b",
         GRADIENT_KERNELS)
+
+    reset_counters(tl)
+    phase_tri_n1m(n1m)
+    tri_n1m = read_counters(
+        tl, "phase 18b: launch counters over the N=10^6 triangular route",
+        TRI_KERNELS)
 
     del n1m  # its N=10^6 plan and data
     torch.cuda.empty_cache()
@@ -2166,6 +2681,16 @@ def main() -> int:
     phase_wide()
     slice3 = read_counters(
         tl, "phase 12: launch counters over phases 10-11", SLICE3_KERNELS)
+
+    torch.cuda.empty_cache()
+    reset_counters(tl)
+    phase_matrix_cov(ms_coord=ms_n10k)
+    phase_matern()
+    phase_keep_internals()
+    phase_tri_route(rough=samplers["roughness"])
+    side = read_counters(
+        tl, "phase 19: launch counters over phases 15-18 (18b: above)",
+        SIDE_KERNELS)
     print_precision()
 
     rec = []
@@ -2190,8 +2715,9 @@ def main() -> int:
         if name in LIBRARY:
             # the clean batch's times, where one library attempt is the
             # whole function: the kernel's verdict against its library
-            extra["clean"] = {f"{cb}x{cp}x{cp}": t for (k, cb, cp), t
-                              in times.items() if k == name + "_clean"}
+            extra["clean"] = {f"{key[1]}x{key[2]}x{key[2]}": t
+                              for key, t in times.items()
+                              if key[0] == name + "_clean"}
         if name == "cholesky_pullback":
             extra = {"fuses": "_cholesky_bwd: the L^T Lbar product, K5 "
                               "_tri_solve_kernel (:366) twice and the "
@@ -2204,6 +2730,14 @@ def main() -> int:
                 f"{sb}x{sp}x{sq}{' transposed' if st else ''}":
                     times[(name, sb, sp)]
                 for sb, sp, sq, st in SOLVE_MAIN[:-1]}}
+            extra["side_shapes"] = {
+                f"{sb}x{sp}x{sq}{' transposed' if st else ''}":
+                    times[(name, sb, sp, sq)]
+                for sb, sp, sq, st in SOLVE_SIDE}
+        if name in ("cholesky_jittered", "cholesky_logdet"):
+            sides = CHOL_SIDE if name == "cholesky_jittered" else LOGDET_SIDE
+            extra["side_shapes"] = {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
+                                    for sb, sp in sides}
         if name == "triangular_inverse_lower":
             extra = {"small": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
                                for sb, sp in TRI_MAIN[:-1]}}
@@ -2217,6 +2751,8 @@ def main() -> int:
                     "launches_gradient_path": gradient[name],
                     "launches_sampler_path": sampler[name],
                     "launches_dense_r_wide_path": slice3[name],
+                    "launches_side_paths": side[name],
+                    "launches_tri_n1m": tri_n1m[name],
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),
                     **times[(name, b, p)],

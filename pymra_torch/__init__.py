@@ -24,14 +24,21 @@ or ``pymra_tpu``. Module names mirror the JAX package's::
     nuts(logp, {"log_l": torch.zeros(4), "log_sig": torch.zeros(4)},
          torch.Generator().manual_seed(0), num_warmup=100, num_samples=100)
 
+    # a dense covariance matrix, the reference's matrix path
+    tree = MRATree(locs, 4, Sigma, y_obs, 1e-4)   # Sigma: [N, N]
+    tree.getLikelihood(); tree.getBasisFunctionsMatrix("posterior")
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from pymra_torch.data.loader import load_data
 from pymra_torch.infer import advi, ess, fit_mle, hmc, nuts, smc, split_rhat
-from pymra_torch.kernels import Kernel
+from pymra_torch.kernels import Kernel, MatrixKernel
+from pymra_torch.ops.special import kv_frac, matern_general
+from pymra_torch.tree.basis import basis_matrix
 from pymra_torch.tree.model import MRAModel, MRATree
 from pymra_torch.tree.plan import PlanConfig, build_plan
 
-__all__ = ["Kernel", "MRAModel", "MRATree", "load_data", "build_plan",
-           "PlanConfig", "fit_mle", "hmc", "nuts", "advi", "smc",
+__all__ = ["Kernel", "MatrixKernel", "MRAModel", "MRATree", "load_data",
+           "build_plan", "PlanConfig", "basis_matrix", "kv_frac",
+           "matern_general", "fit_mle", "hmc", "nuts", "advi", "smc",
            "split_rhat", "ess"]

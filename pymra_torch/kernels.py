@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from pymra_torch.ops.distances import dist, sqdist
+from pymra_torch.ops.special import matern_general
 
 __all__ = [
     "identity",
@@ -78,8 +79,15 @@ def gaussian(locs1, locs2=None, l=1.0, sig=1.0, circular=False):
 
 
 def matern(locs1, locs2=None, l=1.0, sig=1.0, nu=1.5, circular=False):
-    """Matern family for the closed-form smoothness values
-    ``nu in {0.5, 1.5, 2.5, inf}``."""
+    """Matern family: the closed forms for ``nu in {0.5, 1.5, 2.5, inf}``,
+    any other smoothness through the Bessel K of
+    :func:`pymra_torch.ops.special.matern_general`, differentiable in
+    ``l`` and ``sig``. ``nu`` must be a Python number: it fixes the Bessel
+    recurrence's depth."""
+    if isinstance(nu, torch.Tensor):
+        raise TypeError(
+            "matern: nu must be a static Python float — it fixes the Bessel "
+            "recurrence depth (differentiate l/sig instead)")
     if nu == 0.5:
         return exponential(locs1, locs2, l=l, sig=sig, circular=circular)
     if nu == 1.5:
@@ -88,9 +96,8 @@ def matern(locs1, locs2=None, l=1.0, sig=1.0, nu=1.5, circular=False):
         return matern52(locs1, locs2, l=l, sig=sig, circular=circular)
     if nu == math.inf:
         return gaussian(locs1, locs2, l=l, sig=sig, circular=circular)
-    raise NotImplementedError(
-        f"matern: general nu={nu} needs the Bessel-K port of "
-        "pymra_tpu/ops/special.py (ROADMAP queue 1, sweep side paths)")
+    d = dist(locs1, locs2, circular=circular)
+    return matern_general(d, l, sig, float(nu))
 
 
 def kanter(locs1, locs2=None, radius=1.0, circular=False):
@@ -165,13 +172,32 @@ def get_kernel(name: str) -> Callable:
         ) from None
 
 
-class MatrixKernel:
-    """Dense pre-computed covariance matrix (not ported yet)."""
+class MatrixKernel(nn.Module):
+    """Covariance given as a dense pre-computed ``[N, N]`` matrix.
+
+    The reference's ``isinstance(cov, np.matrix)`` path: sub-blocks are
+    gathered from ``matrix`` by location index instead of a kernel being
+    evaluated at coordinates. Pair it with an index-mode device plan
+    (``MRAModel(..., index_mode=True)``, whose points are ``[..., 1]`` long
+    location indices); ``MRATree`` sets that up when ``cov`` is a matrix.
+    The matrix is a buffer, kept as given (a tensor is not copied): one
+    that ``requires_grad`` receives the gradient of whatever the kernel's
+    blocks feed.
+    """
 
     def __init__(self, matrix):
-        raise NotImplementedError(
-            "MatrixKernel (index-mode dense covariance) is a sweep side path "
-            "still to be ported (ROADMAP queue 1, sweep side paths)")
+        super().__init__()
+        self.register_buffer("matrix", _as_param(matrix))
+
+    def forward(self, xi, yi=None):
+        if yi is None:
+            yi = xi
+        i = torch.as_tensor(xi)[..., 0].long()
+        j = torch.as_tensor(yi)[..., 0].long()
+        return self.matrix[i[..., :, None], j[..., None, :]]
+
+    def extra_repr(self) -> str:
+        return f"shape={tuple(self.matrix.shape)}"
 
 
 def _as_param(v) -> torch.Tensor:

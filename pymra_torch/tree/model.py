@@ -3,8 +3,9 @@
 :class:`MRAModel` plans once, then evaluates the likelihood / posterior for
 any kernel hyper-parameters without re-planning. :class:`MRATree` mirrors
 the reference pyMRA constructor and accessors (``MRATree(locs, r, cov, obs,
-R, M, J, critDepth)``, ``getLikelihood()``, ``predict()``); ``critDepth`` is
-accepted and ignored.
+R, M, J, critDepth)``, ``getLikelihood()``, ``predict()``, ``setPrior``, the
+node traversals, the ancestor-basis diagnostics, the basis matrices and the
+drawings); ``critDepth`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from pymra_torch.kernels import MatrixKernel
 from pymra_torch.tree.plan import PlanConfig, TreePlan, build_plan
 from pymra_torch.tree.sweep import (
     DevicePlan,
@@ -40,12 +42,17 @@ class MRAModel:
       device: where the plan's tensors live and the sweep runs: the card
         unless the caller asks for ``"cpu"``. A CUDA device needs float32
         with jitter > 0; without a GPU it raises.
+      index_mode: plan location indices instead of coordinates, for a
+        covariance given as a dense matrix
+        (:class:`pymra_torch.kernels.MatrixKernel`, the reference's
+        matrix-covariance path).
     """
 
     def __init__(self, locs, r: int, *, M: int = -1, J: int = -1,
                  seed: int = 0, dtype=None, jitter: float | None = None,
                  config: PlanConfig | None = None,
-                 plan: TreePlan | None = None, device="cuda"):
+                 plan: TreePlan | None = None, device="cuda",
+                 index_mode: bool = False):
         self.device = _device(device)
         if plan is None:
             plan = build_plan(locs, r, M=M, J=J, seed=seed, config=config)
@@ -54,8 +61,10 @@ class MRAModel:
         if jitter is None:
             jitter = 0.0 if self.dtype == torch.float64 else 1e-6
         self.jitter = float(jitter)
-        self.dplan: DevicePlan = make_device_plan(plan, dtype=self.dtype,
-                                                  device=self.device)
+        self.index_mode = bool(index_mode)
+        self.dplan: DevicePlan = make_device_plan(
+            plan, dtype=self.dtype, device=self.device,
+            index_points=self.index_mode)
 
     def sweep(self, cov, y, R, compute_posterior: bool = True) -> SweepResult:
         """Run the full batched sweep (likelihood + posterior moments).
@@ -152,20 +161,22 @@ def _ndim(R) -> int:
 class MRATree:
     """Facade over :class:`MRAModel` mirroring the reference ``MRATree``.
 
-    ``predict`` returns ``(mean [N, 1], sd [N])`` as numpy arrays, the
-    reference's shape asymmetry minus ``np.matrix``.
+    ``cov`` is a covariance callable or a dense ``[N, N]`` matrix (a numpy
+    array or a tensor, moved to the model's device and dtype; the model then
+    plans in index mode). ``predict`` returns ``(mean [N, 1], sd [N])`` as
+    numpy arrays, the reference's shape asymmetry minus ``np.matrix``.
     """
 
     def __init__(self, locs, r, cov, obs, R, M=-1, J=-1, critDepth=-1,
                  verbose: bool = False, seed: int = 0, dtype=None,
                  device="cuda"):
         del critDepth, verbose
-        if isinstance(cov, (np.ndarray, torch.Tensor)) and np.ndim(cov) == 2:
-            raise NotImplementedError(
-                "dense-matrix covariances (MatrixKernel) are a sweep side "
-                "path still to be ported (ROADMAP queue 1)")
+        matrix_cov = (isinstance(cov, (np.ndarray, torch.Tensor))
+                      and cov.ndim == 2)
         self.model = MRAModel(locs, r, M=M, J=J, seed=seed, dtype=dtype,
-                              device=device)
+                              device=device, index_mode=matrix_cov)
+        if matrix_cov:
+            cov = self._matrix_kernel(cov)
         self.cov = cov
         self.obs = np.asarray(obs, dtype=np.float64).ravel()
         self.R = R
@@ -213,3 +224,142 @@ class MRATree:
 
     def maxLeaf(self) -> int:
         return int(self.model.leaf_sizes().max())
+
+    def _matrix_kernel(self, matrix) -> MatrixKernel:
+        return MatrixKernel(torch.as_tensor(
+            matrix, dtype=self.model.dtype, device=self.model.device))
+
+    def setPrior(self, xF=None, Sigma=None):
+        """Replace the covariance with a dense matrix and drop the cached
+        result (reference ``setPrior``, whose ``xF`` it ignores too). A
+        coordinate model is re-planned in index mode on the same plan."""
+        del xF
+        if not self.model.index_mode:
+            m = self.model
+            self.model = MRAModel(m.plan.locs, self.r, plan=m.plan,
+                                  dtype=m.dtype, jitter=m.jitter,
+                                  device=m.device, index_mode=True)
+        self.cov = self._matrix_kernel(Sigma)
+        self._result = None
+
+    # -- tree traversal (reference MRATree.py:101-132) ----------------------
+
+    def getNodesBFS(self, groupByResolution: bool = False):
+        """Host node records in BFS order (the whole tree: unlike the
+        reference's, it is not destroyed while it is built)."""
+        per_level = self.model.plan.nodes
+        if groupByResolution:
+            return [list(nodes) for nodes in per_level if nodes]
+        return [nd for nodes in per_level for nd in nodes]
+
+    def getNodesDFS(self):
+        out = []
+
+        def visit(nd):
+            out.append(nd)
+            for ch in nd.children:
+                visit(ch)
+
+        visit(self.model.plan.nodes[0][0])
+        return out
+
+    # -- ancestor-basis diagnostics (reference MRATree.py:359-430) ----------
+
+    def _node_by_id(self, node_id: str):
+        if not node_id or node_id[0] != "r":
+            raise ValueError(f"node IDs start with 'r', got {node_id!r}")
+        node = self.model.plan.nodes[0][0]
+        for ch in node_id[1:]:
+            j = int(ch) - 1
+            if j < 0 or j >= len(node.children):
+                raise KeyError(f"no child {ch} under node {node.node_id!r}")
+            node = node.children[j]
+        return node
+
+    def getKNode(self, callerID: str, k: int):
+        """The resolution-``k`` ancestor on the path to ``callerID``
+        (reference ``getKNode``)."""
+        return self._node_by_id(callerID[: k + 1])
+
+    def getB_lk(self, callerID: str, k: int, l: int | None = None):
+        """Rows of ancestor ``k``'s prior basis matrix restricted to the
+        resolution-``l`` node on the caller's path (reference ``getB_lk``),
+        as a numpy array.
+
+        The conditional cross-covariance ``Sigma_k(X_l, Q_k)`` between the
+        l-node's locations and the k-ancestor's knots given the knots of
+        the resolutions below ``k``: sequential conditioning on nested knot
+        sets is joint conditioning, so this is one dense solve against the
+        joint ancestor-knot covariance, on the model's device.
+        """
+        model = self.model
+        node_l = self._node_by_id(callerID if l is None
+                                  else callerID[: l + 1])
+        node_k = self.getKNode(callerID, k)
+
+        def pts(gidx):
+            if model.index_mode:
+                return torch.as_tensor(np.asarray(gidx), dtype=torch.long,
+                                       device=model.device)[:, None]
+            return torch.as_tensor(model.plan.locs[gidx], dtype=model.dtype,
+                                   device=model.device)
+
+        X = pts(node_l.loc_gidx)
+        Qk = pts(node_k.knot_gidx)
+        B = self.cov(X, Qk)
+        anc_gidx = []
+        cur = node_k.parent
+        while cur is not None:
+            anc_gidx.append(cur.knot_gidx)
+            cur = cur.parent
+        if anc_gidx:
+            Qa = pts(np.concatenate(anc_gidx[::-1]))
+            Kaa = self.cov(Qa, Qa)
+            eye = torch.eye(Kaa.shape[0], dtype=Kaa.dtype, device=Kaa.device)
+            B = B - self.cov(X, Qa) @ torch.linalg.solve(
+                Kaa + 1e-12 * eye, self.cov(Qa, Qk))
+        return B.detach().cpu().numpy()
+
+    # -- basis matrix and drawings (reference MRATree.py:161-352, 445-511) --
+
+    def getBasisFunctionsMatrix(self, distr: str = "prior",
+                                groupByResolution: bool = False,
+                                order: str = "root", timesKC: bool = False):
+        from pymra_torch.tree.basis import basis_matrix
+
+        y = self.obs if distr == "posterior" else None
+        return basis_matrix(
+            self.model, self.cov, y=y, R=self.R, distr=distr,
+            group_by_resolution=groupByResolution, order=order,
+            times_kc=timesKC)
+
+    def drawKnots(self, fname=None, show=False):
+        from pymra_torch.utils import viz
+
+        return viz.draw_knots(self.model, fname=fname, show=show)
+
+    def drawBMatrix(self, distr="prior", fname=None, show=False):
+        from pymra_torch.utils import viz
+
+        return viz.draw_b_matrix(self.model, self.cov, y=self.obs, R=self.R,
+                                 distr=distr, fname=fname, show=show)
+
+    def drawSparsityPat(self, distr="prior", fname=None, show=False):
+        from pymra_torch.utils import viz
+
+        return viz.draw_sparsity_pattern(self.model, self.cov, y=self.obs,
+                                         R=self.R, distr=distr, fname=fname,
+                                         show=show)
+
+    def drawBasisFunctions(self, distr="prior", fname=None, show=False):
+        from pymra_torch.utils import viz
+
+        return viz.draw_basis_functions(self.model, self.cov, y=self.obs,
+                                        R=self.R, distr=distr, fname=fname,
+                                        show=show)
+
+    def drawGridAndObs(self, fname=None, show=False):
+        from pymra_torch.utils import viz
+
+        return viz.draw_grid_and_obs(self.model, self.obs, fname=fname,
+                                     show=show)

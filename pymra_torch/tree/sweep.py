@@ -35,6 +35,16 @@ leaf branches, ``tree/sweep.py:1026-1078``):
   posterior inverse by the blocked
   :func:`pymra_torch.ops.linalg.triangular_inverse_lower`.
 
+That is the leaf *route* ``auto`` of the flag ``PYMRA_LEAF_SOLVE``
+(:mod:`pymra_torch.utils.config`, the JAX package's
+``_use_inverse_solves``): the inverse route where the kernel structure runs
+and P >= 16, the triangular route elsewhere. ``inv`` takes the inverse
+route everywhere; ``tri`` takes the triangular one everywhere: the prior
+log-determinant by K6, the posterior factor by K2 (KC above 64) and every
+leaf solve by :func:`pymra_torch.ops.linalg.solve_triangular_batched` (K5)
+where ``16 <= P <= 64`` and ``P + Q <= 112``, torch's solve (cuBLAS
+``trsm`` on the card) elsewhere, as the JAX package takes XLA's.
+
 Wherever a leaf has its inverse factor the solves are matmuls with it.
 Otherwise (float64, or ``jitter == 0``) the sweep takes the *plain
 structure* of the JAX package's CPU path: ``torch.linalg`` factorizations
@@ -55,8 +65,18 @@ the kernels' autograd Functions in the kernel structure,
 :class:`_CholCascade` in the plain one — so a discarded attempt never
 reaches a gradient. Jitter scales are structural (detached).
 
-Not ported yet (they raise ``NotImplementedError``): ``keep_internals``,
-sharding (``axis_name``) and ``posterior_segments``.
+Index mode (``make_device_plan(..., index_points=True)``): the plan's
+points are ``[..., 1]`` long location indices instead of coordinates, for a
+covariance given as a dense matrix
+(:class:`pymra_torch.kernels.MatrixKernel`). No pass does arithmetic on
+points: they are only stacked, gathered and handed to the covariance.
+
+``keep_internals`` returns the per-level stashes the basis matrices are
+assembled from (:mod:`pymra_torch.tree.basis`); it takes the unfused leaf
+route and replays the posterior's per-ancestor downdates.
+
+Not ported yet (they raise ``NotImplementedError``): sharding
+(``axis_name``) and ``posterior_segments``.
 """
 from __future__ import annotations
 
@@ -98,10 +118,10 @@ SOLVE_KERNEL_MAX_PQ = 112
 class DeviceLevel:
     """Per-level tensors on the device (see ``plan.LevelGroup``)."""
 
-    int_knots: torch.Tensor  # [n_int, r, d] knot coordinates
+    int_knots: torch.Tensor  # [n_int, r, d] knot coordinates (or indices)
     int_path: torch.Tensor  # [n_int, level]
     int_parent: torch.Tensor  # [n_int]
-    leaf_locs: torch.Tensor  # [n_leaf, P, d]
+    leaf_locs: torch.Tensor  # [n_leaf, P, d] (or [n_leaf, P, 1] indices)
     leaf_loc_gidx: torch.Tensor  # [n_leaf, P] (pad = N)
     leaf_loc_mask: torch.Tensor  # [n_leaf, P] bool
     leaf_is_knot: torch.Tensor  # [n_leaf, P] bool
@@ -121,7 +141,10 @@ class DevicePlan:
     instead of gathered. ``post_inv [N]`` is each location's slot in the
     concatenation of all leaf levels' flattened ``[n_leaf * P]`` slots
     (the leaves partition the locations), so the posterior is reassembled
-    by one gather; ``None`` falls back to scatter-adds.
+    by one gather; ``None`` falls back to scatter-adds. With
+    ``index_points`` the point tensors (``int_knots``, ``leaf_locs``) hold
+    long location indices ``[..., 1]``; ``dtype`` is the float dtype of the
+    sweep's arithmetic either way.
     """
 
     levels: tuple[DeviceLevel, ...]
@@ -131,12 +154,8 @@ class DevicePlan:
     groups: tuple | None = None
     post_inv: torch.Tensor | None = None
     iota_groups: bool = False
-
-    @property
-    def dtype(self) -> torch.dtype:
-        lvl = self.levels[0]
-        return (lvl.int_knots if lvl.int_knots.numel() else
-                lvl.leaf_locs).dtype
+    index_points: bool = False
+    dtype: torch.dtype = torch.float32
 
     @property
     def device(self) -> torch.device:
@@ -183,15 +202,20 @@ def plan_post_inv(plan: TreePlan) -> np.ndarray | None:
     return inv
 
 
-def make_device_plan(plan: TreePlan, dtype=torch.float32,
-                     device="cuda") -> DevicePlan:
+def make_device_plan(plan: TreePlan, dtype=torch.float32, device="cuda",
+                     index_points: bool = False) -> DevicePlan:
     """Upload a host :class:`TreePlan` as static tensors on ``device``.
 
     Coordinates are pre-gathered per node; padded leaf slots point at the
-    last location and are masked.
+    last location and are masked (as in the JAX package, whose docstring
+    says location 0 while its code also clamps to the last). With
+    ``index_points`` the points are the global location indices, ``[...,
+    1]`` long, for :class:`pymra_torch.kernels.MatrixKernel`.
     """
     locs = np.asarray(plan.locs)
     n = len(locs)
+    if index_points:
+        locs = np.arange(n, dtype=np.int64)[:, None]
     d = locs.shape[1]
     levels = []
     for g in plan.levels:
@@ -208,17 +232,21 @@ def make_device_plan(plan: TreePlan, dtype=torch.float32,
         })
     return device_plan_from_numpy(levels, n, plan.r, plan.M,
                                   plan_groups(plan), plan_post_inv(plan),
-                                  True, dtype=dtype, device=device)
+                                  True, dtype=dtype, device=device,
+                                  index_points=index_points)
 
 
 def device_plan_from_numpy(levels, n_locs: int, r: int, M: int, groups,
                            post_inv, iota_groups: bool, dtype=torch.float32,
-                           device="cuda") -> DevicePlan:
+                           device="cuda",
+                           index_points: bool = False) -> DevicePlan:
     """Build a :class:`DevicePlan` from numpy arrays: ``levels`` holds, per
     level, ``{field: array}`` keyed by the :class:`DeviceLevel` field names
     (e.g. ``{k: np.asarray(v) for k, v in jax_level._asdict().items()}``);
     the other arguments are the plan attributes of the same names
-    (``post_inv`` as an array or None)."""
+    (``post_inv`` as an array or None). With ``index_points`` the point
+    arrays are location indices and stay long; else they become
+    ``dtype``."""
     dev = torch.device(device)
 
     # torch.tensor copies: arrays taken from JAX are read-only
@@ -231,7 +259,8 @@ def device_plan_from_numpy(levels, n_locs: int, r: int, M: int, groups,
     def msk(a):
         return torch.tensor(np.asarray(a), dtype=torch.bool, device=dev)
 
-    conv = {"int_knots": flt, "leaf_locs": flt, "leaf_loc_mask": msk,
+    pts = idx if index_points else flt
+    conv = {"int_knots": pts, "leaf_locs": pts, "leaf_loc_mask": msk,
             "leaf_is_knot": msk}
     lv = tuple(DeviceLevel(**{f.name: conv.get(f.name, idx)(lvl[f.name])
                               for f in dataclasses.fields(DeviceLevel)})
@@ -241,7 +270,8 @@ def device_plan_from_numpy(levels, n_locs: int, r: int, M: int, groups,
         groups=(tuple(tuple(int(v) for v in g) for g in groups)
                 if groups is not None else None),
         post_inv=idx(post_inv) if post_inv is not None else None,
-        iota_groups=bool(iota_groups))
+        iota_groups=bool(iota_groups), index_points=bool(index_points),
+        dtype=dtype)
 
 
 class SweepResult(NamedTuple):
@@ -356,6 +386,22 @@ def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False,
         return torch.linalg.solve_triangular(L.transpose(-1, -2), B,
                                              upper=True)
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def _use_inverse_solves(p: int, kernel_structure: bool) -> bool:
+    """The leaf route (the JAX package's ``_use_inverse_solves``): invert
+    the leaf's posterior factor once and make its solves matmuls, or solve
+    with the factor. ``PYMRA_LEAF_SOLVE=inv|tri`` chooses; ``auto`` inverts
+    in the kernel structure from P = 16 on, where the JAX package inverts
+    on the TPU."""
+    # imported here: pymra_torch.utils imports the model, which imports
+    # this module
+    from pymra_torch.utils.config import flag
+
+    mode = flag("PYMRA_LEAF_SOLVE")
+    if mode == "auto":
+        return kernel_structure and p >= LEAF_FUSED_MIN_P
+    return mode == "inv"
 
 
 def _tri_inv(L: torch.Tensor) -> torch.Tensor:
@@ -520,7 +566,7 @@ def mra_sweep(
     r_dense=None,
     prep: tuple | None = None,
     posterior_segments: bool = False,
-) -> SweepResult:
+) -> SweepResult | tuple[SweepResult, dict]:
     """Run the full MRA computation: likelihood and (optionally) posterior.
 
     Args:
@@ -537,14 +583,15 @@ def mra_sweep(
         then ignored.
       prep: optional :func:`prepare_obs` output for this ``(y, r_diag)``;
         ``y``/``r_diag`` are then ignored.
+      keep_internals: also return the per-level stashes, as the JAX
+        package: ``(result, {"prior_L", "chain_Q", "chain_GG", "leaf",
+        "interior"})``. The leaves then keep their prior factor
+        (``L_prior``), the basis blocks ``Bstack`` and, with the posterior,
+        the posterior basis blocks ``post_blocks``; the fused leaf kernel
+        is off.
 
-    ``keep_internals``, ``axis_name`` and ``posterior_segments`` are not
-    ported yet and raise.
+    ``axis_name`` and ``posterior_segments`` are not ported yet and raise.
     """
-    if keep_internals:
-        raise NotImplementedError(
-            "keep_internals (basis-matrix stashes) is a sweep side path "
-            "still to be ported (ROADMAP queue 1)")
     if axis_name is not None or posterior_segments:
         raise NotImplementedError(
             "sharded sweeps are still to be ported (ROADMAP queue 1, "
@@ -556,30 +603,33 @@ def mra_sweep(
     elif prep is None:
         prep = prepare_obs(dplan, y, r_diag)
     return _mra_sweep_impl(dplan, covfn, compute_posterior, float(jitter),
-                           prep, dense)
+                           prep, dense, keep_internals)
 
 
-def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
+def _int_group(dplan: DevicePlan, m: int, n_local: int) -> int:
+    """Uniform children-per-parent of interior level ``m`` (0 = not
+    grouped)."""
+    if not m or dplan.groups is None:
+        return 0
+    ci = dplan.groups[m][1]
+    return ci if (ci and n_local == dplan.groups[m][3]) else 0
+
+
+def _parent_rows(stash, parent, c: int, n_local: int):
+    """Per-node rows of a parent-level stash: a broadcast when the plan
+    certifies iota grouping, else a gather."""
+    if c and stash.shape[0] * c == n_local:
+        return stash.repeat_interleave(c, dim=0)
+    return stash[parent]
+
+
+def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
+                    keep_internals):
     levels = dplan.levels
-    M, N, r = dplan.M, dplan.n_locs, dplan.r
+    M, r = dplan.M, dplan.r
     dtype = dplan.dtype
     fl = dict(dtype=dtype, device=dplan.device)
     kernel_structure = _kernel_structure(dtype, jitter)
-
-    def int_group(m: int, n_local: int) -> int:
-        """Uniform children-per-parent of interior level ``m`` (0 = not
-        grouped)."""
-        if not m or dplan.groups is None:
-            return 0
-        ci = dplan.groups[m][1]
-        return ci if (ci and n_local == dplan.groups[m][3]) else 0
-
-    def parent_rows(stash, parent, c: int, n_local: int):
-        """Per-node rows of a parent-level stash: a broadcast when the
-        plan certifies iota grouping, else a gather."""
-        if c and stash.shape[0] * c == n_local:
-            return stash.repeat_interleave(c, dim=0)
-        return stash[parent]
 
     # ---------------- Pass A: prior (downward), interior levels ------------
     # chain stashes: stacked ancestor knots (own last) and the fused chain
@@ -594,7 +644,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
         if n_int == 0:
             continue
         Q = lvl.int_knots
-        grp_i = int_group(m, n_int)
+        grp_i = _int_group(dplan, m, n_int)
         iota_i = bool(grp_i) and chain_GG[m - 1] is not None and (
             chain_GG[m - 1].shape[0] * grp_i == n_int)
         pgrp = grp_i if iota_i else 0
@@ -614,7 +664,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             chain_GG[m] = torch.cat([LinvT, eye_r], dim=-1)
         else:
             S = m * r
-            GGp = parent_rows(chain_GG[m - 1], lvl.int_parent, pgrp, n_int)
+            GGp = _parent_rows(chain_GG[m - 1], lvl.int_parent, pgrp, n_int)
             GpT, GLTp = GGp[..., :S], GGp[..., S:]
             neg = -(GpT @ Zt.transpose(-1, -2))  # [n, S, r]
             zeros_bot = torch.zeros(n_int, r, S, **fl)
@@ -623,7 +673,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
                 torch.cat([zeros_bot, LinvT, zeros_bot, eye_r], dim=-1),
             ], dim=-2)
             chain_Q[m] = torch.cat([
-                parent_rows(chain_Q[m - 1], lvl.int_parent, pgrp, n_int), Q,
+                _parent_rows(chain_Q[m - 1], lvl.int_parent, pgrp, n_int), Q,
             ], dim=-2)
 
     # ---------------- Pass B: leaf groups — A, omega, own downdate ---------
@@ -683,7 +733,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             if S:
                 A_oh = Bw.transpose(-1, -2) @ W
 
-        fused = kernel_structure and LEAF_FUSED_MIN_P <= P <= LEAF_FUSED_MAX_P
+        use_inv = _use_inverse_solves(P, kernel_structure)
+        # the JAX package's fused_ok: the leaf kernels that produce the
+        # inverse factor without forming L_post run on the inverse route
+        fused = (use_inv and kernel_structure and P <= LEAF_FUSED_MAX_P
+                 and not keep_internals)
+        L_prior = None
         if fused and dense is None:
             # one kernel: prior log-det, posterior inverse factor + log-det;
             # K_leaf and K_leaf + A_oo never exist in memory
@@ -696,7 +751,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             pair = kmask_f[:, :, None] * kmask_f[:, None, :]
             eyeP = torch.eye(P, **fl)
             K_leaf = C_own * pair + (1.0 - kmask_f)[:, :, None] * eyeP
-            ld_prior = _chol_logdiag(K_leaf, jitter)
+            if keep_internals:
+                # the basis matrices read the leaf prior factor itself
+                L_prior = _chol(K_leaf, jitter)
+                ld_prior = _logdiag_sum(L_prior)
+            else:
+                ld_prior = _chol_logdiag(K_leaf, jitter)
             prior_scale = torch.diagonal(K_leaf, dim1=-2, dim2=-1).abs().mean(-1)
             if fused:
                 # two kernels (dense R): posterior inverse factor and
@@ -709,17 +769,16 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             else:
                 L_post = _chol(K_leaf + A_oo, jitter, scale=prior_scale)
                 ld_post = _logdiag_sum(L_post)
-                # wide leaves: the solves become matmuls with the blocked
-                # inverse, as in the JAX package
-                Li = (triangular_inverse_lower(L_post)
-                      if kernel_structure and P > MAX_P else None)
+                # the inverse route: the solves become matmuls with the
+                # (blocked, above 64) inverse, as in the JAX package
+                Li = triangular_inverse_lower(L_post) if use_inv else None
 
         def solve(B, trans=False):
             """``L^-1 B`` (or ``L^-T B``) for the leaf's posterior factor:
             matmuls when a kernel produced ``Li = L^-1``."""
             if Li is not None:
                 return (Li.transpose(-1, -2) if trans else Li) @ B
-            return _tri_solve(L_post, B, trans)
+            return _tri_solve(L_post, B, trans, kernel=kernel_structure)
 
         v = solve(omg_o[..., None])[..., 0]  # [n, P]
 
@@ -759,7 +818,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             G = torch.zeros(n_leaf, P, 0, **fl)
         g = solve(v[..., None], trans=True)[..., 0]
         leaf_stash[m] = {"W": W, "B_own": B_own, "grp": grp,
-                         "L_post": L_post, "Li": Li, "G": G, "g": g}
+                         "L_prior": L_prior, "L_post": L_post, "Li": Li,
+                         "G": G, "g": g}
+        if keep_internals:
+            # prior basis blocks, with or without the posterior
+            leaf_stash[m]["Bstack"] = (torch.cat([W, B_own], dim=-1) if S
+                                       else B_own)
 
     # ---------------- Pass C: upward interior levels -----------------------
     int_stash: list = [None] * (M + 1)
@@ -793,7 +857,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             ATil = A[:, :S, :S] - Xblk.transpose(-1, -2) @ Xblk
             omgTil = omg[:, :S] - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
             children[m].append((ATil, omgTil, lvl.int_parent,
-                                int_group(m, n_int)))
+                                _int_group(dplan, m, n_int)))
             G = _tri_solve(L_post, Xblk, trans=True)
         else:
             G = torch.zeros(n_int, r, 0, **fl)
@@ -802,17 +866,35 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
 
     objective = d_total + u_total
     loglik = -0.5 * (objective + n_obs_total * LOG2PI)
-    if not compute_posterior:
-        return SweepResult(objective, loglik, None, None)
+    mean = var = None
+    if compute_posterior:
+        mean, var = _posterior(dplan, leaf_stash, int_stash, kernel_structure,
+                               keep_internals)
+    result = SweepResult(objective, loglik, mean, var)
+    if keep_internals:
+        return result, {"prior_L": prior_L, "chain_Q": chain_Q,
+                        "chain_GG": chain_GG, "leaf": leaf_stash,
+                        "interior": int_stash}
+    return result
 
-    # ---------------- Pass D: posterior ------------------------------------
+
+def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
+               keep_internals):
+    """Pass D: the posterior mean and variance at every location. With
+    ``keep_internals`` each leaf replays its per-ancestor downdates and
+    stashes the posterior basis blocks (``post_blocks``) instead of the
+    chain contraction against ``U``."""
+    levels = dplan.levels
+    M, N, r = dplan.M, dplan.n_locs, dplan.r
+    fl = dict(dtype=dplan.dtype, device=dplan.device)
+
     # per-node chain matrices U = [V | w] by the recursions
     #   w(node) = [w_p, g - G w_p]
     #   V(node) = [[V_p, 0], [-G V_p, L_post^-T]]
     post_U: list = [None] * (M + 1)
     for m in range(M + 1):
         st = int_stash[m]
-        if st is None:
+        if st is None or keep_internals:
             continue
         LinvT = _tri_inv(st["L_post"]).transpose(-1, -2)
         if m == 0:
@@ -820,8 +902,8 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             continue
         G = st["G"]  # [n, r, S]
         n_i = G.shape[0]
-        Up = parent_rows(post_U[m - 1], levels[m].int_parent,
-                         int_group(m, n_i), n_i)  # [n, S, S+1]
+        Up = _parent_rows(post_U[m - 1], levels[m].int_parent,
+                          _int_group(dplan, m, n_i), n_i)  # [n, S, S+1]
         GU = G @ Up  # [n, r, S+1]
         S = m * r
         top = torch.cat([Up[..., :S], torch.zeros(n_i, S, r, **fl),
@@ -838,13 +920,31 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             continue
         T_own = st["B_own"]  # [n, P, P]
         S = m * r
+        if keep_internals:
+            # posterior basis blocks (the reference's BTil): T's block k
+            # just before step k's contribution
+            st["post_blocks"] = {m: T_own}
         mean_l = (T_own @ st["g"][..., None])[..., 0]
         if st["Li"] is not None:
             half = st["Li"] @ T_own.transpose(-1, -2)
         else:
-            half = _tri_solve(st["L_post"], T_own.transpose(-1, -2))
+            half = _tri_solve(st["L_post"], T_own.transpose(-1, -2),
+                              kernel=kernel_structure)
         var_l = (half * half).sum(-2)
-        if S:
+        if S and keep_internals:
+            # replay the per-ancestor downdates, stashing each block
+            T = st["W"] - T_own @ st["G"]
+            for j in range(m - 1, -1, -1):
+                anc = lvl.leaf_path[:, j]
+                stj = int_stash[j]
+                blk = T[:, :, j * r:(j + 1) * r]
+                st["post_blocks"][j] = blk
+                mean_l = mean_l + (blk @ stj["g"][anc][..., None])[..., 0]
+                halfj = _tri_solve(stj["L_post"][anc], blk.transpose(-1, -2))
+                var_l = var_l + (halfj * halfj).sum(-2)
+                if j:
+                    T = T[:, :, :j * r] - blk @ stj["G"][anc]
+        elif S:
             # one per-parent chain contraction against U = [V | w] gives the
             # ancestor levels' mean and variance contributions together
             h = st["W"] - T_own @ st["G"]
@@ -881,4 +981,4 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense):
             var_out = var_out.index_add(
                 0, gidx, torch.where(lvl.leaf_loc_mask, vl, zero).reshape(-1))
         mean_out, var_out = mean_out[:N], var_out[:N]
-    return SweepResult(objective, loglik, mean_out, var_out)
+    return mean_out, var_out

@@ -643,3 +643,143 @@ def test_n1m_nuts_phase_passes_on_small_inputs():
              "max_depth": 3}, timer=_host_timer)
     assert out["evals_per_draw"] >= 1 and np.isfinite(out["roughness"])
     assert sum(out["depth_histogram"]) == 2 * 4
+
+
+# ---------------------------------------------------------------------------
+# phases 15-19: the side paths, on the bundled small data (N=100)
+# ---------------------------------------------------------------------------
+
+def _small_side_goldens():
+    """Float64 goldens of the bundled small tree for phases 15-18, from the
+    port's float64 path (held to the JAX package by the port's other
+    tests): the objective of the facade's tree (phases 15, 17), and the
+    objective and gradient at l=2, sig=1 of the natively planned tree for
+    the Matern at each of phase 16's R and the exponential (phase 18)."""
+    from tests.test_golden_anchors import BUNDLED_SMALL_OBJECTIVE
+
+    locs, y = load_data("small")
+    model = MRAModel(locs, r=4, dtype=torch.float64, device="cpu",
+                     config=PlanConfig(r=4, kmeans_impl="native"))
+    n_obs = int(np.isfinite(y).sum())
+
+    def golden(builder, R):
+        f = model.loglik_fn(y, R, kernel_builder=builder)
+        value, grad = chip_smoke.value_and_grad(f, 2.0, 1.0)
+        return {"objective": -2.0 * value - n_obs * np.log(2.0 * np.pi),
+                **grad}
+
+    exp = golden(chip_smoke.exponential_builder, 1e-4)
+    return {"facade": BUNDLED_SMALL_OBJECTIVE,
+            "matern": {R: golden(chip_smoke.matern_builder, R)
+                       for R in chip_smoke.GOLDEN_MATERN_N10K},
+            "tri": exp["objective"],
+            "tri_grad": {k: exp[k] for k in ("l", "sig")}}
+
+
+SMALL = dict(data="small", M=-1)
+#: phase 18's roughness points on the small tree: l, sig near its MLE
+SMALL_ROUGH = {1e-2: {"mle": {"l": 2.0, "sig": 1.0}, "sd": 0.05}}
+
+
+def _side_phases(goldens, tmp_path, over=None):
+    """Phases 15-18 on the small tree, ``over`` ({phase: golden})
+    replacing a phase's goldens."""
+    over = over or {}
+    kw = dict(SMALL, timer=_host_timer)
+    out = {
+        15: chip_smoke.phase_matrix_cov(
+            "cpu", n_evals=1, golden=over.get(15, goldens["facade"]),
+            ms_coord=1.0, **kw),
+        16: chip_smoke.phase_matern(
+            "cpu", dev_timer=_no_device_timer, n_evals=1,
+            golden=over.get(16, goldens["matern"]), **kw),
+        17: chip_smoke.phase_keep_internals(
+            "cpu", n_evals=1, golden=over.get(17, goldens["facade"]),
+            out_dir=str(tmp_path), **kw),
+        18: chip_smoke.phase_tri_route(
+            "cpu", n_evals=1, golden=over.get(18, goldens["tri"]),
+            golden_grad=goldens["tri_grad"], rough=SMALL_ROUGH, **kw),
+    }
+    return out
+
+
+def test_side_path_phases_pass_on_small_inputs(tmp_path):
+    chip_smoke.reset_counters(tl)
+    out = _side_phases(_small_side_goldens(), tmp_path)
+    assert out[15]["ms"] > 0 and out[16]["ms_grad"] > 0
+    assert out[17]["t_basis"] > 0
+    assert set(out[18]) == set(chip_smoke.ROUTES)
+    assert all(r["roughness_0.01"] >= 0 for r in out[18].values())
+    # the drawing (matplotlib here), or the arrays it draws
+    assert list(tmp_path.glob("phase17_basis_functions.res*"))
+    for name in chip_smoke.KERNEL_NAMES:
+        assert chip_smoke.launches_of(tl, name) == 0
+        wrapper = chip_smoke.wrapper_of(name)[0]
+        assert getattr(tl, f"{wrapper}_ref").cuda_calls == 0
+    assert "PYMRA_LEAF_SOLVE" not in __import__("os").environ
+
+
+@pytest.mark.parametrize("phase", [15, 16, 17, 18])
+def test_side_path_phases_reject_a_wrong_golden(phase, tmp_path):
+    goldens = _small_side_goldens()
+    wrong = {15: goldens["facade"] * 1.005, 17: goldens["facade"] * 1.005,
+             18: goldens["tri"] * 1.005,
+             16: {R: {**g, "objective": g["objective"] * 1.005}
+                  for R, g in goldens["matern"].items()}}
+    with pytest.raises(SystemExit, match="off its golden"):
+        _side_phases(goldens, tmp_path, {phase: wrong[phase]})
+
+
+@pytest.mark.parametrize("phase", [16, 18])
+def test_side_path_phases_reject_a_dropped_gradient(phase, monkeypatch):
+    # phase 16: the Matern's gradient in l through its Bessel K dropped;
+    # phase 18: the triangular route's prior log-determinant (K6) detached
+    import pymra_torch.kernels as tk
+
+    goldens = _small_side_goldens()
+    if phase == 16:
+        real = tk.matern_general
+        monkeypatch.setattr(tk, "matern_general", lambda d, l, sig, nu: (
+            real(d, l.detach(), sig, nu) + 0.0 * l))
+        run = lambda: chip_smoke.phase_matern(  # noqa: E731
+            "cpu", dev_timer=_no_device_timer, n_evals=1,
+            golden=goldens["matern"], timer=_host_timer, **SMALL)
+    else:
+        real = sweep.cholesky_logdet
+        monkeypatch.setattr(sweep, "cholesky_logdet", lambda m, j: tuple(
+            t.detach() for t in real(m, j)))
+        run = lambda: chip_smoke.phase_tri_route(  # noqa: E731
+            "cpu", n_evals=1, golden=goldens["tri"],
+            golden_grad=goldens["tri_grad"], timer=_host_timer, **SMALL)
+    with pytest.raises(SystemExit, match="off its golden"):
+        run()
+
+
+def test_kernel_phase_checks_and_times_the_side_shapes():
+    # K2 and K6 recorded under (name, b, p), K5 under (name, b, p, q), each
+    # held to its twin and timed beside its library call
+    _, times = chip_smoke.phase_kernels(
+        "cpu", ragged=5, chol_main=((6, 3),), leaf_main=((5, 16),),
+        tri_main=((5, 16),), solve_main=((6, 3, 1, False),),
+        logdet_main=((5, 9),), wide_widths=(65,), wide_main=((6, 70),),
+        timer=_host_timer, dev_timer=_no_device_timer,
+        chol_side=((4, 49),), solve_side=((4, 49, 16, False),
+                                          (3, 20, 20, True)),
+        logdet_side=((4, 33),))
+    for key in (("cholesky_jittered", 4, 49), ("cholesky_jittered_clean", 4,
+                                                 49),
+                ("solve_triangular_batched", 4, 49, 16),
+                ("solve_triangular_batched", 3, 20, 20),
+                ("cholesky_logdet", 4, 33), ("cholesky_logdet_clean", 4, 33)):
+        assert times[key]["ms"] > 0 and times[key]["library_ms"] > 0
+    # K7 shares K6's loop but is timed at the main shapes only
+    assert ("cholesky_inv_logdet", 4, 33) not in times
+
+
+def test_tri_n1m_phase_passes_on_small_inputs():
+    side = 40
+    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                               golden=_flagship_golden(side), n_evals=1)
+    out = chip_smoke.phase_tri_n1m(n1m, "cpu", timer=_host_timer,
+                                   golden=_flagship_golden(side), n_evals=1)
+    assert set(out) == set(chip_smoke.ROUTES)

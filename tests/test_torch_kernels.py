@@ -66,8 +66,17 @@ def test_matern_closed_forms_match_jax(nu):
 
 
 def test_general_nu_matern_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.matern(torch.zeros(3, 2), l=0.3, nu=0.7)
+    # (named before the port had it) general nu through the Bessel K of
+    # pymra_torch/ops/special.py, against the JAX package's, batched and
+    # circular as the families above
+    a, b = _pts(10, (3, 9, 2)), _pts(11, (3, 6, 2))
+    for nu in (0.7, 1.2, 3.4):
+        got, want = _both(tk.matern, jk.matern, a, b, l=0.3, sig=1.4, nu=nu)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    got, want = _both(tk.matern, jk.matern, _pts(12, (7, 1)), None, l=0.21,
+                      nu=0.8, circular=True)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert np.all(np.diag(got) == 1.0)
 
 
 @pytest.mark.parametrize("radius", [0.35, 9])
@@ -115,8 +124,15 @@ def test_kernel_module_holds_tensor_params():
     assert float(k2.l) == 0.5 and float(k2.sig) == 2.0
     with pytest.raises(KeyError, match="available"):
         tk.Kernel("nope")
-    with pytest.raises(NotImplementedError):
-        tk.MatrixKernel(np.eye(3))
+    # the dense-matrix covariance: an nn.Module holding the matrix as a
+    # buffer, gathering blocks by location index as the JAX package's
+    mat = _pts(13, (6, 6))
+    mk = tk.MatrixKernel(mat)
+    assert isinstance(mk, torch.nn.Module) and mk.matrix.dtype == torch.float64
+    idx = np.array([[[2], [0], [5]], [[1], [1], [4]]])
+    np.testing.assert_array_equal(
+        mk(torch.as_tensor(idx)).numpy(),
+        np.asarray(jk.MatrixKernel(mat)(idx.astype(np.float64))))
 
 
 def test_float32_locations_compute_in_float32():

@@ -262,19 +262,18 @@ def test_model_defaults_and_hoisted_prep():
 
 
 def test_side_paths_raise():
+    # what the port still refuses: sharding. A dense R, keep_internals and
+    # a dense covariance matrix are paths now (tests/test_torch_dense_r.py,
+    # tests/test_torch_basis.py, tests/test_torch_matrix_cov.py); the
+    # gradient function keeps the JAX package's diagonal-R contract
     locs, y_obs = load_data("small")
     model = MRAModel(locs, r=4, dtype=F64, device="cpu")
     kern = Kernel("exponential", l=2.0)
-    # a dense R is a sweep path now (tests/test_torch_dense_r.py); the
-    # gradient function keeps the JAX package's diagonal-R contract
     with pytest.raises(NotImplementedError, match="dense"):
         model.loglik_fn(y_obs, 1e-4 * np.eye(100))
-    for kw in ({"keep_internals": True}, {"axis_name": "x"},
-               {"posterior_segments": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"axis_name": "x"}, {"posterior_segments": True}):
+        with pytest.raises(NotImplementedError, match="shard"):
             mra_sweep(model.dplan, kern, y_obs, 1e-4, **kw)
-    with pytest.raises(NotImplementedError):
-        MRATree(locs, 4, np.eye(100), y_obs, 1e-4, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +302,26 @@ def test_port_imports_and_runs_without_jax():
         "             num_samples=3, max_depth=3)\n"
         "assert draws.samples['log_l'].shape == (1, 3)\n"
         "assert torch.isfinite(draws.log_prob).all()\n"
+        "import os, numpy as np\n"
+        "import pymra_torch.ops.special, pymra_torch.tree.basis\n"
+        "import pymra_torch.utils.viz\n"
+        "from pymra_torch import MRATree, MatrixKernel\n"
+        "from pymra_torch.tree.sweep import mra_sweep\n"
+        "f32 = torch.float32\n"
+        "sigma = Kernel('exponential', l=2.0)(torch.as_tensor(locs)).numpy()\n"
+        "tree = MRATree(locs, 4, sigma, y, 1e-4, dtype=f32, device='cpu')\n"
+        "assert isinstance(tree.cov, MatrixKernel)\n"
+        "assert np.isfinite(tree.getLikelihood())\n"
+        "m32 = MRAModel(locs, r=4, dtype=f32, device='cpu')\n"
+        "res = m32.sweep(Kernel('matern', l=2.0, nu=0.8), y, 1e-4)\n"
+        "assert torch.isfinite(res.objective)\n"
+        "_, inner = mra_sweep(m32.dplan, Kernel('exponential', l=2.0), y,\n"
+        "                     1e-4, jitter=m32.jitter, keep_internals=True)\n"
+        "B = tree.getBasisFunctionsMatrix('posterior', timesKC=True)\n"
+        "assert B.shape[0] == 100 and np.isfinite(B).all()\n"
+        "os.environ['PYMRA_LEAF_SOLVE'] = 'tri'\n"
+        "res = m32.sweep(Kernel('exponential', l=2.0), y, 1e-4)\n"
+        "assert torch.isfinite(res.objective)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'pymra_tpu'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', float(res.objective))\n"
