@@ -102,10 +102,28 @@ non-zero exit code and no result line:
    the N=10^6 objective against its golden and likelihood-only ms on both
    routes, with its own launch counters (K2, K5, K6);
 19. launch counters over phases 15-18: K1, K2, K3, K5 and K6 launched, no
-   twin ran on a CUDA tensor.
+   twin ran on a CUDA tensor;
+20. the sharded main path at N=10^6 on phase 5's tree and data: the plan
+   written by ``utils.checkpoint.save_plan``; first the sharded sweep on a
+   world of one rank in this process, bit-identical to phase 5; then 2
+   ranks (spawned processes, ``torch.distributed`` over gloo with a file
+   store: NCCL refuses two ranks on one card) each load and pad the plan
+   (``int_shard_from`` 2: levels 2-6 and the leaves shard) and run full
+   sweeps with the posterior and value-and-gradient evaluations in
+   ``l`` and ``sig``: the ranks agree bit for bit, the objective against
+   the golden and phase 5's, the posterior against phase 5's, the
+   gradient against phase 8's; ms per evaluation, peak memory, launches
+   of every kernel per rank (each rank counts its own), the forward
+   collectives' host time beside ``utils.accounting.sweep_cost``'s bytes;
+20b. HMC on a 2 x 2 chain x data mesh of 4 ranks at N=10^4 (phase 13's
+   tree and R, from phase 13's fit): data partners draw bit-identical
+   chains, the gathered draws are finite and healthy, each chain's last
+   log_prob matches a serial evaluation. A rank that fails or hangs fails
+   the phase: the ranks are joined by a deadline and killed past it.
 
-Phases 13-14 and 18b run after phase 9, before phase 10; phases 15-19
-after phase 12. Phase 3 also times K2, K5 and K6 at the side paths'
+Phases 13-14, 18b, 20 and 20b run after phase 9, before phase 10; phases
+15-19 after phase 12. Times of phases 20-20b come from ranks that share
+one card: they are not a scaling figure. Phase 3 also times K2, K5 and K6 at the side paths'
 shapes (``CHOL_SIDE``, ``SOLVE_SIDE``, ``LOGDET_SIDE``).
 
 The last two lines are JSON: the per-kernel record, then
@@ -1324,7 +1342,7 @@ def phase_n1m(device="cuda", timer=time_ms, side=1000, golden=GOLDEN_N1M,
     print(f"N={len(locs)} likelihood-only: {ms_lik:.3f} ms/eval; full "
           f"likelihood+posterior: {ms_full:.3f} ms/eval ({n_evals} evals, "
           f"l in [0.04, 0.06]); peak device memory {peak:.2f} GiB")
-    return {"ms_lik": ms_lik, "model": model, "y": y}
+    return {"ms_lik": ms_lik, "model": model, "y": y, "full": full}
 
 
 # ---------------------------------------------------------------------------
@@ -2553,6 +2571,497 @@ def phase_tri_n1m(n1m, device="cuda", timer=time_ms, golden=GOLDEN_N1M,
 
 
 # ---------------------------------------------------------------------------
+# phases 20, 20b: the sharded paths, ranks time-sliced on the one card
+# ---------------------------------------------------------------------------
+
+#: phase 20: ranks of the sharded N=10^6 path. NCCL refuses two ranks on
+#: one card, so they share it over gloo, which stages every collective
+#: through the host: their times are not a scaling figure
+SHARD_RANKS = 2
+#: every rank world's join deadline, and its collectives' timeout: a rank
+#: that fails or hangs fails the phase by then (seconds)
+SHARD_DEADLINE_S = 240
+#: phase 20 against the serial sweep on the same card: the objective (phase
+#: 5's, l=0.05) within this relative difference, the posterior mean and
+#: variance within these times their largest magnitude, and the gradient
+#: in (l, sig) (phase 8's autograd) within this relative difference. With
+#: one rank the sharded code is bit-identical to the serial sweep (checked
+#: first, in this process); with two the cross-rank sums reorder float32
+#: sums and each rank's batched products run at half the batch. In the CPU
+#: float32 rehearsal (``tools/float32_sharded.py``, N=64^2 and 128^2) the
+#: objective moved by at most 1.0e-7, the posterior not at all (the CPU's
+#: batched products do not depend on the batch) and the gradient by at
+#: most 4.3e-8. On an NVIDIA H100 (700 W) at N=10^6 two ranks moved the
+#: objective by 1.5e-7, the gradient by 1.5e-6 and the posterior mean and
+#: variance by 4.4e-3 and 8.4e-4 of their scale at the worst location
+#: (median 7.3e-6 and 7.9e-7): the float32 posterior's own sensitivity,
+#: which phase 17 meets against float64 too
+SHARD_OBJ_RTOL = 1e-5
+SHARD_POST_RTOL = {"mean": 2e-2, "var": 5e-3}
+SHARD_GRAD_RTOL = 1e-4
+#: phase 20b: a chain x data mesh of 4 ranks on phase 13's N=10^4 tree at
+#: phase 13's R, a short HMC (phase 13's leapfrog count), from phase 13's
+#: fit; each chain's last log_prob against a fresh serial evaluation within
+#: this times max(1, |log_prob|) (CPU float32 rehearsal: 7.0e-7; an NVIDIA
+#: H100 (700 W): 2.8e-7)
+CHAIN_MESH = {"chain": 2, "data": 2}
+CHAIN_RUN = {"num_warmup": 10, "num_samples": 10, "num_leapfrog": 4}
+CHAIN_REEVAL_RTOL = 1e-5
+#: the faults the ranks can be told to inject (for the tests): rank 1
+#: drops its messages from the transition level's cross-rank sum, or every
+#: rank's gradient misses its cross-rank mean
+FAULTS = ("transition", "grad")
+
+
+def run_ranks(target, n_ranks: int, tmp: str, args: tuple,
+              deadline: float = SHARD_DEADLINE_S) -> None:
+    """Start ``n_ranks`` processes (spawn) running ``target(rank, n_ranks,
+    tmp, *args)``; join them by ``deadline`` seconds, kill any still
+    running, and fail unless every one exited 0."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, n_ranks, tmp) + args,
+                         daemon=True) for rank in range(n_ranks)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    check(not hung, f"ranks {hung} still running after {deadline} s: "
+                    "killed")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * n_ranks, f"ranks exited with codes {codes}")
+
+
+def _rank_reports(tmp, n_ranks) -> list:
+    out = []
+    for r in range(n_ranks):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _rank_setup(rank, n_ranks, tmp, device, mesh_shape, fault):
+    """A rank's process group (gloo, a file store in ``tmp``), its mesh,
+    its kernels (loaded from the parent's build) and its fault."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from pymra_torch.parallel import initialize_distributed, make_mesh
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    else:
+        from pymra_torch.ops.cuda import build
+
+        build.load_library()
+    initialize_distributed(
+        "gloo", device_type=device,
+        store=dist.FileStore(os.path.join(tmp, "store"), n_ranks),
+        world_size=n_ranks, rank=rank,
+        timeout=datetime.timedelta(seconds=SHARD_DEADLINE_S))
+    mesh = make_mesh(mesh_shape, device_type=device, backend="gloo")
+    if fault == "transition" and rank == 1:
+        from pymra_torch.tree import sweep
+
+        orig = sweep._all_reduce
+
+        def dropped(x, group, what):
+            return orig(x * 0 if what == "messages" else x, group, what)
+
+        sweep._all_reduce = dropped
+    elif fault == "grad":
+        from pymra_torch.parallel import sharded
+
+        sharded.mean_grad = lambda x, group: x
+    elif fault is not None:
+        check(fault in FAULTS, f"unknown fault {fault!r}")
+    return mesh
+
+
+def _rank_done(tmp, rank, out):
+    import torch.distributed as dist
+
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def timed_collectives(device):
+    """Host milliseconds, calls and bytes of the sweep's forward
+    collectives by kind (``"messages"``, ``"totals"``, ``"posterior"``),
+    each between two synchronizations of the card (so the time is the
+    collective's, with the ranks' skew, not the kernels' before it)."""
+    import torch
+
+    from pymra_torch.tree import sweep
+
+    stats: dict = {}
+    orig = sweep._all_reduce
+
+    def timed(x, group, what):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(x, group, what)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        s = stats.setdefault(what, {"calls": 0, "ms": 0.0, "bytes": 0})
+        s["calls"] += 1
+        s["ms"] += 1e3 * (time.perf_counter() - t0)
+        s["bytes"] += x.numel() * x.element_size()
+        return out
+
+    sweep._all_reduce = timed
+    try:
+        yield stats
+    finally:
+        sweep._all_reduce = orig
+
+
+def _rank_timer(device):
+    if device != "cpu":
+        return time_ms
+
+    def host(fn, reps=10):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return host
+
+
+def _rank_launches() -> dict:
+    from pymra_torch.ops import linalg as tl
+
+    return {"launches": {n: launches_of(tl, n) for n, *_ in KERNELS},
+            "twins": sum(getattr(tl, f"{wrapper_of(n)[0]}_ref").cuda_calls
+                         for n, *_ in KERNELS),
+            "composed": sum(getattr(tl, n).composed for n in COMPOSING)}
+
+
+def _rank_sharded(rank, n_ranks, tmp, device, R, n_evals, fault):
+    """Phase 20 on one rank: the plan from ``tmp``, full sweeps with the
+    posterior and value-and-gradient evaluations on the rank's share."""
+    import torch
+
+    from pymra_torch import Kernel, MRAModel
+    from pymra_torch.ops import linalg as tl
+    from pymra_torch.parallel import pad_plan_for_sharding, sharded_sweep
+    from pymra_torch.parallel.sharded import sharded_loglik_fn
+    from pymra_torch.tree.sweep import prepare_obs
+    from pymra_torch.utils.checkpoint import load_plan
+
+    mesh = _rank_setup(rank, n_ranks, tmp, device, {"data": n_ranks}, fault)
+    plan = load_plan(os.path.join(tmp, "plan.npz"))
+    y = torch.as_tensor(np.load(os.path.join(tmp, "y.npy")), device=device)
+    model = MRAModel(plan.locs, plan.r, plan=plan, dtype=torch.float32,
+                     device=device)
+    dplan_p = pad_plan_for_sharding(model.dplan, n_ranks)
+    prep = prepare_obs(dplan_p, y, R)
+    f = sharded_loglik_fn(model.dplan, y, R, mesh, jitter=model.jitter,
+                          kernel_builder=exponential_builder)
+
+    def evaluate(l, post=True):
+        return sharded_sweep(dplan_p, Kernel("exponential", l=l), y, R, mesh,
+                             compute_posterior=post, jitter=model.jitter,
+                             prep=prep)
+
+    timer = _rank_timer(device)
+    thetas = np.linspace(0.04, 0.06, n_evals + 1)
+    reset_counters(tl)
+    _reset_peak(device)
+    full = evaluate(0.05)
+    value, grad = value_and_grad(f, 0.05, 1.0)
+    ms_full = _sweep_timer(evaluate, thetas, timer)
+    ms_grad = _grad_timer(f, thetas, timer)
+    out = {"crit": dplan_p.int_shard_from, "objective": float(full.objective),
+           "value": value, "grad": grad, "ms_full": ms_full,
+           "ms_grad": ms_grad, "peak_gib": _peak_gib(device),
+           **_rank_launches()}
+    with timed_collectives(device) as stats:
+        evaluate(0.05)
+        value_and_grad(f, 0.05, 1.0)
+    out["collectives"] = stats
+    if rank == 0:
+        np.save(os.path.join(tmp, "mean.npy"), full.mean.cpu().numpy())
+        np.save(os.path.join(tmp, "var.npy"), full.var.cpu().numpy())
+    _rank_done(tmp, rank, out)
+
+
+def _check_launches(tag, ranks, names):
+    for r, o in enumerate(ranks):
+        missing = [n for n in names if o["launches"][n] == 0]
+        check(not missing, f"{tag} rank {r}: kernels of the path never "
+                           f"launched: {missing}")
+        check(o["twins"] == 0, f"{tag} rank {r}: a plain twin ran on a "
+                               "CUDA tensor")
+        check(o["composed"] == 0, f"{tag} rank {r}: K8/KC/K3 composed "
+                                  "other kernels")
+
+
+def one_rank_identity(n1m, device, R, tmp):
+    """The sharded sweep on a world of one rank in this process (gloo)
+    against phase 5's serial result: the same batches, so bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pymra_torch import Kernel
+    from pymra_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        sharded_sweep,
+    )
+
+    model, full = n1m["model"], n1m["full"]
+    initialize_distributed(
+        "gloo", device_type=device,
+        store=dist.FileStore(os.path.join(tmp, "store1"), 1), world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=SHARD_DEADLINE_S))
+    try:
+        one = sharded_sweep(model.dplan, Kernel("exponential", l=0.05),
+                            n1m["y"], R, make_mesh({"data": 1}, device,
+                                                   "gloo"),
+                            jitter=model.jitter)
+    finally:
+        dist.destroy_process_group()
+    same = [bool((a == b).all()) for a, b in
+            ((one.objective, full.objective), (one.mean, full.mean),
+             (one.var, full.var))]
+    print(f"N={model.dplan.n_locs} sharded code on one rank against phase "
+          f"5: objective, mean, var bit-identical {same}")
+    check(all(same), "the sharded sweep on one rank differs from the "
+                     "serial sweep")
+
+
+def phase_sharded(n1m, grad_n1m, device="cuda", n_ranks=SHARD_RANKS,
+                  R=1e-2, golden=GOLDEN_N1M, n_evals=3, fault=None) -> list:
+    """Phase 20: phase 5's N=10^6 tree and data sharded over ``n_ranks``
+    processes on the one card (gloo): objective against the golden and
+    phase 5's, posterior against phase 5's, gradient against phase 8's.
+    Returns the ranks' reports (each rank's kernel launches included)."""
+    import tempfile
+
+    import torch
+
+    from pymra_torch.parallel.sharded import int_shard_level
+    from pymra_torch.utils.accounting import sweep_cost
+    from pymra_torch.utils.checkpoint import save_plan
+
+    model, full = n1m["model"], n1m["full"]
+    n = model.dplan.n_locs
+    tag = f"N={n} sharded"
+    crit = int_shard_level(model.dplan, n_ranks)
+    print(f"== phase 20: the sharded main path at N={n} (phase 5's grid and "
+          f"data, l=0.05, R={R}): {n_ranks} ranks time-sliced on one card "
+          f"over gloo, int_shard_from {crit} (M={model.dplan.M})")
+    check(crit <= model.dplan.M, f"{tag}: no interior level shards")
+    t_phase = time.perf_counter()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_plan(os.path.join(tmp, "plan.npz"), model.plan)
+        np.save(os.path.join(tmp, "y.npy"), n1m["y"].cpu().numpy())
+        t_save = time.perf_counter() - t0
+        one_rank_identity(n1m, device, R, tmp)
+        run_ranks(_rank_sharded, n_ranks, tmp, (device, R, n_evals, fault))
+        ranks = _rank_reports(tmp, n_ranks)
+        mean = np.load(os.path.join(tmp, "mean.npy"))
+        var = np.load(os.path.join(tmp, "var.npy"))
+    r0 = ranks[0]
+    for r, o in enumerate(ranks):
+        check(o["crit"] == crit, f"{tag} rank {r}: int_shard_from "
+                                 f"{o['crit']}, expected {crit}")
+        check(all(o[k] == r0[k] for k in ("objective", "value", "grad")),
+              f"{tag}: the ranks disagree: rank 0 {r0['objective']!r} "
+              f"{r0['grad']}, rank {r} {o['objective']!r} {o['grad']}")
+    _anchor(tag, r0["objective"], golden)
+    _rel(f"{tag} objective against phase 5's serial", r0["objective"],
+         float(full.objective), SHARD_OBJ_RTOL)
+    for name, got, want in (("mean", mean, full.mean), ("var", var,
+                                                         full.var)):
+        want = want.cpu().numpy()
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{tag} posterior {name} not finite of shape {want.shape}")
+        d = np.abs(got - want) / max(float(np.max(np.abs(want))), 1e-30)
+        rel, med = float(d.max()), float(np.median(d))
+        print(f"{tag} posterior {name} against phase 5's: max |diff| "
+              f"{rel:.3g} of its largest magnitude, median {med:.3g} "
+              f"(limit {SHARD_POST_RTOL[name]})")
+        check(rel <= SHARD_POST_RTOL[name], f"{tag} posterior {name} off "
+                                            f"by {rel:.3g}")
+    # phase 8's autograd gradient is in log-parameters at l=0.05, sig=1
+    ad = {"l": 0.05 * r0["grad"]["l"], "sig": r0["grad"]["sig"]}
+    for k in ("l", "sig"):
+        _rel(f"{tag} dloglik/dlog {k} against phase 8's serial", ad[k],
+             grad_n1m["ad"][k], SHARD_GRAD_RTOL)
+    if device != "cpu":
+        _check_launches(tag, ranks, GRADIENT_KERNELS)
+    cost = sweep_cost(model.dplan, compute_posterior=True,
+                      int_shard_from=crit)
+    label = (f"{n_ranks} ranks time-sliced on one card over gloo (host "
+             "staging): not a scaling figure")
+    for r, o in enumerate(ranks):
+        print(f"{tag} rank {r}: full sweep {o['ms_full']:.3f} ms/eval, value "
+              f"and gradient {o['ms_grad']:.3f} ms/eval ({n_evals} evals, l "
+              f"in [0.04, 0.06]; {label}); peak device memory "
+              f"{o['peak_gib']:.2f} GiB; launches {o['launches']}")
+        print(f"{tag} rank {r}: forward collectives over one full sweep and "
+              f"one value-and-gradient evaluation (host ms between card "
+              f"synchronizations): {o['collectives']}")
+    print(f"{tag} sweep_cost collective bytes per level (level -1: the "
+          f"posterior; the JAX package's model): "
+          f"{cost.psum_bytes_per_level}")
+    print(f"{tag}: plan and data written in {t_save:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ranks
+
+
+def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault):
+    """Phase 20b on one rank: HMC on its chain over its data share."""
+    import torch
+
+    from pymra_torch import MRAModel
+    from pymra_torch.infer import hmc
+    from pymra_torch.ops import linalg as tl
+    from pymra_torch.parallel.chains import (
+        gather_chains,
+        shard_chains,
+        shard_generators,
+    )
+    from pymra_torch.parallel.sharded import sharded_loglik_fn
+    from pymra_torch.utils.checkpoint import load_plan
+
+    mesh = _rank_setup(rank, n_ranks, tmp, device, CHAIN_MESH, fault)
+    plan = load_plan(os.path.join(tmp, "plan.npz"))
+    y = torch.as_tensor(np.load(os.path.join(tmp, "y.npy")), device=device)
+    model = MRAModel(plan.locs, plan.r, plan=plan, dtype=torch.float32,
+                     device=device)
+    f = sharded_loglik_fn(model.dplan, y, R, mesh, axis="data",
+                          jitter=model.jitter,
+                          kernel_builder=exponential_builder)
+    chains = CHAIN_MESH["chain"]
+    gen = torch.Generator().manual_seed(seed)
+    init = {k: start[k] + 0.01 * torch.randn(chains, generator=gen,
+                                             dtype=torch.float64)
+            for k in SAMPLER_PARAMS}
+    counter = CountingLogProb(log_posterior(f))
+    reset_counters(tl)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    res = hmc(counter, shard_chains(init, mesh, "chain"),
+              shard_generators(gen, chains, mesh, "chain"), **run)
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "evals": counter.calls,
+           "peak_gib": _peak_gib(device), **_rank_launches(),
+           "accept": res.accept_rate.tolist(),
+           "samples": {k: v.tolist() for k, v in res.samples.items()},
+           "log_prob": res.log_prob.tolist()}
+    every = gather_chains({"samples": res.samples, "log_prob": res.log_prob},
+                          mesh, "chain")
+    out["gathered"] = {"samples": {k: v.tolist() for k, v in
+                                   every["samples"].items()},
+                       "log_prob": every["log_prob"].tolist()}
+    # each chain's last draw, evaluated again on the serial sweep (no
+    # collective: every rank does its own)
+    logp = log_posterior(model.loglik_fn(y, R,
+                                         kernel_builder=exponential_builder))
+    with torch.no_grad():
+        out["serial_last"] = [float(logp({k: res.samples[k][c, -1]
+                                          for k in SAMPLER_PARAMS}))
+                              for c in range(res.log_prob.shape[0])]
+    _rank_done(tmp, rank, out)
+
+
+def phase_chains(start, device="cuda", data="large", r=4, M=4, R=SAMPLER_R,
+                 run=CHAIN_RUN, seed=0, fault=None) -> list:
+    """Phase 20b: HMC on a chain x data mesh of 4 ranks time-sliced on the
+    card: data partners draw bit-identical chains, the gathered draws are
+    finite and healthy, each chain's last log_prob matches a serial
+    evaluation. Returns the ranks' reports."""
+    import tempfile
+
+    import torch
+
+    from pymra_torch import PlanConfig, build_plan, load_data
+    from pymra_torch.utils.checkpoint import save_plan
+    from pymra_torch.utils.health import check_samples
+
+    locs, y_obs = load_data(data)
+    n_ranks = CHAIN_MESH["chain"] * CHAIN_MESH["data"]
+    tag = f"N={len(locs)} chains x data"
+    print(f"== phase 20b: HMC on a {CHAIN_MESH} mesh at N={len(locs)} "
+          f"(bundled {data}, r={r}, M={M}, R={R}, {run}), {n_ranks} ranks "
+          f"time-sliced on one card over gloo, from {start}")
+    t_phase = time.perf_counter()
+    plan = build_plan(locs, r, M=M, config=PlanConfig(r=r,
+                                                      kmeans_impl="native"))
+    x0 = {"log_l": float(np.log(start["l"])),
+          "log_sig": float(np.log(start["sig"]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_plan(os.path.join(tmp, "plan.npz"), plan)
+        np.save(os.path.join(tmp, "y.npy"), np.asarray(y_obs, np.float32))
+        run_ranks(_rank_chains, n_ranks, tmp,
+                  (device, R, run, x0, seed, fault))
+        ranks = _rank_reports(tmp, n_ranks)
+    n_data = CHAIN_MESH["data"]
+    worst = 0.0
+    for r, o in enumerate(ranks):
+        lead = ranks[r - r % n_data]
+        check(o["samples"] == lead["samples"]
+              and o["log_prob"] == lead["log_prob"],
+              f"{tag}: rank {r}'s draws differ from its data partner "
+              f"{r - r % n_data}'s")
+        check(o["gathered"] == ranks[0]["gathered"],
+              f"{tag}: rank {r} gathered other draws than rank 0")
+        for c, lp in enumerate(o["log_prob"]):
+            scale = max(1.0, abs(o["serial_last"][c]))
+            diff = abs(lp[-1] - o["serial_last"][c])
+            worst = max(worst, diff / scale)
+            check(diff <= CHAIN_REEVAL_RTOL * scale,
+                  f"{tag} rank {r} chain {c}: last log_prob {lp[-1]!r}, "
+                  f"serial {o['serial_last'][c]!r}")
+    draws = {k: torch.tensor(v) for k, v in
+             ranks[0]["gathered"]["samples"].items()}
+    check(all(bool(torch.isfinite(v).all()) for v in draws.values()),
+          f"{tag}: draws not finite")
+    health = check_samples(draws)
+    check(health.ok, f"{tag}: draws unhealthy: {health}")
+    if device != "cpu":
+        _check_launches(tag, ranks, GRADIENT_KERNELS)
+    label = (f"{n_ranks} ranks time-sliced on one card over gloo (host "
+             "staging): not a scaling figure")
+    total = run["num_warmup"] + run["num_samples"]
+    for r, o in enumerate(ranks):
+        print(f"{tag} rank {r}: {o['evals']} evaluations in {o['wall_s']:.2f}"
+              f" s, {1e3 * o['wall_s'] / total:.1f} ms per transition "
+              f"({label}); acceptance {o['accept']}; peak device memory "
+              f"{o['peak_gib']:.2f} GiB; launches {o['launches']}")
+    means = {k: v.mean(1).tolist() for k, v in draws.items()}
+    print(f"{tag}: data partners' draws bit-identical; chain means of the "
+          f"gathered draws {means}, check_samples ok; last log_prob against "
+          f"a serial evaluation: max diff {worst:.3g} of max(1, |log_prob|) "
+          f"(limit {CHAIN_REEVAL_RTOL}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ranks
+
+
+# ---------------------------------------------------------------------------
 
 #: every kernel: (wrapper name, source in ops/cuda/csrc, the TPU kernel it
 #: replaces, the path shape of its record: (batch, P), or K5's (batch, P,
@@ -2674,6 +3183,11 @@ def main() -> int:
         tl, "phase 18b: launch counters over the N=10^6 triangular route",
         TRI_KERNELS)
 
+    # the ranks count their own launches (they reset and read them around
+    # their run); the parent launches nothing meanwhile
+    sharded = phase_sharded(n1m, grad_n1m)
+    chains = phase_chains(samplers["mle"])
+
     del n1m  # its N=10^6 plan and data
     torch.cuda.empty_cache()
     reset_counters(tl)
@@ -2753,6 +3267,10 @@ def main() -> int:
                     "launches_dense_r_wide_path": slice3[name],
                     "launches_side_paths": side[name],
                     "launches_tri_n1m": tri_n1m[name],
+                    "launches_sharded_n1m_per_rank": [
+                        o["launches"][name] for o in sharded],
+                    "launches_sharded_chains_per_rank": [
+                        o["launches"][name] for o in chains],
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),
                     **times[(name, b, p)],

@@ -28,8 +28,17 @@ or ``pymra_tpu``. Module names mirror the JAX package's::
     tree = MRATree(locs, 4, Sigma, y_obs, 1e-4)   # Sigma: [N, N]
     tree.getLikelihood(); tree.getBasisFunctionsMatrix("posterior")
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
+    # the leaves (and the fine interior levels) split over the ranks of a
+    # mesh axis, one process per rank (torchrun, or spawned)
+    from pymra_torch.parallel import make_mesh, sharded_loglik_fn
+    mesh = make_mesh({"data": 4})          # NCCL on CUDA
+    f = sharded_loglik_fn(model.dplan, y_obs, 1e-4, mesh, jitter=1e-6,
+                          kernel_builder=...)
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``device_type="cpu"`` for a mesh).
 """
+from pymra_torch import parallel, utils
 from pymra_torch.data.loader import load_data
 from pymra_torch.infer import advi, ess, fit_mle, hmc, nuts, smc, split_rhat
 from pymra_torch.kernels import Kernel, MatrixKernel
@@ -41,4 +50,4 @@ from pymra_torch.tree.plan import PlanConfig, build_plan
 __all__ = ["Kernel", "MatrixKernel", "MRAModel", "MRATree", "load_data",
            "build_plan", "PlanConfig", "basis_matrix", "kv_frac",
            "matern_general", "fit_mle", "hmc", "nuts", "advi", "smc",
-           "split_rhat", "ess"]
+           "split_rhat", "ess", "parallel", "utils"]

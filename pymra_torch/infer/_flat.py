@@ -45,10 +45,16 @@ def ravel(theta, batch_dims: int = 0) -> tuple[torch.Tensor, Callable]:
     return flat, unravel
 
 
-def chain_generators(generator: torch.Generator, n: int
-                     ) -> list[torch.Generator]:
+def chain_generators(generator, n: int) -> list[torch.Generator]:
     """``n`` CPU generators, each seeded by one draw of ``generator``: one
-    chain's stream does not depend on how far another chain has run."""
+    chain's stream does not depend on how far another chain has run. A
+    sequence of ``n`` generators is taken as the chains' own (a rank's
+    share of a larger run, ``pymra_torch.parallel.chains``)."""
+    if not isinstance(generator, torch.Generator):
+        gens = list(generator)
+        if len(gens) != n:
+            raise ValueError(f"{len(gens)} generators for {n} chains")
+        return gens
     seeds = torch.randint(0, 2 ** 62, (n,), generator=generator)
     return [torch.Generator().manual_seed(int(s)) for s in seeds]
 

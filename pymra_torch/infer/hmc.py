@@ -103,7 +103,9 @@ def hmc(
       init_params: dict of tensors with a leading ``[chains]`` axis (or one
         ``[chains, ...]`` tensor).
       generator: CPU ``torch.Generator``; the same seed gives the same
-        draws. The global generator is never touched.
+        draws. The global generator is never touched. Or a list of one
+        generator per chain (the chains' own, as
+        ``pymra_torch.parallel.chains.shard_generators`` hands a rank).
 
     Returns:
       :class:`HMCResult` of CPU tensors, samples in the structure of

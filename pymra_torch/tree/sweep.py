@@ -75,8 +75,19 @@ points: they are only stacked, gathered and handed to the covariance.
 assembled from (:mod:`pymra_torch.tree.basis`); it takes the unfused leaf
 route and replays the posterior's per-ancestor downdates.
 
-Not ported yet (they raise ``NotImplementedError``): sharding
-(``axis_name``) and ``posterior_segments``.
+Sharding (``axis_name``: the data axis's ``torch.distributed`` process
+group, where the JAX package names a ``shard_map`` axis): each rank runs
+the sweep on its slice of a plan padded by
+:func:`pymra_torch.parallel.sharded.pad_plan_for_sharding` — its window of
+every leaf level and of the interior levels from ``int_shard_from`` on
+(the reference's ``critDepth``), the coarser levels whole on every rank.
+The leaf-origin messages to a replicated level, the single window message
+at the transition level and the likelihood totals are summed over the
+group by ``all_reduce`` (differentiable: the backward sums the cotangents
+the same way), so every rank ends with the same objective. The posterior
+is reassembled through the plan's ``post_inv`` slot map
+(:func:`pymra_torch.parallel.sharded.sharded_sweep`). Ranks issue the
+same collectives in the same order: nothing in the sweep branches on data.
 """
 from __future__ import annotations
 
@@ -85,6 +96,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pymra_torch.ops.linalg import (
     MAX_P,
@@ -145,6 +157,17 @@ class DevicePlan:
     ``index_points`` the point tensors (``int_knots``, ``leaf_locs``) hold
     long location indices ``[..., 1]``; ``dtype`` is the float dtype of the
     sweep's arithmetic either way.
+
+    A plan padded for sharding over ``n`` ranks
+    (:func:`pymra_torch.parallel.sharded.pad_plan_for_sharding`) has
+    ``shard_groups = n``: on each rank the grouped parent rows of a leaf
+    level under a replicated parent level are the contiguous window
+    ``[rank * g, (rank + 1) * g)`` of the parent stashes (``g`` the rank's
+    group count), read by a slice instead of a gather. Its ``post_inv`` maps
+    each location to its slot in the concatenation of every rank's slot
+    segments (rank-major). ``int_shard_from`` is the first interior level
+    whose nodes are split over the ranks too (the huge default: none); at
+    such levels ``groups[m][3]`` is the per-rank interior count.
     """
 
     levels: tuple[DeviceLevel, ...]
@@ -156,6 +179,8 @@ class DevicePlan:
     iota_groups: bool = False
     index_points: bool = False
     dtype: torch.dtype = torch.float32
+    shard_groups: int = 0
+    int_shard_from: int = 10 ** 9
 
     @property
     def device(self) -> torch.device:
@@ -443,8 +468,19 @@ def _jitter_lift(C_raw, C_own, jitter):
     return C_own + lift[..., :, None] * eye
 
 
+def _window(stash: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """Rows ``[start, start + length)`` of ``stash``, zero rows past its
+    end (a rank's window that covers padding groups)."""
+    short = start + length - stash.shape[0]
+    if short > 0:
+        stash = torch.cat([stash, stash.new_zeros((short,)
+                                                  + stash.shape[1:])])
+    return stash[start:start + length]
+
+
 def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
-                want_W: bool = False, group: int = 0, iota: bool = False):
+                want_W: bool = False, group: int = 0, iota: bool = False,
+                shard: tuple[int, int] | None = None):
     """Conditional pass against the joint ancestor-knot chain:
 
         [Zt | W] = Sigma(X, Q_all) [Ginv^T | GL^T]
@@ -453,7 +489,11 @@ def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
     ``Zt`` is the whitened cross-covariance, ``W`` the conditional ancestor
     basis. With ``group = c > 0`` the nodes sit c-per-parent contiguously:
     each parent stash row is read once and consumed by a reshaped batched
-    matmul (with ``iota`` the parent rows are the stash itself).
+    matmul (with ``iota`` the parent rows are the stash itself). With
+    ``shard = (rank, n_ranks)`` on a sharded plan the rank's ``n/c``
+    parent rows are the window ``[rank * n/c, (rank + 1) * n/c)`` of the
+    replicated stashes, zero past their end: padding groups read zero rows
+    (``Zt = W = 0``) and carry zero observation weight.
 
     Returns ``(Zt [n, q, S], C_own [n, q, q], W | None, Wg | None)``; ``Wg``
     is the group-major ``[n/c, c q, S]`` view of ``W``.
@@ -463,7 +503,11 @@ def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
     W = Wg = None
     if group:
         Xg = X.reshape(n // group, group * q, X.shape[-1])
-        if iota:
+        if shard is not None:
+            psg = n // group  # the rank's groups, padding groups included
+            Qg = _window(chain_Q, shard[0] * psg, psg)
+            GGg = _window(chain_GG, shard[0] * psg, psg)
+        elif iota:
             Qg, GGg = chain_Q, chain_GG
         else:
             gpar = parent[::group]
@@ -588,14 +632,27 @@ def mra_sweep(
         "interior"})``. The leaves then keep their prior factor
         (``L_prior``), the basis blocks ``Bstack`` and, with the posterior,
         the posterior basis blocks ``post_blocks``; the fused leaf kernel
-        is off.
-
-    ``axis_name`` and ``posterior_segments`` are not ported yet and raise.
+        is off. Not with sharded interior levels.
+      axis_name: the ``torch.distributed`` process group of the data axis
+        when ``dplan`` is this rank's slice of a plan padded for sharding
+        (:func:`pymra_torch.parallel.sharded.local_plan`); the shard index
+        is the rank in the group. Leaf-origin partial sums are summed over
+        the group, the coarse levels run replicated.
+      posterior_segments: (with ``axis_name``; used by
+        :func:`pymra_torch.parallel.sharded.sharded_sweep`) return this
+        rank's posterior slot segments as ``mean``/``var`` instead of
+        ``[N]`` vectors; the caller reassembles them through
+        ``dplan.post_inv``.
     """
-    if axis_name is not None or posterior_segments:
-        raise NotImplementedError(
-            "sharded sweeps are still to be ported (ROADMAP queue 1, "
-            "sharding)")
+    group = axis_name
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError(
+            f"axis_name: expected the data axis's torch.distributed "
+            f"ProcessGroup (for example mesh.get_group('data')), got "
+            f"{group!r}; the port has no named mesh axes inside the sweep")
+    if posterior_segments and group is None:
+        raise ValueError("posterior_segments needs a process group "
+                         "(axis_name): they are one rank's segments")
     set_matmul_precision()
     dense = None
     if r_dense is not None:
@@ -603,33 +660,98 @@ def mra_sweep(
     elif prep is None:
         prep = prepare_obs(dplan, y, r_diag)
     return _mra_sweep_impl(dplan, covfn, compute_posterior, float(jitter),
-                           prep, dense, keep_internals)
+                           prep, dense, keep_internals, group,
+                           posterior_segments)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the ranks of a group; the backward sums the cotangents the
+    same way (every rank's output depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _all_reduce(x: torch.Tensor, group, what: str) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``group``, differentiably. ``what``
+    names the collective (``"messages"``, ``"totals"`` or ``"posterior"``)
+    for tracing and timing."""
+    return _AllReduce.apply(x, group)
+
+
+def _all_reduce_packed(tensors, group, what: str) -> list:
+    """:func:`_all_reduce` of several tensors in one collective."""
+    flat = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group,
+                       what)
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start:start + t.numel()].reshape(t.shape))
+        start += t.numel()
+    return out
 
 
 def _int_group(dplan: DevicePlan, m: int, n_local: int) -> int:
     """Uniform children-per-parent of interior level ``m`` (0 = not
-    grouped)."""
+    grouped); ``groups[m][3]`` is the per-rank count at sharded levels."""
     if not m or dplan.groups is None:
         return 0
     ci = dplan.groups[m][1]
     return ci if (ci and n_local == dplan.groups[m][3]) else 0
 
 
-def _parent_rows(stash, parent, c: int, n_local: int):
+def _window_start(shard_idx, crit: int, m: int, n_local: int, c: int):
+    """First parent row of this rank's window at the transition level
+    ``m == crit`` of a sharded sweep; None elsewhere, where the parent
+    stash is whole or already local."""
+    if c and shard_idx is not None and m == crit:
+        return shard_idx * (n_local // c)
+    return None
+
+
+def _parent_rows(stash, parent, c: int, n_local: int, start=None):
     """Per-node rows of a parent-level stash: a broadcast when the plan
-    certifies iota grouping, else a gather."""
-    if c and stash.shape[0] * c == n_local:
-        return stash.repeat_interleave(c, dim=0)
+    certifies iota grouping (the stash is local to the rank or whole), the
+    rank's window from row ``start`` at the transition level of a sharded
+    plan, else a gather."""
+    if c:
+        n_par = n_local // c
+        if stash.shape[0] == n_par:
+            return stash.repeat_interleave(c, dim=0)
+        if start is not None:
+            return stash[start:start + n_par].repeat_interleave(c, dim=0)
     return stash[parent]
 
 
 def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
-                    keep_internals):
+                    keep_internals, group=None, posterior_segments=False):
     levels = dplan.levels
     M, r = dplan.M, dplan.r
     dtype = dplan.dtype
     fl = dict(dtype=dtype, device=dplan.device)
     kernel_structure = _kernel_structure(dtype, jitter)
+
+    # shard bookkeeping (the JAX package's shard_map branch): on a plan
+    # padded for sharding, this rank's windows start at rank * (its count);
+    # interior levels >= crit hold only this rank's nodes
+    shard_idx = None
+    if group is not None and dplan.shard_groups:
+        shard_idx = dist.get_rank(group)
+    crit = dplan.int_shard_from if shard_idx is not None else 10 ** 9
+    if keep_internals and crit <= M:
+        raise ValueError(
+            "keep_internals is not supported with sharded interior levels "
+            "(DevicePlan.int_shard_from); run the diagnostic sweep "
+            "unsharded")
 
     # ---------------- Pass A: prior (downward), interior levels ------------
     # chain stashes: stacked ancestor knots (own last) and the fused chain
@@ -645,16 +767,25 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             continue
         Q = lvl.int_knots
         grp_i = _int_group(dplan, m, n_int)
-        iota_i = bool(grp_i) and chain_GG[m - 1] is not None and (
-            chain_GG[m - 1].shape[0] * grp_i == n_int)
-        pgrp = grp_i if iota_i else 0
+        shard_i = None
+        iota_i = False
+        if grp_i:
+            if shard_idx is not None and m == crit:
+                shard_i = (shard_idx, dplan.shard_groups)
+            else:
+                # the parent stash is local (a sharded level over sharded
+                # parents) or whole with certified iota grouping
+                iota_i = chain_GG[m - 1] is not None and (
+                    chain_GG[m - 1].shape[0] * grp_i == n_int)
+        pgrp = grp_i if (iota_i or shard_i) else 0
+        pstart = _window_start(shard_idx, crit, m, n_int, pgrp)
         if m == 0:
             C_own = covfn(Q, Q)
             Zt = None
         else:
             Zt, C_own, _, _ = _chain_cond(
                 covfn, Q, lvl.int_parent, chain_Q[m - 1], chain_GG[m - 1],
-                jitter, group=pgrp, iota=iota_i)
+                jitter, group=pgrp, iota=iota_i, shard=shard_i)
         L = _chol(C_own, jitter)
         LinvT = _tri_inv(L).transpose(-1, -2)
         prior_L[m] = L
@@ -664,7 +795,8 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             chain_GG[m] = torch.cat([LinvT, eye_r], dim=-1)
         else:
             S = m * r
-            GGp = _parent_rows(chain_GG[m - 1], lvl.int_parent, pgrp, n_int)
+            GGp = _parent_rows(chain_GG[m - 1], lvl.int_parent, pgrp, n_int,
+                               pstart)
             GpT, GLTp = GGp[..., :S], GGp[..., S:]
             neg = -(GpT @ Zt.transpose(-1, -2))  # [n, S, r]
             zeros_bot = torch.zeros(n_int, r, S, **fl)
@@ -673,15 +805,27 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 torch.cat([zeros_bot, LinvT, zeros_bot, eye_r], dim=-1),
             ], dim=-2)
             chain_Q[m] = torch.cat([
-                _parent_rows(chain_Q[m - 1], lvl.int_parent, pgrp, n_int), Q,
+                _parent_rows(chain_Q[m - 1], lvl.int_parent, pgrp, n_int,
+                             pstart), Q,
             ], dim=-2)
 
     # ---------------- Pass B: leaf groups — A, omega, own downdate ---------
     leaf_stash: list = [None] * (M + 1)
-    # per parent level: (ATil, omgTil, parent rows, children per parent)
+    # per parent level: (ATil, omgTil, parent rows, leaf origin, children
+    # per parent); parent rows None = this rank's window of parents. Leaf
+    # origin parts are partial sums over the ranks, summed in Pass C
     children: list = [[] for _ in range(M + 1)]
-    d_total = torch.zeros((), **fl)
-    u_total = torch.zeros((), **fl)
+    # likelihood increments: "rep" computed whole on every rank, "sh" this
+    # rank's part of a sum over the ranks (serially everything is "rep",
+    # in the passes' order)
+    leaf_key = "rep" if group is None else "sh"
+    tot = {key: [torch.zeros((), **fl), torch.zeros((), **fl)]
+           for key in {"rep", leaf_key}}
+
+    def add(key, d, u):
+        tot[key][0] = tot[key][0] + d
+        tot[key][1] = tot[key][1] + u
+
     n_obs_total = torch.zeros((), **fl)
 
     for m, lvl in enumerate(levels):
@@ -692,17 +836,30 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         S = m * r
         X = lvl.leaf_locs
         grp = 0
+        shard = None
+        leaf_iota = False
         if m and dplan.groups is not None:
             c_leaf, _, gn_leaf, _ = dplan.groups[m]
             if c_leaf and n_leaf == gn_leaf:
                 grp = c_leaf
+                if shard_idx is not None:
+                    if m - 1 >= crit:
+                        # sharded parents: this rank's leaf window sits
+                        # exactly over its interior window
+                        leaf_iota = True
+                    else:
+                        shard = (shard_idx, dplan.shard_groups)
         if m == 0:
             C_own = covfn(X, X)
             W = Wg = None
         else:
+            # iota (the stash read directly) only where this rank sees the
+            # whole leaf axis, or its aligned window of both axes
             _, C_own, W, Wg = _chain_cond(
                 covfn, X, lvl.leaf_parent, chain_Q[m - 1], chain_GG[m - 1],
-                jitter, want_W=True, group=grp, iota=dplan.iota_groups)
+                jitter, want_W=True, group=grp,
+                iota=(dplan.iota_groups and group is None) or leaf_iota,
+                shard=shard)
         kmask_f = lvl.leaf_is_knot.to(dtype)
         # own-basis block: conditional covariance with own-knot columns only
         B_own = C_own * kmask_f[:, None, :]
@@ -786,8 +943,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         # log-determinant and the data quadratic form
         d_leaf = 2.0 * (ld_post - ld_prior) + lp["logdet_R"]
         u_leaf = lp["quad_y"] - (v * v).sum(-1)
-        d_total = d_total + d_leaf.sum()
-        u_total = u_total + u_leaf.sum()
+        add(leaf_key, d_leaf.sum(), u_leaf.sum())
         n_obs_total = n_obs_total + lp["n_obs"].sum()
 
         if S:
@@ -804,7 +960,14 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                      @ wy.reshape(n_par, grp * P)[..., None])[..., 0]
                     - (Xblkg.transpose(-1, -2)
                        @ v.reshape(n_par, grp * P)[..., None])[..., 0])
-                children[m].append((ATil, omgTil, lvl.leaf_parent[::grp], 1))
+                if shard is not None:
+                    # the rows are this rank's window of parents
+                    children[m].append((ATil, omgTil, None, True, 1))
+                else:
+                    # with sharded parents every child of a local parent
+                    # is on this rank: the sums are complete
+                    children[m].append((ATil, omgTil, lvl.leaf_parent[::grp],
+                                        not leaf_iota, 1))
             else:
                 if dense is None:
                     ATil = _message_downdate(W, w, Xblk)
@@ -812,7 +975,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 else:
                     ATil = _message_downdate(Bw_h, None, Xblk)
                 omgTil = omg_h - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
-                children[m].append((ATil, omgTil, lvl.leaf_parent, grp))
+                children[m].append((ATil, omgTil, lvl.leaf_parent, True, grp))
             G = solve(Xblk, trans=True)  # [n, P, S]
         else:
             G = torch.zeros(n_leaf, P, 0, **fl)
@@ -833,43 +996,88 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         if n_int == 0:
             continue
         S = m * r
-        A = torch.zeros(n_int, S + r, S + r, **fl)
-        omg = torch.zeros(n_int, S + r, **fl)
-        for pa, po, pp, grp in children[m + 1]:
-            if grp and pa.shape[0] == grp * n_int:
-                A = A + pa.reshape(n_int, grp, *pa.shape[1:]).sum(1)
-                omg = omg + po.reshape(n_int, grp, *po.shape[1:]).sum(1)
+        # children's messages per parent; leaf-origin parts are this rank's
+        # partial sums, summed over the ranks in one collective
+        msgs = {True: None, False: None}  # leaf origin -> (A, omega)
+        for pa, po, pp, leaf_origin, grp in children[m + 1]:
+            if pp is None:
+                # this rank's window of parents: zeros elsewhere (and past
+                # the last parent, where padding groups land)
+                start = shard_idx * pa.shape[0]
+                pa_s = _window(torch.cat([pa.new_zeros((start,)
+                                                       + pa.shape[1:]), pa]),
+                               0, n_int)
+                po_s = _window(torch.cat([po.new_zeros((start,)
+                                                       + po.shape[1:]), po]),
+                               0, n_int)
+            elif grp and pa.shape[0] == grp * n_int:
+                pa_s = pa.reshape(n_int, grp, *pa.shape[1:]).sum(1)
+                po_s = po.reshape(n_int, grp, *po.shape[1:]).sum(1)
             else:
-                A = A.index_add(0, pp, pa)
-                omg = omg.index_add(0, pp, po)
+                pa_s = pa.new_zeros((n_int,) + pa.shape[1:]).index_add(
+                    0, pp, pa)
+                po_s = po.new_zeros((n_int,) + po.shape[1:]).index_add(
+                    0, pp, po)
+            prev = msgs[leaf_origin]
+            msgs[leaf_origin] = ((pa_s, po_s) if prev is None
+                                 else (prev[0] + pa_s, prev[1] + po_s))
+        if group is not None and msgs[True] is not None:
+            msgs[True] = tuple(_all_reduce_packed(msgs[True], group,
+                                                  "messages"))
+        parts = [p for p in (msgs[True], msgs[False]) if p is not None]
+        if not parts:
+            parts = [(torch.zeros(n_int, S + r, S + r, **fl),
+                      torch.zeros(n_int, S + r, **fl))]
+        A, omg = parts[0]
+        for pa_s, po_s in parts[1:]:
+            A = A + pa_s
+            omg = omg + po_s
 
         Kc = prior_L[m]
         Kmat = Kc @ Kc.transpose(-1, -2)
         prior_scale = torch.diagonal(Kmat, dim1=-2, dim2=-1).abs().mean(-1)
         L_post = _chol(Kmat + A[:, S:, S:], jitter, scale=prior_scale)
         v = _tri_solve(L_post, omg[:, S:, None])[..., 0]
-        d_total = d_total + (2.0 * (_logdiag_sum(L_post)
-                                    - _logdiag_sum(Kc))).sum()
-        u_total = u_total - (v * v).sum()
+        lvl_sharded = shard_idx is not None and m >= crit
+        add("sh" if lvl_sharded else "rep",
+            (2.0 * (_logdiag_sum(L_post) - _logdiag_sum(Kc))).sum(),
+            -(v * v).sum())
 
         if S:
             Xblk = _tri_solve(L_post, A[:, S:, :S])
             ATil = A[:, :S, :S] - Xblk.transpose(-1, -2) @ Xblk
             omgTil = omg[:, :S] - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
-            children[m].append((ATil, omgTil, lvl.int_parent,
-                                _int_group(dplan, m, n_int)))
+            c_int = _int_group(dplan, m, n_int)
+            if lvl_sharded and m == crit:
+                # the transition to the replicated levels: sum the local
+                # messages per parent (whole parent groups per rank) and
+                # send one window message, summed over the ranks in Pass C
+                n_par = n_int // c_int
+                children[m].append((
+                    ATil.reshape(n_par, c_int, S, S).sum(1),
+                    omgTil.reshape(n_par, c_int, S).sum(1), None, True, 1))
+            else:
+                children[m].append((ATil, omgTil, lvl.int_parent, False,
+                                    c_int))
             G = _tri_solve(L_post, Xblk, trans=True)
         else:
             G = torch.zeros(n_int, r, 0, **fl)
         g = _tri_solve(L_post, v[..., None], trans=True)[..., 0]
         int_stash[m] = {"L_post": L_post, "G": G, "g": g}
 
+    d_total, u_total = tot["rep"]
+    if group is not None:
+        d_sh, u_sh, n_obs_total = _all_reduce_packed(
+            (tot["sh"][0], tot["sh"][1], n_obs_total), group, "totals")
+        d_total = d_total + d_sh
+        u_total = u_total + u_sh
     objective = d_total + u_total
     loglik = -0.5 * (objective + n_obs_total * LOG2PI)
     mean = var = None
     if compute_posterior:
         mean, var = _posterior(dplan, leaf_stash, int_stash, kernel_structure,
-                               keep_internals)
+                               keep_internals, group, shard_idx, crit,
+                               posterior_segments)
     result = SweepResult(objective, loglik, mean, var)
     if keep_internals:
         return result, {"prior_L": prior_L, "chain_Q": chain_Q,
@@ -879,11 +1087,15 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
 
 
 def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
-               keep_internals):
+               keep_internals, group=None, shard_idx=None, crit=10 ** 9,
+               posterior_segments=False):
     """Pass D: the posterior mean and variance at every location. With
     ``keep_internals`` each leaf replays its per-ancestor downdates and
     stashes the posterior basis blocks (``post_blocks``) instead of the
-    chain contraction against ``U``."""
+    chain contraction against ``U``. On a rank of a sharded sweep the
+    chain rows follow Pass A's windows; with
+    ``posterior_segments`` the rank's slot segments are returned, else its
+    scattered moments are summed over the ranks."""
     levels = dplan.levels
     M, N, r = dplan.M, dplan.n_locs, dplan.r
     fl = dict(dtype=dplan.dtype, device=dplan.device)
@@ -902,8 +1114,9 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
             continue
         G = st["G"]  # [n, r, S]
         n_i = G.shape[0]
-        Up = _parent_rows(post_U[m - 1], levels[m].int_parent,
-                          _int_group(dplan, m, n_i), n_i)  # [n, S, S+1]
+        c_i = _int_group(dplan, m, n_i)
+        Up = _parent_rows(post_U[m - 1], levels[m].int_parent, c_i, n_i,
+                          _window_start(shard_idx, crit, m, n_i, c_i))
         GU = G @ Up  # [n, r, S+1]
         S = m * r
         top = torch.cat([Up[..., :S], torch.zeros(n_i, S, r, **fl),
@@ -952,7 +1165,14 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
             n_l, P_l = h.shape[0], h.shape[1]
             if grp:
                 Upar = post_U[m - 1]
-                if not dplan.iota_groups:
+                if shard_idx is not None and m - 1 >= crit:
+                    pass  # sharded parents: the rows are this rank's
+                elif shard_idx is not None:
+                    # the rank's window of the replicated chain (padding
+                    # groups read zero rows; their h is 0)
+                    psg = n_l // grp
+                    Upar = _window(Upar, shard_idx * psg, psg)
+                elif not (dplan.iota_groups and group is None):
                     Upar = Upar[lvl.leaf_parent[::grp]]
                 hU = h.reshape(n_l // grp, grp * P_l, S) @ Upar
                 mean_l = mean_l + hU[..., S].reshape(n_l, P_l)
@@ -965,7 +1185,10 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
         mean_parts.append((lvl, mean_l))
         var_parts.append((lvl, var_l))
 
-    if dplan.post_inv is not None:
+    if posterior_segments:
+        return (torch.cat([p.reshape(-1) for _, p in mean_parts]),
+                torch.cat([p.reshape(-1) for _, p in var_parts]))
+    if dplan.post_inv is not None and group is None:
         mean_out = torch.cat([p.reshape(-1) for _, p in mean_parts])[
             dplan.post_inv]
         var_out = torch.cat([p.reshape(-1) for _, p in var_parts])[
@@ -981,4 +1204,8 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
             var_out = var_out.index_add(
                 0, gidx, torch.where(lvl.leaf_loc_mask, vl, zero).reshape(-1))
         mean_out, var_out = mean_out[:N], var_out[:N]
+        if group is not None:
+            # each location's moments came from its owner rank only
+            mean_out, var_out = _all_reduce_packed((mean_out, var_out), group,
+                                                   "posterior")
     return mean_out, var_out

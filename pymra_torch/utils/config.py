@@ -6,7 +6,8 @@ its default, its legal values and its purpose, and every read goes through
 between two sweeps takes effect in the second. ``python -m
 pymra_torch.utils.config`` prints the table.
 
-Only the flags that choose between paths of the port are here; the JAX
+Only the flags that choose between paths of the port, and the log level,
+are here; the JAX
 package's TPU flags (the Pallas switches, its escalation strategy, the
 whole-leaf fusion switch and the compile cache) select code that exists
 only on the TPU.
@@ -37,6 +38,9 @@ FLAGS: dict[str, Flag] = {f.name: f for f in [
          "log-determinant by K6; 'auto' takes 'inv' in the kernel "
          "structure for P >= 16, as the JAX package does on the TPU, and "
          "'tri' elsewhere."),
+    Flag("PYMRA_LOG_LEVEL", "INFO", None,
+         "Level of the package logger set by "
+         "pymra_torch.utils.logging.configure when it is given none."),
 ]}
 
 

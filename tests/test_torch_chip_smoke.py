@@ -783,3 +783,57 @@ def test_tri_n1m_phase_passes_on_small_inputs():
     out = chip_smoke.phase_tri_n1m(n1m, "cpu", timer=_host_timer,
                                    golden=_flagship_golden(side), n_evals=1)
     assert set(out) == set(chip_smoke.ROUTES)
+
+
+# ---------------------------------------------------------------------------
+# phases 20, 20b: the sharded paths, on gloo worlds of CPU processes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sharded_inputs():
+    """Phase 5 on a 64^2 grid (interior levels shard at 2 ranks), its
+    float64 objective as the golden, and the serial gradient standing in
+    for phase 8's."""
+    side = 64
+    golden = _flagship_golden(side)
+    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                               golden=golden, n_evals=1)
+    f = n1m["model"].loglik_fn(n1m["y"], 1e-2,
+                               kernel_builder=chip_smoke.exponential_builder)
+    _, g = chip_smoke.value_and_grad(f, 0.05, 1.0)
+    return n1m, {"ad": {"l": 0.05 * g["l"], "sig": g["sig"]}}, golden
+
+
+def test_sharded_phase_passes_on_small_inputs(sharded_inputs):
+    from pymra_torch.utils.accounting import sweep_cost
+
+    n1m, grad, golden = sharded_inputs
+    ranks = chip_smoke.phase_sharded(n1m, grad, "cpu", golden=golden,
+                                     n_evals=1)
+    assert len(ranks) == chip_smoke.SHARD_RANKS
+    cost = sweep_cost(n1m["model"].dplan, int_shard_from=2)
+    for o in ranks:
+        assert o["crit"] == 2
+        # one transition message per forward: the cost model's bytes
+        msgs = o["collectives"]["messages"]
+        assert msgs["bytes"] == msgs["calls"] * cost.psum_bytes_per_level[0][1]
+        assert set(o["launches"]) == set(chip_smoke.KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.FAULTS)
+def test_sharded_phase_rejects_an_injected_fault(fault, sharded_inputs):
+    # a rank that leaves its messages out of the transition level's sum;
+    # a gradient without the cross-rank mean
+    n1m, grad, golden = sharded_inputs
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.phase_sharded(n1m, grad, "cpu", golden=golden,
+                                 n_evals=1, fault=fault)
+
+
+def test_chains_phase_passes_on_small_inputs():
+    ranks = chip_smoke.phase_chains({"l": 2.0, "sig": 1.0}, "cpu",
+                                    data="small", M=-1)
+    assert len(ranks) == 4
+    for o in ranks:
+        assert len(o["gathered"]["log_prob"]) == chip_smoke.CHAIN_MESH["chain"]
+        assert o["evals"] >= chip_smoke.CHAIN_RUN["num_warmup"]

@@ -397,17 +397,21 @@ def test_smc_gaussian_posterior_and_evidence():
     np.testing.assert_allclose(float(res.log_evidence), log_ev, atol=0.15)
 
 
-def test_sampler_resume_from_retained_draws():
-    # the recovery recipe of tests/test_aux.py::test_sampler_checkpoint_resume
-    # with the draws kept in memory: continue from the last draws with a
-    # fresh generator; the continuation is healthy and moves
+def test_sampler_resume_from_retained_draws(tmp_path):
+    # the recovery recipe of tests/test_aux.py::test_sampler_checkpoint_resume:
+    # the draws retained in a checkpoint file, reloaded; continue from the
+    # last draws with a fresh generator; the continuation is healthy and
+    # moves
+    from pymra_torch.utils.checkpoint import load_pytree, save_pytree
+
     def logp(theta):
         return -0.5 * torch.sum(theta["x"] ** 2)
 
     res1 = hmc(logp, {"x": torch.zeros(2, 3, dtype=F64)}, _gen(0),
                num_warmup=50, num_samples=30)
     assert health.check_samples(res1.samples).ok
-    kept = {k: v.clone() for k, v in res1.samples.items()}
+    save_pytree(tmp_path / "draws.npz", res1.samples)
+    kept = load_pytree(tmp_path / "draws.npz")
     init2 = health.resume_state(kept)
     assert init2["x"].shape == (2, 3)
     assert torch.equal(init2["x"], res1.samples["x"][:, -1])

@@ -262,18 +262,22 @@ def test_model_defaults_and_hoisted_prep():
 
 
 def test_side_paths_raise():
-    # what the port still refuses: sharding. A dense R, keep_internals and
-    # a dense covariance matrix are paths now (tests/test_torch_dense_r.py,
-    # tests/test_torch_basis.py, tests/test_torch_matrix_cov.py); the
-    # gradient function keeps the JAX package's diagonal-R contract
+    # every side path is a path now: a dense R, keep_internals and a dense
+    # covariance matrix (tests/test_torch_dense_r.py, test_torch_basis.py,
+    # test_torch_matrix_cov.py), sharding (tests/test_torch_sharded.py).
+    # What is refused: a dense R in the gradient function (the JAX
+    # package's diagonal-R contract), a mesh axis named by a string where
+    # the port takes the data axis's process group, and posterior segments
+    # with no group to own them
     locs, y_obs = load_data("small")
     model = MRAModel(locs, r=4, dtype=F64, device="cpu")
     kern = Kernel("exponential", l=2.0)
     with pytest.raises(NotImplementedError, match="dense"):
         model.loglik_fn(y_obs, 1e-4 * np.eye(100))
-    for kw in ({"axis_name": "x"}, {"posterior_segments": True}):
-        with pytest.raises(NotImplementedError, match="shard"):
-            mra_sweep(model.dplan, kern, y_obs, 1e-4, **kw)
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        mra_sweep(model.dplan, kern, y_obs, 1e-4, axis_name="x")
+    with pytest.raises(ValueError, match="process group"):
+        mra_sweep(model.dplan, kern, y_obs, 1e-4, posterior_segments=True)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +326,14 @@ def test_port_imports_and_runs_without_jax():
         "os.environ['PYMRA_LEAF_SOLVE'] = 'tri'\n"
         "res = m32.sweep(Kernel('exponential', l=2.0), y, 1e-4)\n"
         "assert torch.isfinite(res.objective)\n"
+        "import pymra_torch.parallel, pymra_torch.parallel.chains\n"
+        "import pymra_torch.utils.checkpoint, pymra_torch.utils.profiling\n"
+        "import pymra_torch.utils.accounting, pymra_torch.utils.scoring\n"
+        "import pymra_torch.utils.logging\n"
+        "from pymra_torch.parallel import pad_plan_for_sharding\n"
+        "from pymra_torch.utils.accounting import sweep_cost\n"
+        "padded = pad_plan_for_sharding(m32.dplan, 2)\n"
+        "assert sweep_cost(m32.dplan).flops > 0 and padded.shard_groups == 2\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'pymra_tpu'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', float(res.objective))\n"
