@@ -30,7 +30,8 @@ non-zero exit code and no result line:
    (one attempt of the library call is then the whole function);
 3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
    the same tensors, member by member, timed as in phase 3 at every
-   interior level's shape of the main paths; the autograd
+   interior level's shape of the main paths and at K2's side shapes
+   (``CHOL_SIDE``: the triangular route's gradient); the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
    calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``,
    ``cholesky_cascade`` and ``cholesky_blocked`` on the card against the
@@ -102,7 +103,7 @@ non-zero exit code and no result line:
    the N=10^6 objective against its golden and likelihood-only ms on both
    routes, with its own launch counters (K2, K5, K6);
 19. launch counters over phases 15-18: K1, K2, K3, K5 and K6 launched, no
-   twin ran on a CUDA tensor;
+   twin ran on a CUDA tensor; phase 18's own launches reported beside;
 20. the sharded main path at N=10^6 on phase 5's tree and data: the plan
    written by ``utils.checkpoint.save_plan``; first the sharded sweep on a
    world of one rank in this process, bit-identical to phase 5; then 2
@@ -186,9 +187,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 67e12
 
-CHOL_WIDTHS = (4, 8, 17, 28, 48, 49, 64)
+#: widths of K2, K3, K4 and K5: the interior blocks, the edges of the
+#: register-tiled core's width tiers (16, 32, 48, 64) and the leaf widths
+CHOL_WIDTHS = (4, 8, 16, 17, 28, 32, 33, 48, 49, 64)
 #: K2 also at every width of its sub-warp kernel (a group of 4 or 8 lanes a
-#: member up to P = 8) and the first width of its shared-memory kernel
+#: member up to P = 8) and the first width of the core
 SUBWARP_WIDTHS = tuple(sorted(set(CHOL_WIDTHS) | {1, 2, 3, 5, 6, 7, 9}))
 LEAF_WIDTHS = (17, 28, 48, 49, 64)
 RAGGED_BATCH = 1000
@@ -1129,7 +1132,11 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                    logdet_main=LOGDET_MAIN, wide_main=WIDE_MAIN[:1],
                    pullback_shapes=PULLBACK_SHAPES,
                    pullback_main=PULLBACK_MAIN, timer=time_ms,
-                   dev_timer=device_ms):
+                   dev_timer=device_ms, pullback_side=()):
+    """Backward passes against CPU copies; the fused pullback against its
+    twin, timed at ``pullback_main`` and at the side paths' shapes
+    ``pullback_side`` (both recorded under ``("cholesky_pullback", b,
+    p)``)."""
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -1147,9 +1154,11 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
     # the fused pullback at K2's factors (escalated and all-fail members
     # included) against the composition it fuses, on the same tensors; its
     # own draws, so that the checks below keep their inputs; timed at every
-    # main-path shape, on the device over PULLBACK_DEVICE_REPS launches
+    # main-path and side-path shape, on the device over
+    # PULLBACK_DEVICE_REPS launches
     rng = np.random.default_rng(11)
-    for b, p in pullback_shapes:
+    timed_at = tuple(pullback_main) + tuple(pullback_side)
+    for b, p in tuple(pullback_shapes) + tuple(pullback_side):
         m, jit = chol_case(rng, b, p)
         l, _, f = tl.cholesky_jittered(torch.as_tensor(m, device=device),
                                        torch.as_tensor(jit, device=device))
@@ -1161,7 +1170,7 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                     tl.cholesky_pullback_ref(*args), per_member=True)
         err["cholesky_pullback"] = max(err["cholesky_pullback"], e)
         line = f"cholesky_pullback B={b} P={p}: max|diff| {e:.3g}"
-        if (b, p) in pullback_main:
+        if (b, p) in timed_at:
             line += timed(times, ("cholesky_pullback", b, p), timer,
                           lambda fn: dev_timer(fn, PULLBACK_DEVICE_REPS),
                           lambda: tl.cholesky_pullback(*args),
@@ -3154,7 +3163,7 @@ def main() -> int:
     phase_build()
     err, times = phase_kernels(chol_side=CHOL_SIDE, solve_side=SOLVE_SIDE,
                                logdet_side=LOGDET_SIDE)
-    err_bwd, bwd_times = phase_backward()
+    err_bwd, bwd_times = phase_backward(pullback_side=CHOL_SIDE)
     err["cholesky_pullback"] = err_bwd["cholesky_pullback"]
     times.update(bwd_times)
 
@@ -3201,10 +3210,13 @@ def main() -> int:
     phase_matrix_cov(ms_coord=ms_n10k)
     phase_matern()
     phase_keep_internals()
+    before = {n: launches_of(tl, n) for n in KERNEL_NAMES}
     phase_tri_route(rough=samplers["roughness"])
+    tri_n10k = {n: launches_of(tl, n) - before[n] for n in KERNEL_NAMES}
     side = read_counters(
         tl, "phase 19: launch counters over phases 15-18 (18b: above)",
         SIDE_KERNELS)
+    print(f"phase 18 alone: kernel launches {tri_n10k}")
     print_precision()
 
     rec = []
@@ -3238,7 +3250,9 @@ def main() -> int:
                               "symmetrization",
                      "levels": {f"{lb}x{lp}x{lp}": times[(name, lb, lp)]
                                 for lb, lp in PULLBACK_MAIN
-                                if (lb, lp) != (b, p)}}
+                                if (lb, lp) != (b, p)},
+                     "side_shapes": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
+                                     for sb, sp in CHOL_SIDE}}
         if name == "solve_triangular_batched":
             extra = {"other_shapes": {
                 f"{sb}x{sp}x{sq}{' transposed' if st else ''}":
@@ -3266,6 +3280,7 @@ def main() -> int:
                     "launches_sampler_path": sampler[name],
                     "launches_dense_r_wide_path": slice3[name],
                     "launches_side_paths": side[name],
+                    "launches_tri_n10k": tri_n10k[name],
                     "launches_tri_n1m": tri_n1m[name],
                     "launches_sharded_n1m_per_rank": [
                         o["launches"][name] for o in sharded],

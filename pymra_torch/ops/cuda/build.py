@@ -39,9 +39,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # a, jit, l, ld, f, batch, p, f0, f1, f2, device, stream
-    "pymra_cholesky_jittered": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
-                                _P],
+    # a, jit, l, ld, f, batch, p, tier, f0, f1, f2, device, stream
+    "pymra_cholesky_jittered": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                _I, _P],
     # c, kmask, a_oo, jitter, li, ldp, ldq, fp, fq, batch, p, tier, f0, f1,
     # f2, device, stream
     "pymra_leaf_factor": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I,

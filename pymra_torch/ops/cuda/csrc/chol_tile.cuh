@@ -1,21 +1,23 @@
 // Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
-// shared by K1 leaf_factor.cu, K4 cholesky.cu, K6 chol_logdet.cu, K7
-// chol_inv_logdet.cu, K3 tri_inv.cu and tri_inv_wide.cu and K5
-// tri_solve.cu.
+// shared by K1 leaf_factor.cu, K4 cholesky.cu, K2 cholesky_jittered.cu
+// (9 <= P <= 64), K6 chol_logdet.cu, K7 chol_inv_logdet.cu, K3 tri_inv.cu
+// and tri_inv_wide.cu and K5 tri_solve.cu.
 //
 // Replaces the column loops of the TPU kernels _chol_kernel (K4),
-// _kleaf_logdet_kernel / _kleaf_inv_logdet_kernel (K1), _chol_logdet_kernel
-// (K6), _chol_inv_logdet_kernel (K7), _tri_inv_kernel (K3) and
-// _tri_solve_kernel (K5, the solve mode at the end of this header) in
+// _chol_jittered_kernel (K2), _kleaf_logdet_kernel /
+// _kleaf_inv_logdet_kernel (K1), _chol_logdet_kernel (K6),
+// _chol_inv_logdet_kernel (K7), _tri_inv_kernel (K3) and _tri_solve_kernel
+// (K5, the solve mode at the end of this header) in
 // pymra_tpu/ops/pallas/linalg.py: a right-looking Cholesky of one member,
 // in three modes: the half log-pivot sum alone (K1's prior, K6), the
-// factor (K4), and the factor's inverse formed alongside it (K1's
-// posterior, K7); and a fourth that inverts a given lower factor (K3): L stays
-// as it is in the tile map, column j of L and row j of X are broadcast a
-// step, row j of X is scaled by its owners with the quotient by L[j][j]
-// and the rows below take their multiply-subtracts on registers — the
-// twins' forward substitution (_forward_subst), the subtractions in
-// ascending j, then the division.
+// factor (K4; K2 takes it with the pivots' roots handed out for one log
+// sum after the factorization), and the factor's inverse formed alongside
+// it (K1's posterior, K7); and a fourth that inverts a given lower factor
+// (K3): L stays as it is in the tile map, column j of L and row j of X are
+// broadcast a step, row j of X is scaled by its owners with the quotient
+// by L[j][j] and the rows below take their multiply-subtracts on
+// registers — the twins' forward substitution (_forward_subst), the
+// subtractions in ascending j, then the division.
 //
 // What bounds it on this card: not HBM (a 64 x 64 member reads ~8 KB and
 // does ~87 KFLOP), but the serial column loop. The first kernels (one
@@ -127,6 +129,10 @@ enum class Mode {
   kInverse,  // X becomes L^-1 (set up by the core); returns sum_j log L_jj
   kTriInv,   // S holds a lower factor L, left as it is; X becomes L^-1
              // (set up by the core); returns 0
+  kFactorRoots,  // kFactor without the log-pivot sum: the roots
+                 // sqrt(S'[j, j]) go to xrow[j] (p floats of shared
+                 // memory), for the caller to sum their logs once after
+                 // the factorization; returns 0
 };
 
 // a thread's place in the member's grid, from its index among the
@@ -254,8 +260,9 @@ __device__ __forceinline__ void put(const float (&s)[NB][NB],
 // which it starts from the identity itself; kTriInv: invert the factor in
 // `s` into `x`, with L's diagonal in `diag`, p floats of shared memory the
 // caller filled before the call); `col` and `xrow` are 2 * 8 * NB floats
-// of shared memory each (xrow unused but for kInverse and kTriInv). Every
-// thread returns the same log-pivot sum. Barriers by `sync`: the member's
+// of shared memory each (xrow unused but for kInverse and kTriInv, and
+// kFactorRoots, where it takes the p roots). Every thread returns the same
+// log-pivot sum. Barriers by `sync`: the member's
 // kThreads threads meet there (by default the caller's whole block).
 template <int NB, Mode M, class Sync = BlockSync>
 __device__ __forceinline__ float factor(float (&s)[NB][NB],
@@ -288,11 +295,14 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
       sync();
       const float* cb = col + (j & 1) * kBuf;
       const float d = cb[jc * NB + b];
-      // kLogdet: d; kFactor, kInverse: sqrt(d); kTriInv: unused (put
-      // scaled row j of X by L[j][j] = d)
+      // kLogdet: d; kFactor, kFactorRoots, kInverse: sqrt(d); kTriInv:
+      // unused (put scaled row j of X by L[j][j] = d)
       float den = d;
       if (M == Mode::kLogdet) {
         acc += logf(d);
+      } else if (M == Mode::kFactorRoots) {
+        den = sqrtf(d);
+        if (t.r == 0 && t.c == 0) xrow[j] = den;
       } else if (M != Mode::kTriInv) {
         den = sqrtf(d);
         acc += logf(den);
@@ -311,7 +321,7 @@ __device__ __forceinline__ float factor(float (&s)[NB][NB],
         const float v = cb[t.c * NB + a];
         cv[a] = M == Mode::kLogdet ? v : scale(v);
       }
-      if (M == Mode::kFactor && t.c == jc) {
+      if ((M == Mode::kFactor || M == Mode::kFactorRoots) && t.c == jc) {
         // column j of L, the diagonal included
 #pragma unroll
         for (int a = 0; a < NB; ++a)

@@ -27,7 +27,9 @@ custom VJP, or a composition of such):
   ``ops/cuda/csrc/tri_solve.cu``.
 * :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I``
   with per-member jitter escalation (replaces K2,
-  ``_chol_jittered_kernel``); ``ops/cuda/csrc/cholesky_jittered.cu``.
+  ``_chol_jittered_kernel``); ``ops/cuda/csrc/cholesky_jittered.cu``:
+  sub-warp groups up to P = 8, the register-tiled core ``chol_tile.cuh``
+  for 9 <= P <= 64 (route from :func:`jittered_tier`).
 * :func:`leaf_factor` — the fused leaf stage: prior log-determinant and
   posterior inverse factor + log-determinant (replaces K1,
   ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``);
@@ -82,7 +84,7 @@ from torch.autograd.function import once_differentiable
 from pymra_torch.ops.cuda import build
 
 __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
-           "solve_cols",
+           "jittered_tier", "solve_cols",
            "cholesky", "cholesky_ref", "triangular_inverse_lower",
            "triangular_inverse_lower_ref", "solve_triangular_batched",
            "solve_triangular_batched_ref", "cholesky_pullback",
@@ -493,19 +495,33 @@ def _launched(name: str, rc: int) -> None:
 
 
 def _where(t: torch.Tensor) -> tuple[int, int]:
-    """``(device index, current stream)`` arguments of a launch."""
-    return (t.device.index or 0,
-            torch.cuda.current_stream(t.device).cuda_stream)
+    """``(device index, current stream)`` arguments of a launch: the raw
+    handle of the device's current stream, without building a
+    ``torch.cuda.Stream`` object for it."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def tile_tier(p: int) -> int:
     """Width tier of the kernels on the register-tiled core
-    (``ops/cuda/csrc/chol_tile.cuh``: K1, K3 up to 64, K4, K6 and K7) for a
-    ``P x P`` member: the least of 16, 32, 48 and 64 that holds ``p``. The
-    kernel pads the member to it with the identity."""
+    (``ops/cuda/csrc/chol_tile.cuh``: K1, K2 above P = 8, K3 up to 64,
+    K4, K5, K6 and K7) for a ``P x P`` member: the least of 16, 32, 48 and
+    64 that holds ``p``. The kernel pads the member to it with the
+    identity."""
     if not 1 <= p <= MAX_P:
         raise ValueError(f"tile_tier: P={p} outside 1..{MAX_P}")
     return 16 * -(-p // 16)
+
+
+#: widest member of K2's sub-warp groups (``ops/cuda/csrc/subwarp.cuh``)
+SUBWARP_MAX_P = 8
+
+
+def jittered_tier(p: int) -> int:
+    """K2's route for a ``P x P`` member: 0, the sub-warp groups of
+    ``cholesky_jittered.cu`` (P <= 8, the interior blocks), else the
+    register-tiled core at the width tier :func:`tile_tier`."""
+    return 0 if 1 <= p <= SUBWARP_MAX_P else tile_tier(p)
 
 
 def solve_cols(q: int) -> int:
@@ -626,12 +642,12 @@ def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     _check("cholesky_jittered: jit", jit, batch, mat.device)
     f0, f1, f2 = _factors(factors)
     out = torch.empty_like(mat)
-    ld, f = torch.empty((2,) + batch, dtype=mat.dtype, device=mat.device)
+    ld, f = torch.empty_like(jit), torch.empty_like(jit)
     n = out.numel() // (p * p)
     if n:
         _launched("cholesky_jittered", lib.pymra_cholesky_jittered(
             mat.data_ptr(), jit.data_ptr(), out.data_ptr(), ld.data_ptr(),
-            f.data_ptr(), n, p, f0, f1, f2, *_where(mat)))
+            f.data_ptr(), n, p, jittered_tier(p), f0, f1, f2, *_where(mat)))
         cholesky_jittered.launches += 1
     return out, ld, f
 
@@ -1101,11 +1117,21 @@ class _CholeskyInvLogdet(torch.autograd.Function):
 # public, differentiable entry points
 # ---------------------------------------------------------------------------
 
+def _apply(function, forward: Callable, *args):
+    """``function.apply(*args)`` where a gradient can flow into a tensor
+    argument; else ``forward(*args)`` alone: the same outputs without the
+    autograd Function's host cost (a forward-only sweep's every call)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return function.apply(*args)
+    return forward(*args)
+
+
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
     """Batched lower Cholesky ``[..., P, P] -> [..., P, P]``; an indefinite
     or zero pivot leaves NaN in its column and the trailing block, as the
     JAX kernel does (the upper triangle stays 0)."""
-    return _Cholesky.apply(mat)
+    return _apply(_Cholesky, _cholesky_fwd, mat)
 
 
 cholesky.launches = 0
@@ -1125,7 +1151,7 @@ def triangular_inverse_lower(l: torch.Tensor) -> torch.Tensor:
     :func:`_tri_inv_blocked` over the first kernel and ``torch.matmul``
     (in ``.composed``). On the CPU the same composition over the twin,
     which is the twin itself up to 64."""
-    return _TriInv.apply(l)
+    return _apply(_TriInv, _tri_inv_fwd, l)
 
 
 triangular_inverse_lower.launches = 0
@@ -1142,7 +1168,7 @@ def solve_triangular_batched(l: torch.Tensor, b: torch.Tensor,
     On the card one launch of ``ops/cuda/csrc/tri_solve.cu`` for P <= 64
     and any Q (a block a member and slab of :func:`solve_cols` columns, at
     the width tier :func:`tile_tier`); on the CPU the twin."""
-    return _TriSolve.apply(l, b, bool(transpose))
+    return _apply(_TriSolve, _tri_solve_fwd, l, b, bool(transpose))
 
 
 solve_triangular_batched.launches = 0
@@ -1157,7 +1183,8 @@ def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     ``mat`` and ``jit`` (``jitbar = f trace(matbar)``) at the selected
     factor; ``f`` is not differentiable.
     """
-    return _CholeskyJittered.apply(mat, jit, tuple(factors))
+    return _apply(_CholeskyJittered, _cholesky_jittered_fwd, mat, jit,
+                  tuple(factors))
 
 
 cholesky_jittered.launches = 0
@@ -1181,8 +1208,8 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     prior block at ``fp`` (K4) and inverts that factor (K3), and takes the
     posterior pullback from ``Li`` in float64 products.
     """
-    return _LeafFactor.apply(c_own, kmask, a_oo, float(jitter),
-                             tuple(factors))
+    return _apply(_LeafFactor, _leaf_factor_fwd, c_own, kmask, a_oo,
+                  float(jitter), tuple(factors))
 
 
 leaf_factor.launches = 0
@@ -1199,7 +1226,8 @@ def cholesky_logdet(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     K_sel^-1`` with ``K_sel`` refactored at ``f`` (K4) and inverted (K3),
     ``jitbar = f trace(matbar)``.
     """
-    return _CholeskyLogdet.apply(mat, jit, tuple(factors))
+    return _apply(_CholeskyLogdet, _cholesky_logdet_fwd, mat, jit,
+                  tuple(factors))
 
 
 cholesky_logdet.launches = 0
@@ -1223,7 +1251,8 @@ def cholesky_inv_logdet(mat: torch.Tensor, jit: torch.Tensor,
     (:func:`_leaf_posterior_pullback`). In float32 those products put that
     gradient 2.1e-3 off its float64 golden, over the 2e-3 budget.
     """
-    return _CholeskyInvLogdet.apply(mat, jit, tuple(factors))
+    return _apply(_CholeskyInvLogdet, _cholesky_inv_logdet_fwd, mat, jit,
+                  tuple(factors))
 
 
 cholesky_inv_logdet.launches = 0
@@ -1242,7 +1271,7 @@ def cholesky_blocked(mat: torch.Tensor, block: int = MAX_P) -> torch.Tensor:
     the panel and the downdate — counted in ``.composed``. On the CPU the
     twin. Differentiable by the Cholesky pullback of the factor
     (symmetric in ``mat``), as :func:`cholesky_cascade`."""
-    return _CholeskyBlocked.apply(mat, int(block))
+    return _apply(_CholeskyBlocked, _cholesky_blocked_fwd, mat, int(block))
 
 
 cholesky_blocked.launches = 0
@@ -1266,7 +1295,8 @@ def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     Returns ``(L, ld, f)`` as :func:`cholesky_jittered` does; differentiable
     in ``mat`` and ``jit`` at the selected factor.
     """
-    return _CholeskyCascade.apply(mat, jit, tuple(factors))
+    return _apply(_CholeskyCascade, _cholesky_cascade_fwd, mat, jit,
+                  tuple(factors))
 
 
 cholesky_cascade.launches = 0

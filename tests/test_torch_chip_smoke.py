@@ -269,6 +269,38 @@ def test_kernel_scaling_times_k5_and_the_pullback_at_path_shapes(
     assert reps == [10] * 4 + [chip_smoke.PULLBACK_DEVICE_REPS] * 2
 
 
+def test_kernel_scaling_times_k2_and_its_pullback_at_the_side_shapes(
+        monkeypatch):
+    # tools/kernel_scaling.py --jittered on CPU tensors, its timers
+    # replaced by the host clock: K2 on both batches and its library call
+    # at each CHOL_MAIN and CHOL_SIDE shape, the pullback at each CHOL_SIDE
+    # shape with the longer device loop
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_scaling", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                       "tools", "kernel_scaling.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    reps = []
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=10: _host_timer(fn, 1))
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=10: (
+        reps.append(n) or _host_timer(fn, 1), 1.0))
+    monkeypatch.setattr(chip_smoke, "CHOL_MAIN", ((8, 4),))
+    monkeypatch.setattr(chip_smoke, "CHOL_SIDE", ((5, 17),))
+    res = ks._time_jittered(np.random.default_rng(0), "cpu")
+    assert set(res) == {
+        "cholesky_jittered clean 8x4x4", "library clean 8x4x4",
+        "cholesky_jittered chol_case 8x4x4",
+        "cholesky_jittered clean 5x17x17", "library clean 5x17x17",
+        "cholesky_jittered chol_case 5x17x17", "cholesky_pullback 5x17x17"}
+    assert all(r["ms"] > 0 and r["device_launches"] == 1.0
+               for r in res.values())
+    assert reps == [10] * 6 + [chip_smoke.PULLBACK_DEVICE_REPS]
+
+
 def test_solve_and_pullback_are_timed_at_their_paths_shapes(monkeypatch):
     # K5's record is the one call the dense-R path makes per evaluation
     # (phase 10's tree and R: yw = L_R^-1 y0 at the 256 leaves of 49,
@@ -312,13 +344,15 @@ def test_backward_phase_passes_with_twins():
         logdet_main=((7, 9),), wide_main=((5, 70),),
         pullback_shapes=((8, 4), (9, 49)), pullback_main=((8, 4),),
         timer=_host_timer,
-        dev_timer=_no_device_timer)
+        dev_timer=_no_device_timer, pullback_side=((5, 17),))
     assert err == dict.fromkeys(
         ["cholesky_pullback", "cholesky_jittered", "leaf_factor",
          "cholesky_logdet", "cholesky_inv_logdet", "cholesky_cascade",
          "cholesky_blocked"], 0.0)
+    # the pullback is also checked and timed at the side paths' shapes
     assert set(times) == {("cholesky_jittered_backward", 8, 4),
-                          ("cholesky_pullback", 8, 4)}
+                          ("cholesky_pullback", 8, 4),
+                          ("cholesky_pullback", 5, 17)}
     assert times["cholesky_jittered_backward", 8, 4]["ms"] > 0
     assert times["cholesky_pullback", 8, 4]["library_ms"] is None
 

@@ -22,6 +22,9 @@ from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 WIDTHS = [5, 17, 49]
+#: K2 also at the edges of the register-tiled core's width tiers (16, 33,
+#: 64), whose kernel takes every P from 9 to 64 on the card
+CHOL_WIDTHS = [5, 16, 17, 33, 49, 64]
 
 
 def _spd(rng, b, p):
@@ -53,7 +56,7 @@ def _jax_chol(m, jit):
     return np.asarray(l), np.asarray(f)
 
 
-@pytest.mark.parametrize("p", WIDTHS)
+@pytest.mark.parametrize("p", CHOL_WIDTHS)
 def test_cholesky_jittered_ref_matches_pallas(p):
     m, jit = _chol_case(p)
     l, ld, f = tl.cholesky_jittered(torch.as_tensor(m), torch.as_tensor(jit))

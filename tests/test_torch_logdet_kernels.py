@@ -227,14 +227,16 @@ def recorded(monkeypatch):
 
     lib = types.SimpleNamespace(
         pymra_chol_logdet=recorder("chol_logdet"),
-        pymra_chol_inv_logdet=recorder("chol_inv_logdet"))
+        pymra_chol_inv_logdet=recorder("chol_inv_logdet"),
+        pymra_cholesky_jittered=recorder("cholesky_jittered"))
     real = tl._check_square
     monkeypatch.setattr(tl, "_check_square", lambda name, t: real(
         name, types.SimpleNamespace(device=torch.device("cuda"),
                                     ndim=t.ndim, shape=t.shape)))
     monkeypatch.setattr(tl.build, "load_library", lambda: lib)
     monkeypatch.setattr(tl, "_where", lambda t: (0, 0))
-    for fn in (tl.cholesky_logdet, tl.cholesky_inv_logdet):
+    for fn in (tl.cholesky_logdet, tl.cholesky_inv_logdet,
+               tl.cholesky_jittered):
         monkeypatch.setattr(fn, "launches", 0)
     return calls
 
@@ -257,3 +259,19 @@ def test_one_launch_a_call_at_the_tile_tier(recorded, name, kernel):
         fn(torch.empty((3, 65, 65), device="meta"),
            torch.empty(3, device="meta"))
     assert recorded == [] and fn.launches == len(widths)
+
+
+def test_k2_takes_the_core_above_the_subwarp_widths(recorded):
+    # K2: one launch a call; P <= 8 the sub-warp groups (route 0), 9 <= P
+    # <= 64 the register-tiled core at the width tier tile_tier(P)
+    widths = (4, 8, 9, 16, 17, 49, 64)
+    for n, p in enumerate(widths, 1):
+        l, ld, f = tl.cholesky_jittered(torch.empty((3, p, p), device="meta"),
+                                        torch.empty(3, device="meta"))
+        assert l.shape == (3, p, p) and ld.shape == f.shape == (3,)
+        assert tl.cholesky_jittered.launches == n
+    assert [tl.jittered_tier(p) for p in widths] == [0, 0, 16, 16, 32, 64,
+                                                      64]
+    assert recorded == [("cholesky_jittered", 3, p,
+                         tl.tile_tier(p) if p > 8 else 0) + tl.FACTORS
+                        for p in widths]

@@ -15,7 +15,7 @@ exponents, the per-member time and the rate of useful float32 operations
 root of the tree to time on a machine with an NVIDIA GPU::
 
     python3 tools/kernel_scaling.py [--out FILE] [--quick | --logdet |
-                                     --solve]
+                                     --solve | --jittered]
 
 ``--quick`` times P = 64, B = 16384 and K3 at 4096 x 256 only.
 ``--logdet`` times K6 ``cholesky_logdet`` and K7 ``cholesky_inv_logdet``
@@ -31,6 +31,11 @@ the fused ``cholesky_pullback`` at every shape of
 ``chip_smoke.PULLBACK_MAIN``, per call and on the device alone (the
 pullback over ``chip_smoke.PULLBACK_DEVICE_REPS`` launches a profile), on
 the inputs of phases 3 and 3b.
+``--jittered`` times K2 ``cholesky_jittered`` at ``chip_smoke.CHOL_MAIN``
+and ``chip_smoke.CHOL_SIDE``, on the clean batch beside its library call
+(``chip_smoke.LIBRARY``) and on ``chip_smoke.chol_case`` (escalated and
+all-fail members), and its backward, the fused ``cholesky_pullback``, at
+``CHOL_SIDE`` on phase 3b's inputs, per call and on the device alone.
 
 The kernels timed are the package of the working directory's tree;
 ``chip_smoke``'s helpers are those of the tree this tool lies in, so the
@@ -146,19 +151,70 @@ def _time_logdet(rng, device="cuda", widths=LOGDET_WIDTHS):
     return res
 
 
+def _run(tag, fn, reps=10):
+    """ms a call, device ms and launches a call of ``fn``, printed."""
+    ms = cs.time_ms(fn)
+    dev, launches = cs.device_ms(fn, reps)
+    print(f"{tag}: {ms:.4f} ms a call, device {cs._ms(dev)} "
+          f"({launches:g} launches)", flush=True)
+    return {"ms": ms, "device_ms": dev, "device_launches": launches}
+
+
+def _pullback_inputs(rng, b, p, device):
+    """Phase 3b's pullback inputs: K2's factors of ``chol_case`` and
+    random cotangents."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    m, jit = cs.chol_case(rng, b, p)
+    l, _, f = tl.cholesky_jittered(torch.as_tensor(m, device=device),
+                                   torch.as_tensor(jit, device=device))
+    lbar = torch.as_tensor(rng.standard_normal(m.shape).astype(np.float32),
+                           device=device)
+    ldbar = torch.as_tensor(rng.standard_normal(b).astype(np.float32),
+                            device=device)
+    return l, lbar, ldbar, f
+
+
+def _time_jittered(rng, device="cuda"):
+    """K2 at ``cs.CHOL_MAIN`` and ``cs.CHOL_SIDE`` on the clean batch (with
+    its library call) and on ``chol_case``, and the pullback at
+    ``cs.CHOL_SIDE``: ms a call, device ms and launches a call."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    res = {}
+    for b, p in tuple(cs.CHOL_MAIN) + tuple(cs.CHOL_SIDE):
+        key = f"{b}x{p}x{p}"
+        eye = torch.eye(p, device=device)
+        m, jit = (torch.as_tensor(x, device=device)
+                  for x in cs.clean_case(rng, b, p))
+        res[f"cholesky_jittered clean {key}"] = _run(
+            f"cholesky_jittered clean {key}",
+            lambda: tl.cholesky_jittered(m, jit))
+        res[f"library clean {key}"] = _run(
+            f"library clean {key}", lambda: cs._library_factor(m, jit, eye))
+        m, jit = (torch.as_tensor(x, device=device)
+                  for x in cs.chol_case(rng, b, p))
+        res[f"cholesky_jittered chol_case {key}"] = _run(
+            f"cholesky_jittered chol_case {key}",
+            lambda: tl.cholesky_jittered(m, jit))
+    for b, p in cs.CHOL_SIDE:
+        args = _pullback_inputs(rng, b, p, device)
+        res[f"cholesky_pullback {b}x{p}x{p}"] = _run(
+            f"cholesky_pullback {b}x{p}x{p}",
+            lambda: tl.cholesky_pullback(*args), cs.PULLBACK_DEVICE_REPS)
+    return res
+
+
 def _time_solve(rng, device="cuda"):
     """K5 at ``cs.SOLVE_MAIN`` with its library call, and the pullback at
     ``cs.PULLBACK_MAIN``: ms a call, device ms and launches a call."""
     import torch
 
     from pymra_torch.ops import linalg as tl
-
-    def run(tag, fn, reps=10):
-        ms = cs.time_ms(fn)
-        dev, launches = cs.device_ms(fn, reps)
-        print(f"{tag}: {ms:.4f} ms a call, device {cs._ms(dev)} "
-              f"({launches:g} launches)", flush=True)
-        return {"ms": ms, "device_ms": dev, "device_launches": launches}
 
     res = {}
     for b, p, q, trans in cs.SOLVE_MAIN:
@@ -167,24 +223,17 @@ def _time_solve(rng, device="cuda"):
             np.float32), device=device)
         op_l = lt.transpose(-1, -2) if trans else lt
         key = f"{b}x{p}x{q}{' transposed' if trans else ''}"
-        res["solve_triangular_batched " + key] = run(
+        res["solve_triangular_batched " + key] = _run(
             f"solve_triangular_batched {key}",
             lambda: tl.solve_triangular_batched(lt, rhs, trans))
-        res["solve_triangular " + key] = run(
+        res["solve_triangular " + key] = _run(
             f"torch.linalg.solve_triangular {key}",
             lambda: torch.linalg.solve_triangular(op_l, rhs, upper=trans))
     for b, p in cs.PULLBACK_MAIN:
-        m, jit = cs.chol_case(rng, b, p)
-        l, _, f = tl.cholesky_jittered(torch.as_tensor(m, device=device),
-                                       torch.as_tensor(jit, device=device))
-        lbar = torch.as_tensor(rng.standard_normal(m.shape).astype(
-            np.float32), device=device)
-        ldbar = torch.as_tensor(rng.standard_normal(b).astype(np.float32),
-                                device=device)
-        res[f"cholesky_pullback {b}x{p}x{p}"] = run(
+        args = _pullback_inputs(rng, b, p, device)
+        res[f"cholesky_pullback {b}x{p}x{p}"] = _run(
             f"cholesky_pullback {b}x{p}x{p}",
-            lambda: tl.cholesky_pullback(l, lbar, ldbar, f),
-            cs.PULLBACK_DEVICE_REPS)
+            lambda: tl.cholesky_pullback(*args), cs.PULLBACK_DEVICE_REPS)
     return res
 
 
@@ -204,6 +253,7 @@ def main():
     parser.add_argument("--quick", action="store_true")
     parser.add_argument("--logdet", action="store_true")
     parser.add_argument("--solve", action="store_true")
+    parser.add_argument("--jittered", action="store_true")
     args = parser.parse_args()
     card = cs.phase_device()
     cs.phase_build()
@@ -214,6 +264,9 @@ def main():
         return
     if args.solve:
         _report({"card": card, "solve": _time_solve(rng)}, args.out)
+        return
+    if args.jittered:
+        _report({"card": card, "jittered": _time_jittered(rng)}, args.out)
         return
     if args.quick:
         _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Register budget of the register-tiled K1, K4 and K3 kernels against
+"""Register budget of the register-tiled K1, K4, K3 and K2 kernels against
 their speed: each kernel rebuilt with ``__launch_bounds__(64, N)`` for
 several N (at least N resident 64-thread blocks an SM, so at most 65536 /
 (64 N) registers a thread), timed at 16384 x 64 beside the shipped build
@@ -8,7 +8,9 @@ the core on its diagonal blocks) likewise with ``--wide-blocks`` at 4096 x
 256.
 
 Each variant is a copy of ``csrc/leaf_factor.cu``, ``csrc/cholesky.cu``,
-``csrc/tri_inv.cu`` or ``csrc/tri_inv_wide.cu`` with only the launch bound
+``csrc/tri_inv.cu``, ``csrc/cholesky_jittered.cu`` (its core kernel, on
+``chip_smoke.chol_case``) or ``csrc/tri_inv_wide.cu`` with only the launch
+bound
 changed, built by nvcc with the package's flags
 into the git-ignored ``pymra_torch/_build``. Prints the compiler's register
 and spill report and the ms per call (CUDA events, as
@@ -17,6 +19,11 @@ shipped kernel's (they run the same arithmetic). Run from the repository
 root on a machine with an NVIDIA GPU::
 
     python3 tools/tile_variants.py [--blocks 8,10,12] [--wide-blocks 1,3]
+                                   [--k2-inline]
+
+With ``--k2-inline`` it also builds K2 with its attempt inlined into the
+escalation loop (``__forceinline__`` for the shipped ``__noinline__``), at
+each bound.
 
 With ``--scales quotient,division,reciprocal`` it builds instead, at the
 shipped launch bound, copies whose ``csrc/chol_tile.cuh`` scales each
@@ -53,19 +60,25 @@ SCALES = {"quotient": None, "division": "  return x / den;",
 B, P = 16384, 64
 WIDE_B, WIDE_P = 4096, 256
 #: the sources built with --blocks (and --scales: all include the core)
-TILED = ("leaf_factor.cu", "cholesky.cu", "tri_inv.cu")
+TILED = ("leaf_factor.cu", "cholesky.cu", "tri_inv.cu",
+         "cholesky_jittered.cu")
 
 
-def variant(src, blocks, scale=None):
+def variant(src, blocks, scale=None, inline=False):
     """Build ``src`` with at least ``blocks`` blocks an SM (None: as
-    shipped) and the core's column scale ``scale`` (a key of ``SCALES``;
-    None: as shipped); returns (library, ptxas report)."""
+    shipped), the core's column scale ``scale`` (a key of ``SCALES``;
+    None: as shipped) and, with ``inline``, K2's attempt inlined; returns
+    (library, ptxas report)."""
     with open(os.path.join(CSRC, src)) as fh:
         text = fh.read()
     assert len(BOUND_RE.findall(text)) == 1, f"{src}: no single bound"
     if blocks is not None:
         text = BOUND_RE.sub(f"__launch_bounds__(kThreads, {blocks})", text)
     tag = f"{os.path.splitext(src)[0]}_mb{blocks or 0}"
+    if inline:
+        assert text.count("__noinline__") == 1, f"{src}: no single attempt"
+        text = text.replace("__noinline__", "__forceinline__")
+        tag += "_inline"
     header = ""
     if scale is not None:
         tag += f"_{scale}"
@@ -89,12 +102,14 @@ def variant(src, blocks, scale=None):
         "libvariant_" + tag, [path],
         [build.nvcc_path()] + build.NVCC_FLAGS + ["-I", CSRC], timeout=900,
         key=build._headers_key() + header)
-    # the report of the 64-wide instantiation (NB = 8), or of the wide
-    # kernel: its stack and register lines after its entry
+    # the report of the 64-wide instantiation (NB = 8; not K2's sub-warp
+    # group of 8 lanes; K2's attempt function too), or of the wide kernel:
+    # its stack and register lines after its entry
     lines = log.splitlines()
     at = [i for i, ln in enumerate(lines)
-          if "Compiling entry" in ln and ("ILi8E" in ln
-                                          or "tri_inv_wide_kernel" in ln)]
+          if ("Compiling entry" in ln or "Function properties" in ln)
+          and "group" not in ln
+          and ("ILi8E" in ln or "tri_inv_wide_kernel" in ln)]
     report = [ln.split("info    :")[-1].strip()
               for i in at for ln in lines[i + 1:i + 4]
               if "stack frame" in ln or "Used" in ln]
@@ -105,6 +120,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--blocks", default="8,10,12")
     parser.add_argument("--wide-blocks", default="1,3")
+    parser.add_argument("--k2-inline", action="store_true")
     parser.add_argument("--scales", default="",
                         help="column scales to build instead, of "
                         + ", ".join(SCALES))
@@ -114,6 +130,8 @@ def main():
     cs.phase_device()
     jobs = [(src, n, None) for src in TILED for n in blocks] + [
         ("tri_inv_wide.cu", n, None) for n in wide_blocks]
+    if args.k2_inline:
+        jobs += [("cholesky_jittered.cu", n, None, True) for n in blocks]
     if args.scales:
         jobs = [(src, None, sc) for src in TILED
                 # the division build first: the others are held to it
@@ -125,17 +143,19 @@ def main():
     rng = np.random.default_rng(0)
     c, k, a = (torch.as_tensor(x, device="cuda")
                for x in cs.leaf_case(rng, B, P, escalate=True, hard=True))
-    m = torch.as_tensor(cs.chol_case(rng, B, P)[0], device="cuda")
+    m, jit = (torch.as_tensor(x, device="cuda")
+              for x in cs.chol_case(rng, B, P))
     low = torch.as_tensor(cs.lower_case(rng, B, P), device="cuda")
     wide = torch.as_tensor(cs.lower_case(rng, WIDE_B, WIDE_P), device="cuda")
     want_leaf = tl.leaf_factor(c, k, a, 1e-3)
     want_chol = tl.cholesky(m)
     want_inv = tl.triangular_inverse_lower(low)
     want_wide = tl.triangular_inverse_lower(wide)
+    want_jittered = tl.cholesky_jittered(m, jit)
     stream = torch.cuda.current_stream().cuda_stream
     tier = tl.tile_tier(P)
     divided = {}
-    for (src, n, sc), (lib, report) in libs.items():
+    for (src, n, sc, *inline), (lib, report) in libs.items():
         shape = f"{B}x{P}"
         if src == "leaf_factor.cu":
             fn = lib.pymra_leaf_factor
@@ -170,6 +190,18 @@ def main():
                         0, stream)
                 assert rc == 0, rc
             want, fidx = (want_wide,), set()
+        elif src == "cholesky_jittered.cu":
+            fn = lib.pymra_cholesky_jittered
+            fn.argtypes = build._SIGNATURES["pymra_cholesky_jittered"]
+            outs = [torch.empty_like(m)] + [
+                torch.empty(B, device="cuda") for _ in range(2)]
+
+            def run():
+                rc = fn(m.data_ptr(), jit.data_ptr(),
+                        *[o.data_ptr() for o in outs], B, P, tier,
+                        *tl.FACTORS, 0, stream)
+                assert rc == 0, rc
+            want, fidx = want_jittered, {2}
         else:
             fn = lib.pymra_cholesky
             fn.argtypes = build._SIGNATURES["pymra_cholesky"]
@@ -200,6 +232,8 @@ def main():
                 same = "; bit-identical to the division build: " + str(all(
                     torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
                     for x, y in zip(mine, divided[src])))
+        if inline:
+            src += " (attempt inlined)"
         print(f"{src} min blocks {n} column scale {sc}: {ms:.4f} ms at "
               f"{shape}, max|diff| vs shipped {err:.3g}{same}; "
               f"{' | '.join(report)}", flush=True)
