@@ -28,9 +28,11 @@ non-zero exit code and no result line:
    the jittered kernels K2, K6, K7 and KC are also timed, against their
    twins and library calls, on a clean batch where no member escalates
    (one attempt of the library call is then the whole function);
-3b. backward: the fused ``cholesky_pullback`` kernel against its twin on
-   the same tensors, member by member, timed as in phase 3 at every
-   interior level's shape of the main paths and at K2's side shapes
+3b. backward: the fused ``cholesky_pullback`` against its twin on the
+   same tensors, member by member with identical NaN patterns, its lane
+   kernel (P <= 8, record ``cholesky_pullback``) timed as in phase 3 at
+   every interior level's shape of the main paths and its pullback mode
+   (9 <= P <= 64, record ``cholesky_pullback_tile``) at K2's side shapes
    (``CHOL_SIDE``: the triangular route's gradient); the autograd
    Functions of ``cholesky_jittered`` (its backward also timed as the sweep
    calls it), ``leaf_factor``, ``cholesky_logdet``, ``cholesky_inv_logdet``,
@@ -101,7 +103,12 @@ non-zero exit code and no result line:
    the float32 roughness of both routes at phase 13's points (R=1e-2 and
    1e-4); 18b, run after phase 14 on phase 5's plan before it is freed:
    the N=10^6 objective against its golden and likelihood-only ms on both
-   routes, with its own launch counters (K2, K5, K6);
+   routes; its value and gradient held to a five-point difference of the
+   card's own loglik (phase 8's check), KP's pullback mode (K2's backward
+   at the 16384 leaves of 64) launched once in it, peak memory with
+   autograd and ms per value-and-gradient evaluation on both routes in
+   alternating pairs; its own launch counters (K2, K5, K6, KP at the
+   interior levels and in its pullback mode);
 19. launch counters over phases 15-18: K1, K2, K3, K5 and K6 launched, no
    twin ran on a CUDA tensor; phase 18's own launches reported beside;
 20. the sharded main path at N=10^6 on phase 5's tree and data: the plan
@@ -292,7 +299,8 @@ KERNEL_SYMBOLS = ("leaf_factor_kernel", "chol_jittered_", "cholesky_kernel",
 #: its wrapper, whose ``.launches`` counts its kernel's launches (K8's and
 #: KC's their launches of the wide kernel)
 COUNTERS = {"triangular_inverse_lower_wide": ("triangular_inverse_lower",
-                                              "wide_launches")}
+                                              "wide_launches"),
+            "cholesky_pullback_tile": ("cholesky_pullback", "tile_launches")}
 
 
 def wrapper_of(name: str) -> tuple[str, str]:
@@ -301,9 +309,11 @@ def wrapper_of(name: str) -> tuple[str, str]:
 
 
 def launches_of(tl, name: str) -> int:
-    """The launches counted so far of a kernel record's kernel."""
+    """The launches counted so far of a kernel record's kernel (0 where
+    the wrapper has no such counter: an older tree timed by a newer
+    tool)."""
     wrapper, attr = wrapper_of(name)
-    return getattr(getattr(tl, wrapper), attr)
+    return getattr(getattr(tl, wrapper), attr, 0)
 
 
 def _wrapper_launches() -> int:
@@ -638,6 +648,8 @@ def work(name, inputs, outputs) -> tuple[float, float, float]:
     P^3/3 flops each, a solve with Q columns P^2 Q; K8's and KC's are split
     by :func:`wide_flops`."""
     b, p = inputs[0].shape[0], inputs[0].shape[-1]
+    if name == "cholesky_pullback_tile":  # KP's pullback mode: the same work
+        name = "cholesky_pullback"
     triangular = {"leaf_factor": (0, 2),
                   "cholesky_pullback": (0, 1)}.get(name, (0,))
     nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
@@ -1135,8 +1147,9 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                    dev_timer=device_ms, pullback_side=()):
     """Backward passes against CPU copies; the fused pullback against its
     twin, timed at ``pullback_main`` and at the side paths' shapes
-    ``pullback_side`` (both recorded under ``("cholesky_pullback", b,
-    p)``)."""
+    ``pullback_side``, each shape recorded under its kernel's record and
+    ``(b, p)``: ``cholesky_pullback`` up to P = 8 (the lane kernel),
+    ``cholesky_pullback_tile`` above (the core's pullback mode)."""
     import torch
 
     from pymra_torch.ops import linalg as tl
@@ -1144,7 +1157,8 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
     print("== phase 3b: backward on the card against CPU copies, the fused "
           f"pullback against its twin (tolerance |diff| <= {ATOL} + {RTOL} "
           "max|cpu| of each member)")
-    err = dict.fromkeys(["cholesky_pullback", "cholesky_jittered",
+    err = dict.fromkeys(["cholesky_pullback", "cholesky_pullback_tile",
+                         "cholesky_jittered",
                          "leaf_factor", "cholesky_logdet",
                          "cholesky_inv_logdet", "cholesky_cascade",
                          "cholesky_blocked"], 0.0)
@@ -1166,12 +1180,18 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
                                        device=device)
                        for s in (m.shape, (b,)))
         args = (l, lbar, ldbar, f)
-        e = compare(f"cholesky_pullback {b}x{p}", tl.cholesky_pullback(*args),
-                    tl.cholesky_pullback_ref(*args), per_member=True)
-        err["cholesky_pullback"] = max(err["cholesky_pullback"], e)
-        line = f"cholesky_pullback B={b} P={p}: max|diff| {e:.3g}"
+        name = ("cholesky_pullback" if tl.jittered_tier(p) == 0
+                else "cholesky_pullback_tile")
+        got, want = tl.cholesky_pullback(*args), tl.cholesky_pullback_ref(*args)
+        e = compare(f"{name} {b}x{p}", got, want, per_member=True)
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            check(torch.equal(torch.isnan(g), torch.isnan(w)),
+                  f"{name} {b}x{p}: NaN pattern differs from the twin's")
+        err[name] = max(err[name], e)
+        line = f"{name} B={b} P={p}: max|diff| {e:.3g}"
         if (b, p) in timed_at:
-            line += timed(times, ("cholesky_pullback", b, p), timer,
+            line += timed(times, (name, b, p), timer,
                           lambda fn: dev_timer(fn, PULLBACK_DEVICE_REPS),
                           lambda: tl.cholesky_pullback(*args),
                           lambda: tl.cholesky_pullback_ref(*args), None,
@@ -2168,13 +2188,16 @@ OUT_DIR = "chiprun_out"
 ROUTES = ("auto", "tri")
 #: kernels phases 15-18 must launch: K1 (matrix-covariance and Matern
 #: sweeps), K2 (keep_internals leaves, the triangular route), K3
-#: (keep_internals), K5 and K6 (the triangular route)
+#: (keep_internals), K5 and K6 (the triangular route), KP's pullback mode
+#: (K2's backward at the triangular route's leaves, 256 x 49)
 SIDE_KERNELS = ("leaf_factor", "cholesky_jittered",
                 "triangular_inverse_lower", "solve_triangular_batched",
-                "cholesky_logdet")
-#: kernels the N=10^6 triangular route (phase 18b) must launch
+                "cholesky_logdet", "cholesky_pullback_tile")
+#: kernels the N=10^6 triangular route (phase 18b) must launch: its
+#: forward's, and in its value and gradient KP at the interior levels and
+#: KP's pullback mode at the leaves (16384 x 64)
 TRI_KERNELS = ("cholesky_jittered", "solve_triangular_batched",
-               "cholesky_logdet")
+               "cholesky_logdet", "cholesky_pullback", "cholesky_pullback_tile")
 
 
 @contextlib.contextmanager
@@ -2545,11 +2568,17 @@ def phase_tri_route(device="cuda", timer=time_ms, n_evals=10,
 
 
 def phase_tri_n1m(n1m, device="cuda", timer=time_ms, golden=GOLDEN_N1M,
-                  n_evals=8):
+                  n_evals=8, n_grad=5, pairs=4):
     """Phase 18b: the triangular route on phase 5's N=10^6 plan and data
     (before they are freed): the objective against its golden, the
-    posterior finite, likelihood-only ms on both routes."""
+    posterior finite, likelihood-only ms on both routes; the value and
+    gradient on the triangular route held to a five-point difference of
+    its own loglik (phase 8's check), with KP's pullback mode (K2's
+    backward at the leaves) launched once in it, peak memory with autograd
+    on both routes, and ms per value-and-gradient evaluation on both routes
+    in ``pairs`` alternating pairs (``n_grad`` evaluations each)."""
     from pymra_torch import Kernel
+    from pymra_torch.ops import linalg as tl
     from pymra_torch.tree.sweep import mra_sweep, prepare_obs
 
     model, y = n1m["model"], n1m["y"]
@@ -2576,7 +2605,38 @@ def phase_tri_n1m(n1m, device="cuda", timer=time_ms, golden=GOLDEN_N1M,
     print(f"{tag} likelihood-only ms/eval ({n_evals} evals, l in [0.04, "
           "0.06]): " + "; ".join(f"{route} {ms:.3f}"
                                  for route, ms in out.items()))
-    return out
+
+    f = model.loglik_fn(y, 1e-2, kernel_builder=exponential_builder)
+    peak = {}
+    before = launches_of(tl, "cholesky_pullback_tile")
+    with leaf_route("tri"):
+        peak["tri"], fd, ad = gradient_vs_difference(
+            f, f"{tag} triangular route", device)
+    tile = launches_of(tl, "cholesky_pullback_tile") - before
+    print(f"{tag} triangular route: KP's pullback mode launched {tile} "
+          "time(s) in one value-and-gradient evaluation (the leaves)")
+    check(device == "cpu" or tile == 1,
+          f"{tag} triangular route: K2's backward at the leaves launched "
+          f"KP's pullback mode {tile} times in one evaluation, not once")
+    for route in ROUTES[:-1]:
+        with leaf_route(route):
+            _reset_peak(device)
+            value_and_grad(f, 0.05, 1.0)
+            peak[route] = _peak_gib(device)
+    ls = np.linspace(0.04, 0.06, n_grad + 1)
+    grad_ms = {route: [] for route in ROUTES}
+    for k in range(pairs):
+        for route in (ROUTES if k % 2 == 0 else ROUTES[::-1]):
+            with leaf_route(route):
+                grad_ms[route].append(_grad_timer(f, ls, timer))
+    print(f"{tag} value and gradient ms/eval ({pairs} alternating pairs of "
+          f"{n_grad} evals, l in [0.04, 0.06]): " + "; ".join(
+              f"{route} median {np.median(v):.3f} (" + ", ".join(
+                  f"{x:.3f}" for x in v) + ")" for route, v in grad_ms.items())
+          + "; peak device memory with autograd " + ", ".join(
+              f"{route} {gib:.2f} GiB" for route, gib in peak.items()))
+    return {"ms_fwd": out, "ms_grad": grad_ms, "peak": peak, "fd": fd,
+            "ad": ad}
 
 
 # ---------------------------------------------------------------------------
@@ -3090,6 +3150,8 @@ KERNELS = (
      "pymra_tpu/ops/pallas/linalg.py:366", SOLVE_MAIN[-1][:3]),
     ("cholesky_pullback", "tri_solve.cu",
      "pymra_tpu/ops/pallas/linalg.py:1161", (4096, 8)),
+    ("cholesky_pullback_tile", "tri_solve.cu",
+     "pymra_tpu/ops/pallas/linalg.py:1161,1212", CHOL_SIDE[-1]),
     ("cholesky_logdet", "chol_logdet.cu",
      "pymra_tpu/ops/pallas/linalg.py:394", LOGDET_MAIN[-1]),
     ("cholesky_inv_logdet", "chol_inv_logdet.cu",
@@ -3107,7 +3169,7 @@ WIDE = ("cholesky_blocked", "cholesky_cascade")
 #: ``.composed`` (K3 wider than 256 too)
 COMPOSING = WIDE + ("triangular_inverse_lower",)
 #: kernels that run only in backward passes (checked in phase 3b)
-BACKWARD_KERNELS = ("cholesky_pullback",)
+BACKWARD_KERNELS = ("cholesky_pullback", "cholesky_pullback_tile")
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
 #: the pullback does the Cholesky backward's solves, so K5 runs only on the
 #: dense-R path (phase 10's whitening)
@@ -3115,9 +3177,12 @@ GRADIENT_KERNELS = FORWARD_KERNELS + ("triangular_inverse_lower", "cholesky",
                                       "cholesky_pullback")
 #: the dense-R and wide-leaf paths (phases 10-11) leave K1; the wide kernel
 #: runs there as KC (the sweep's escalated factorizations), K8 being its
-#: one-factor entry point
+#: one-factor entry point; no gradient there reaches a factor 9 to 64 wide
+#: (the dense-R blocks of 49 are free of the parameters), so neither does
+#: KP's pullback mode
 SLICE3_KERNELS = tuple(n for n in KERNEL_NAMES[1:]
-                       if n != "cholesky_blocked")
+                       if n not in ("cholesky_blocked",
+                                    "cholesky_pullback_tile"))
 
 
 def reset_counters(tl):
@@ -3164,7 +3229,8 @@ def main() -> int:
     err, times = phase_kernels(chol_side=CHOL_SIDE, solve_side=SOLVE_SIDE,
                                logdet_side=LOGDET_SIDE)
     err_bwd, bwd_times = phase_backward(pullback_side=CHOL_SIDE)
-    err["cholesky_pullback"] = err_bwd["cholesky_pullback"]
+    for name in BACKWARD_KERNELS:
+        err[name] = err_bwd[name]
     times.update(bwd_times)
 
     reset_counters(tl)
@@ -3225,6 +3291,9 @@ def main() -> int:
         launches = (forward if name in FORWARD_KERNELS else
                     gradient if name in GRADIENT_KERNELS else slice3)
         n_launch = launches[name]
+        if name == "cholesky_pullback_tile":
+            # its path: phase 18b, the N=10^6 triangular route's gradient
+            n_launch = tri_n1m[name]
         extra = {}
         if name in WIDE:
             # one kernel behind both wrappers: its launches on the path are
@@ -3250,9 +3319,17 @@ def main() -> int:
                               "symmetrization",
                      "levels": {f"{lb}x{lp}x{lp}": times[(name, lb, lp)]
                                 for lb, lp in PULLBACK_MAIN
-                                if (lb, lp) != (b, p)},
+                                if (lb, lp) != (b, p)}}
+        if name == "cholesky_pullback_tile":
+            extra = {"fuses": "_cholesky_bwd at 9 <= P <= 64 on the "
+                              "register-tiled core (chol_tile.cuh's "
+                              "pullback mode)",
+                     "path": "phase 18b, the N=10^6 triangular route's "
+                             "value and gradient (K2's backward at the "
+                             "leaves)",
                      "side_shapes": {f"{sb}x{sp}x{sp}": times[(name, sb, sp)]
-                                     for sb, sp in CHOL_SIDE}}
+                                     for sb, sp in CHOL_SIDE
+                                     if (sb, sp) != (b, p)}}
         if name == "solve_triangular_batched":
             extra = {"other_shapes": {
                 f"{sb}x{sp}x{sq}{' transposed' if st else ''}":

@@ -54,9 +54,9 @@ _SIGNATURES = {
     "pymra_tri_inv_wide": [_P, _P, _I, _I, _I, _P],
     # l, b, x, batch, p, q, transpose, tier, cols, device, stream
     "pymra_tri_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, device,
-    # stream
-    "pymra_chol_pullback": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # l, lbar, ldbar (or null), f (or null), abar, jbar, batch, p, tier,
+    # device, stream
+    "pymra_chol_pullback": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, jit, ld, f, batch, p, tier, f0, f1, f2, device, stream
     "pymra_chol_logdet": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
     # a, jit, x, ld, f, batch, p, tier, f0, f1, f2, device, stream

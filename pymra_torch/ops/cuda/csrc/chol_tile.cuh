@@ -1,7 +1,8 @@
 // Register-tiled factorization core of width <= 64 for Hopper (sm_90a),
 // shared by K1 leaf_factor.cu, K4 cholesky.cu, K2 cholesky_jittered.cu
 // (9 <= P <= 64), K6 chol_logdet.cu, K7 chol_inv_logdet.cu, K3 tri_inv.cu
-// and tri_inv_wide.cu and K5 tri_solve.cu.
+// and tri_inv_wide.cu, K5 tri_solve.cu and, in tri_solve.cu too, KP the
+// Cholesky pullback at 9 <= P <= 64 (the pullback mode at the end).
 //
 // Replaces the column loops of the TPU kernels _chol_kernel (K4),
 // _chol_jittered_kernel (K2), _kleaf_logdet_kernel /
@@ -649,6 +650,450 @@ inline bool solve_dispatch(int nb, int c, int t, F f) {
 inline int tier_nb(int tier) {
   return (tier == 16 || tier == 32 || tier == 48 || tier == 64) ? tier / 8
                                                                 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The pullback mode (KP at 9 <= P <= 64, tri_solve.cu): the Cholesky
+// pullback of one member of width p <= 8 NB, the JAX package's
+// _cholesky_bwd and _cholesky_jittered_bwd,
+//
+//   W = phi(L^T Lbar'),  Lbar' = Lbar + diag(ldbar / diag L),
+//   X = L^-T W,  raw = X L^-1,  Abar = (raw + raw^T) / 2,
+//   jbar = f trace(Abar),
+//
+// with the lower triangles of L and Lbar read (phi keeps the lower
+// triangle of M = L^T Lbar' and halves its diagonal, and M's lower
+// triangle needs no more of Lbar').
+//
+// Layout: one member's kThreads threads on the 8 x 8 grid; thread (r, c)
+// holds entry (r + 8a, c + 8b) of the whole square, a, b < NB, in
+// registers: Lbar' (its lower triangle), then in its place M, W, X and
+// raw. L sits in shared memory, row i at i kW (kW = 8 NB), entry k at (k %
+// 8) NB + k / 8, zeros above the diagonal, so that the NB entries of a row
+// one thread needs, (r + 8a) or (c + 8b), are contiguous, read by a whole
+// grid row or column at once.
+//
+// Three sweeps, one barrier a step, each step's broadcast double-buffered
+// by its parity:
+// - M = L^T Lbar', t ascending: the owners of row t of Lbar' (grid row t
+//   % 8) put it into a buffer and start row t of M in its place; every
+//   thread takes M[i][k] += L[t][i] Lbar'[t][k] for its entries k <= i <=
+//   t: each entry sums t >= i ascending. Then phi.
+// - X = L^-T W, j descending (the twins' back substitution, the solve
+//   mode's transposed step with all p columns): the owners of row j of X
+//   scale it by L[j][j] (the quotient with the reciprocal taken once a
+//   member) and put it; the rows i < j take X[i] -= L[j][i] X[j].
+// - raw = X L^-1, t descending (each row of X back-substituted against
+//   L^T, as the twins run it on X^T): the owners of column t (grid column
+//   t % 8) scale it by L[t][t] and put it; the columns k < t take
+//   raw[.][k] -= L[t][k] raw[.][t].
+// The block index of a step is a template constant (pb_product,
+// pb_rows, pb_cols), so every register index is, and the tiles a step
+// cannot touch are left out at compile time; the 8 steps within a block
+// stay a loop (unroll 1: unrolled, the 64-wide kernel has 14% more SASS
+// instructions and ran 12% slower at 16384 x 64). Row j - 1
+// (column t - 1) is updated first in its step and put by its owners while
+// the other rows update; L and Lbar' are read in the tile map, all loads
+// of a thread in flight at once. Then raw goes through shared memory
+// (rows p | 1 apart, over L's place) for the symmetrization, stored a row
+// at a time (coalesced), and the trace is summed in a fixed order: each
+// diagonal thread's entries, then the eight partial sums.
+//
+// What bounds it on the card: a 64 x 64 member reads ~17 KB and writes 16
+// KB for ~0.6 MFLOP (16384 x 64: 0.16 ms of bytes at 3.35 TB/s), but a
+// member is a chain of ~3P dependent steps. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (tools/kernel_scaling.py --pullback, device time):
+// 0.0372 ms at 256 x 49 (0.25 us a step), 1.046 ms at 16384 x 64, 96
+// registers a thread and 10 blocks an SM at tier 64; left out one at a
+// time (tools/pullback_variants.py), X's sweep is 0.33 ms of it, raw's
+// 0.24 and the product 0.075.
+//
+// The arithmetic is the twins' but for FMA contraction and the product's
+// order (the twin's is a matmul), and so are the NaN and inf patterns:
+// - the scale is the quotient, their division where the diagonal entry is
+//   zero, inf, NaN or in [2^-126, 2^126] (see quotient); a row or column
+//   whose diagonal entry is subnormal is scaled by 2^64 first, the entry
+//   too (both exact: x / d is (2^64 x) / (2^64 d), an x that overflows
+//   included), and one above 2^126 may be an ulp off, as in the core;
+// - the twins' product also runs over t < i, where L[t][i] is the zero
+//   above the diagonal: 0 Lbar'[t][k] adds nothing unless Lbar'[t][k] is
+//   inf or NaN (an ldbar / L[j][j] that overflows, a NaN cotangent), when
+//   it makes M[i][k] NaN for every i > t. The loader finds each column's
+//   first such row, bad[k], and M[i][k] becomes NaN for i > bad[k].
+// So a member takes the same steps whatever its entries (no member falls
+// to a serial path that would hold up its launch).
+//
+// Written against a `team`, as the solve mode above (a host build runs it
+// in tests/test_torch_tri_solve.py).
+// ---------------------------------------------------------------------------
+
+// one thread's registers
+template <int NB>
+struct PullbackPart {
+  float x[NB][NB];  // entry (r + 8a, c + 8b): Lbar', M, W, X, raw
+};
+
+// the member's shared memory
+template <int NB>
+struct PullbackBuffers {
+  static constexpr int kW = kGrid * NB;
+  float l[kW * (kW + 1)];   // L (see above); at the end raw, rows p | 1
+                            // apart
+  float diag[kW], rdiag[kW];  // L's diagonal (scaled) and reciprocals
+  float scale[kW];            // 2^64 for a subnormal diagonal entry, or 1
+  float lrow[2][kW];  // row t of Lbar', entry c + 8b at c NB + b
+  float xrow[2][kW];  // row j of X, scaled; the same layout
+  float rcol[2][kW];  // column t of raw, scaled; entry r + 8a at r NB + a
+  int bad[kW];        // column k's first row t >= k of non-finite Lbar'
+                      // (p where none)
+  float trace[kGrid];   // the diagonal threads' partial traces
+};
+
+// the power of two that brings a subnormal diagonal entry into the
+// quotient's exact range, or 1
+__device__ __forceinline__ float subnormal_scale(float d) {
+  const float a = fabsf(d);
+  return (a > 0.f && a < 0x1p-126f) ? 0x1p64f : 1.f;
+}
+
+// N contiguous floats of shared memory into registers (the compiler's own
+// loads: explicit 16-byte loads measured no faster), and back (16-byte
+// stores where N % 4 == 0, 8-byte where N % 2 == 0: dst is aligned so)
+template <int N>
+__device__ __forceinline__ void load_run(const float* src, float (&dst)[N]) {
+#pragma unroll
+  for (int v = 0; v < N; ++v) dst[v] = src[v];
+}
+
+template <int N>
+__device__ __forceinline__ void store_run(float* dst, const float (&src)[N]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < N / 4; ++v)
+      reinterpret_cast<float4*>(dst)[v] = make_float4(
+          src[4 * v], src[4 * v + 1], src[4 * v + 2], src[4 * v + 3]);
+    return;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int v = 0; v < N / 2; ++v)
+      reinterpret_cast<float2*>(dst)[v] =
+          make_float2(src[2 * v], src[2 * v + 1]);
+    return;
+  }
+#endif
+#pragma unroll
+  for (int v = 0; v < N; ++v) dst[v] = src[v];
+}
+
+// *at = min(*at, v) in shared memory, from any thread
+__device__ __forceinline__ void shared_min(int* at, int v) {
+#if defined(__CUDA_ARCH__)
+  atomicMin(at, v);
+#else
+  if (v < *at) *at = v;
+#endif
+}
+
+// The owners of row t = 8 bn + tc of Lbar' put it into the product's
+// buffer and start row t of M in its place (zeros).
+template <int NB>
+__device__ __forceinline__ void pb_put_lbar(PullbackPart<NB>& pt,
+                                            PullbackBuffers<NB>& buf,
+                                            int bn, int tc, Place g) {
+  if (g.r != tc) return;
+  store_run(buf.lrow[(kGrid * bn + tc) & 1] + g.c * NB, pt.x[bn]);
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b <= bn) pt.x[bn][b] = 0.f;  // right of column t: zeros already
+}
+
+// Product step t = 8 U + tc, t ascending, then the blocks after U. The
+// owners put row t + 1 first: the step's updates reach rows i <= t only.
+template <int NB, int U, class Team>
+__device__ __forceinline__ void pb_product(Team& team,
+                                           PullbackBuffers<NB>& buf,
+                                           int p) {
+  constexpr int kW = PullbackBuffers<NB>::kW;
+#pragma unroll 1
+  for (int tc = 0; tc < kGrid; ++tc) {
+    const int t = kGrid * U + tc;
+    if (t >= p) return;
+    team.sync();
+    team.each([&](PullbackPart<NB>& pt, int tid) {
+      const Place g = place(tid);
+      float bv[NB], lv[NB];  // Lbar'[t][c + 8b], L[t][r + 8a]
+      load_run(buf.lrow[t & 1] + g.c * NB, bv);
+      load_run(buf.l + t * kW + g.r * NB, lv);
+      if (t + 1 < p) {
+        if (tc + 1 < kGrid)
+          pb_put_lbar<NB>(pt, buf, U, tc + 1, g);
+        else if constexpr (U + 1 < NB)
+          pb_put_lbar<NB>(pt, buf, U + 1, 0, g);
+      }
+      const bool rin = g.r <= tc, low = g.c <= g.r;
+#pragma unroll
+      for (int a = 0; a <= U; ++a) {
+#pragma unroll
+        for (int b = 0; b <= a; ++b)
+          if ((a < U || rin) && (b < a || low))
+            pt.x[a][b] = fmaf(lv[a], bv[b], pt.x[a][b]);
+      }
+    });
+  }
+  if constexpr (U + 1 < NB) pb_product<NB, U + 1>(team, buf, p);
+}
+
+// The owners of row j = 8 bn + jc of X scale it by L[j][j] (d, its
+// reciprocal r and the scale sc of j) and put it.
+template <int NB>
+__device__ __forceinline__ void pb_put_row(PullbackPart<NB>& pt,
+                                           PullbackBuffers<NB>& buf, int bn,
+                                           int jc, Place g, float d, float r,
+                                           float sc) {
+  if (g.r != jc) return;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) pt.x[bn][b] = quotient(pt.x[bn][b] * sc, d, r);
+  store_run(buf.xrow[(kGrid * bn + jc) & 1] + g.c * NB, pt.x[bn]);
+}
+
+// The owners of column t = 8 bn + tc of raw scale it by L[t][t] and put
+// it.
+template <int NB>
+__device__ __forceinline__ void pb_put_col(PullbackPart<NB>& pt,
+                                           PullbackBuffers<NB>& buf, int bn,
+                                           int tc, Place g, float d, float r,
+                                           float sc) {
+  if (g.c != tc) return;
+  float v[NB];
+#pragma unroll
+  for (int a = 0; a < NB; ++a)
+    v[a] = pt.x[a][bn] = quotient(pt.x[a][bn] * sc, d, r);
+  store_run(buf.rcol[(kGrid * bn + tc) & 1] + g.r * NB, v);
+}
+
+// The first row of X (column of raw: `col`), p - 1, put by its owners,
+// with its block index a constant
+template <int NB, bool col, int BN = 0>
+__device__ __forceinline__ void pb_put_first(PullbackPart<NB>& pt,
+                                             PullbackBuffers<NB>& buf, int p,
+                                             Place g) {
+  if (BN == (p - 1) / kGrid) {
+    const int j = p - 1;
+    const float d = buf.diag[j], r = buf.rdiag[j], sc = buf.scale[j];
+    if (col)
+      pb_put_col<NB>(pt, buf, BN, j % kGrid, g, d, r, sc);
+    else
+      pb_put_row<NB>(pt, buf, BN, j % kGrid, g, d, r, sc);
+    return;
+  }
+  if constexpr (BN + 1 < NB) pb_put_first<NB, col, BN + 1>(pt, buf, p, g);
+}
+
+// X sweep step j = 8 B + jc, B = NB - 1 - U, j descending (step 0 has
+// no rows above it: its row was scaled at the end of step 1), then the
+// blocks before B. Row j - 1 is updated first and put while the other
+// rows update (its owners' quotients overlap those updates).
+template <int NB, int U, class Team>
+__device__ __forceinline__ void pb_rows(Team& team,
+                                        PullbackBuffers<NB>& buf, int p) {
+  constexpr int kW = PullbackBuffers<NB>::kW, B = NB - 1 - U;
+#pragma unroll 1
+  for (int v = 0; v < kGrid; ++v) {
+    const int jc = kGrid - 1 - v, j = kGrid * B + jc;
+    if (j >= p) continue;
+    if (j == 0) return;
+    team.sync();
+    team.each([&](PullbackPart<NB>& pt, int tid) {
+      const Place g = place(tid);
+      float xv[NB], lv[NB];  // X[j][c + 8b] scaled, L[j][r + 8a]
+      load_run(buf.xrow[j & 1] + g.c * NB, xv);
+      load_run(buf.l + j * kW + g.r * NB, lv);
+      const float d = buf.diag[j - 1], r = buf.rdiag[j - 1],
+                  sc = buf.scale[j - 1];
+      auto row = [&](int a) {  // X[r + 8a] -= L[j][r + 8a] X[j]
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          pt.x[a][b] = fmaf(-lv[a], xv[b], pt.x[a][b]);
+      };
+      if (jc > 0) {
+        // row j - 1 in block B; its owners' grid row jc - 1 is above j
+        if (g.r < jc) row(B);
+        pb_put_row<NB>(pt, buf, B, jc - 1, g, d, r, sc);
+#pragma unroll
+        for (int a = 0; a < B; ++a) row(a);
+      } else if constexpr (B > 0) {
+        row(B - 1);
+        pb_put_row<NB>(pt, buf, B - 1, kGrid - 1, g, d, r, sc);
+#pragma unroll
+        for (int a = 0; a < B - 1; ++a) row(a);
+      }
+    });
+  }
+  if constexpr (U + 1 < NB) pb_rows<NB, U + 1>(team, buf, p);
+}
+
+// raw sweep step t = 8 B + tc, B = NB - 1 - U, t descending, then the
+// blocks before B; column t - 1 first, as the rows above.
+template <int NB, int U, class Team>
+__device__ __forceinline__ void pb_cols(Team& team,
+                                        PullbackBuffers<NB>& buf, int p) {
+  constexpr int kW = PullbackBuffers<NB>::kW, B = NB - 1 - U;
+#pragma unroll 1
+  for (int v = 0; v < kGrid; ++v) {
+    const int tc = kGrid - 1 - v, t = kGrid * B + tc;
+    if (t >= p) continue;
+    if (t == 0) return;
+    team.sync();
+    team.each([&](PullbackPart<NB>& pt, int tid) {
+      const Place g = place(tid);
+      float rv[NB], lv[NB];  // raw[r + 8a][t] scaled, L[t][c + 8b]
+      load_run(buf.rcol[t & 1] + g.r * NB, rv);
+      load_run(buf.l + t * kW + g.c * NB, lv);
+      const float d = buf.diag[t - 1], r = buf.rdiag[t - 1],
+                  sc = buf.scale[t - 1];
+      auto col = [&](int b) {  // raw[.][c + 8b] -= L[t][c + 8b] raw[.][t]
+#pragma unroll
+        for (int a = 0; a < NB; ++a)
+          pt.x[a][b] = fmaf(-lv[b], rv[a], pt.x[a][b]);
+      };
+      if (tc > 0) {
+        if (g.c < tc) col(B);
+        pb_put_col<NB>(pt, buf, B, tc - 1, g, d, r, sc);
+#pragma unroll
+        for (int b = 0; b < B; ++b) col(b);
+      } else if constexpr (B > 0) {
+        col(B - 1);
+        pb_put_col<NB>(pt, buf, B - 1, kGrid - 1, g, d, r, sc);
+#pragma unroll
+        for (int b = 0; b < B - 1; ++b) col(b);
+      }
+    });
+  }
+  if constexpr (U + 1 < NB) pb_cols<NB, U + 1>(team, buf, p);
+}
+
+// One member: l, lbar and abar [p, p]; ldbar the member's log-determinant
+// cotangent (null: none), jbar its jitter cotangent (null: not written),
+// f its escalation factor.
+template <int NB, class Team>
+__device__ __forceinline__ void pullback(Team& team,
+                                         PullbackBuffers<NB>& buf,
+                                         const float* __restrict__ l,
+                                         const float* __restrict__ lbar,
+                                         const float* ldbar,
+                                         float* __restrict__ abar,
+                                         float* jbar, float f, int p) {
+  using Part = PullbackPart<NB>;
+  constexpr int kW = PullbackBuffers<NB>::kW;
+  team.each([&](Part&, int tid) {
+    if (tid < kW) buf.bad[tid] = p;
+  });
+  team.sync();
+  team.each([&](Part& pt, int tid) {
+    const Place g = place(tid);
+    // L in the tile map (all its loads in flight at once), then into
+    // shared memory a row run at a time; its diagonal entries (scaled)
+    // and their reciprocals
+#pragma unroll
+    for (int a = 0; a < NB; ++a) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int i = g.r + kGrid * a, k = g.c + kGrid * b;
+        pt.x[a][b] = (lower(a, b, g) && i < p && k < p) ? l[i * p + k] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < NB; ++a) {
+      const int i = g.r + kGrid * a;
+      if (i >= p) continue;
+      store_run(buf.l + i * kW + g.c * NB, pt.x[a]);
+      if (g.r == g.c) {
+        const float v = pt.x[a][a], sc = subnormal_scale(v);
+        buf.scale[i] = sc;
+        buf.diag[i] = v * sc;
+        buf.rdiag[i] = 1.f / (v * sc);
+      }
+    }
+    // Lbar' in its place, its lower triangle; each column's first row of
+    // a non-finite entry
+#pragma unroll
+    for (int a = 0; a < NB; ++a) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int i = g.r + kGrid * a, k = g.c + kGrid * b;
+        float v = 0.f;
+        if (lower(a, b, g) && i < p && k < p) {
+          v = lbar[i * p + k];
+          if (i == k && ldbar != nullptr) v += *ldbar / pt.x[a][a];
+          if (!isfinite(v)) shared_min(&buf.bad[k], i);
+        }
+        pt.x[a][b] = v;
+      }
+    }
+  });
+  team.sync();
+  team.each([&](Part& pt, int tid) {
+    pb_put_lbar<NB>(pt, buf, 0, 0, place(tid));
+  });
+  pb_product<NB, 0>(team, buf, p);
+  // the twins' zero terms (M[i][k] NaN below column k's first non-finite
+  // Lbar'), phi (the diagonal halved), then the first row of X
+  team.each([&](Part& pt, int tid) {
+    const Place g = place(tid);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int k = g.c + kGrid * b;
+      const int bad = k < p ? buf.bad[k] : p;
+#pragma unroll
+      for (int a = 0; a < NB; ++a)
+        if (a >= b && g.r + kGrid * a > bad && g.r + kGrid * a < p)
+          pt.x[a][b] = NAN;
+    }
+    if (g.r == g.c) {
+#pragma unroll
+      for (int a = 0; a < NB; ++a) pt.x[a][a] = pt.x[a][a] - 0.5f * pt.x[a][a];
+    }
+    pb_put_first<NB, false>(pt, buf, p, g);
+  });
+  pb_rows<NB, 0>(team, buf, p);
+  team.each([&](Part& pt, int tid) {
+    pb_put_first<NB, true>(pt, buf, p, place(tid));
+  });
+  pb_cols<NB, 0>(team, buf, p);
+  // raw through shared memory (every thread is past its last read of L),
+  // the diagonal threads' partial traces
+  const int st = p | 1;
+  team.sync();
+  team.each([&](Part& pt, int tid) {
+    const Place g = place(tid);
+    float tr = 0.f;
+#pragma unroll
+    for (int a = 0; a < NB; ++a) {
+      const int i = g.r + kGrid * a;
+      if (i >= p) continue;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int k = g.c + kGrid * b;
+        if (k < p) buf.l[i * st + k] = pt.x[a][b];
+      }
+      if (g.r == g.c) tr += 0.5f * (pt.x[a][a] + pt.x[a][a]);
+    }
+    if (g.r == g.c) buf.trace[g.r] = tr;
+  });
+  team.sync();
+  team.each([&](Part&, int tid) {
+    if (tid < p) {
+      for (int i = 0; i < p; ++i)
+        abar[i * p + tid] = 0.5f * (buf.l[i * st + tid] + buf.l[tid * st + i]);
+    }
+    if (tid == 0 && jbar != nullptr) {
+      float tr = 0.f;
+#pragma unroll
+      for (int r = 0; r < kGrid; ++r) tr += buf.trace[r];
+      *jbar = f * tr;
+    }
+  });
 }
 
 }  // namespace chol_tile

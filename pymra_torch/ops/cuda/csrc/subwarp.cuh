@@ -7,8 +7,7 @@
 // entries, fully unrolled, and the column steps exchange values with
 // __shfl_sync within the group; the Cholesky pullback (tri_solve.cu) gives
 // each lane one or two entries instead. Wider members take K2's
-// register-tiled core (chol_tile.cuh) and the pullback's shared-memory
-// kernel.
+// register-tiled core (chol_tile.cuh), the pullback its pullback mode.
 // A warp holds 32 / G members; lanes i >= P and members past the batch
 // ride along with zeros (every shuffle names the whole warp) and store
 // nothing.

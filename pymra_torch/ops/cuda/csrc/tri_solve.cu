@@ -58,7 +58,8 @@
 //
 // in float32 with the composition's operations in its order (phi keeps the
 // lower triangle and halves the diagonal; raw's rows are back substitutions
-// of X's rows against L^T). Terms with L's zero upper triangle are skipped.
+// of X's rows against L^T). Terms with L's zero upper triangle are skipped
+// (the pullback mode keeps their NaN where Lbar' is not finite).
 // The main paths hand it (4^m, 8) for m = 0..6 at N=10^6 and (4^m, 4) for
 // m = 0..3 at N=10^4, each level twice a value-and-gradient evaluation:
 // [4096, 8, 8] is 0.8 MB in and out, a few hundred flops a member, so a
@@ -76,8 +77,19 @@
 // Measured as above: 0.0084 ms at 4096 x 8 (one row a lane of 8-lane
 // groups before: 0.0186), 0.0041-0.0045 at 4^m x 8 up to 1024 members
 // (0.0136-0.0180), 0.0025 at 4^m x 4 (0.0053-0.0070).
-// 9 <= P <= 64 (dense-R blocks at P = 49): one member per block, one
-// thread per column, L and W/X/raw in shared memory (33 KB at P = 64).
+// Design, 9 <= P <= 64 (K2's backward at the leaves of the triangular
+// route, 256 x 49 at N=10^4 and 16384 x 64 at N=10^6; the dense-R blocks
+// at P = 49): the register-tiled core's pullback mode (chol_tile.cuh:
+// pullback), one 64-thread block a member at the width tier the host
+// passes; the whole square in registers on the core's tile map, L in
+// shared memory, three sweeps of p steps (the product, X's rows, raw's
+// columns) of one barrier each. It replaces a kernel of one thread a
+// column with L, W, X and raw in shared memory (33 KB at P = 64): every
+// step of its three chains of P^2 / 2 took two shared loads, a store and
+// an IEEE division, 15 of 64 threads idle at P = 49. Measured as above
+// (tools/kernel_scaling.py --pullback, both kernels in one call): 0.0372
+// ms at 256 x 49 and 1.046 at 16384 x 64, against 0.0914 and 3.458 for
+// the replaced kernel.
 //
 // Built without fast-math.
 
@@ -253,70 +265,23 @@ __global__ void __launch_bounds__(subwarp::kThreads)
   if (g == 0 && jbar != nullptr) jbar[member] = f[member] * tr;
 }
 
-__global__ void chol_pullback_block(const float* __restrict__ l,
-                                    const float* __restrict__ lbar,
-                                    const float* __restrict__ ldbar,
-                                    const float* __restrict__ f,
-                                    float* __restrict__ abar,
-                                    float* __restrict__ jbar, int p) {
-  extern __shared__ float smem[];
-  const int st = p | 1;
-  float* ls = smem;           // L, lower triangle
-  float* ws = smem + p * st;  // Lbar', then W, X and raw in place
-  const int member = blockIdx.x, c = threadIdx.x;
-  const float* lm = l + (size_t)member * p * p;
-  const float* lb = lbar + (size_t)member * p * p;
-  for (int e = c; e < p * p; e += blockDim.x) {
-    const int i = e / p, k = e - i * p;
-    if (k <= i) ls[i * st + k] = lm[e];
-    ws[i * st + k] = lb[e];
-  }
-  __syncthreads();
-  if (ldbar != nullptr && c < p)
-    ws[c * st + c] += ldbar[member] / ls[c * st + c];
-  __syncthreads();
-
-  if (c < p) {
-    // column c of W = phi(L^T Lbar'), rows up (row i reads rows >= i only)
-    for (int i = 0; i < p; ++i) {
-      float wv = 0.f;
-      if (i >= c) {
-        float mv = 0.f;
-        for (int t = i; t < p; ++t)
-          mv = fmaf(ls[t * st + i], ws[t * st + c], mv);
-        wv = i == c ? mv - 0.5f * mv : mv;
-      }
-      ws[i * st + c] = wv;
-    }
-    // column c of X = L^-T W
-    for (int j = p - 1; j >= 0; --j) {
-      const float xj = ws[j * st + c] / ls[j * st + j];
-      ws[j * st + c] = xj;
-      for (int i = 0; i < j; ++i) ws[i * st + c] -= ls[j * st + i] * xj;
-    }
-  }
-  __syncthreads();
-  if (c < p) {
-    // row c of raw = X L^-1, in place: this thread alone touches row c
-    float* y = ws + c * st;
-    for (int t = p - 1; t >= 0; --t) {
-      const float yt = y[t] / ls[t * st + t];
-      y[t] = yt;
-      for (int j = 0; j < t; ++j) y[j] -= ls[t * st + j] * yt;
-    }
-  }
-  __syncthreads();
-  if (c < p) {
-    float* out = abar + (size_t)member * p * p;
-    for (int i = 0; i < p; ++i)
-      out[i * p + c] = 0.5f * (ws[i * st + c] + ws[c * st + i]);
-  }
-  if (jbar != nullptr && c == 0) {
-    float tr = 0.f;
-    for (int i = 0; i < p; ++i)
-      tr += 0.5f * (ws[i * st + i] + ws[i * st + i]);
-    jbar[member] = f[member] * tr;
-  }
+// one block a member at 9 <= P <= 64: chol_tile.cuh's pullback mode
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+    chol_pullback_tile(const float* __restrict__ l,
+                       const float* __restrict__ lbar,
+                       const float* __restrict__ ldbar,
+                       const float* __restrict__ f, float* __restrict__ abar,
+                       float* __restrict__ jbar, int p) {
+  __shared__ __align__(16) chol_tile::PullbackBuffers<NB> buf;
+  const int member = blockIdx.x;
+  const size_t off = (size_t)member * p * p;
+  BlockTeam<chol_tile::PullbackPart<NB>> team;
+  chol_tile::pullback<NB>(team, buf, l + off, lbar + off,
+                          ldbar != nullptr ? ldbar + member : nullptr,
+                          abar + off,
+                          jbar != nullptr ? jbar + member : nullptr,
+                          f != nullptr ? f[member] : 0.f, p);
 }
 
 template <int G>
@@ -356,13 +321,19 @@ extern "C" int pymra_tri_solve(const void* l, const void* b, void* x,
   return (int)cudaGetLastError();
 }
 
-// The fused Cholesky pullback for P <= 64: the lane kernel up to
-// subwarp::kMaxP, the block kernel above. `ldbar` may be null (no
-// log-determinant cotangent); with `f` null no jbar is written.
+// The fused Cholesky pullback for P <= 64. `tier` is the route the host
+// chose for p: 0 the lane kernel (p <= subwarp::kMaxP), or the core's width
+// tier (16, 32, 48 or 64, at least p) for the pullback mode, one block a
+// member. `ldbar` may be null (no log-determinant cotangent); with `f` null
+// no jbar is written. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a route that cannot take p.
 extern "C" int pymra_chol_pullback(const void* l, const void* lbar,
                                    const void* ldbar, const void* f,
                                    void* abar, void* jbar, int batch, int p,
-                                   int device, void* stream) {
+                                   int tier, int device, void* stream) {
+  const int nb = chol_tile::tier_nb(tier);
+  if (p < 1 || (tier == 0 ? p > subwarp::kMaxP : (nb == 0 || p > tier)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = subwarp::use_device(device);
   if (err != cudaSuccess) return (int)err;
   const float* lv = (const float*)l;
@@ -372,14 +343,21 @@ extern "C" int pymra_chol_pullback(const void* l, const void* lbar,
   float* av = (float*)abar;
   float* jv = f != nullptr ? (float*)jbar : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p <= subwarp::kMaxP) {
+  if (tier == 0) {
     if (subwarp::group_size(p) == 4)
       launch_pullback<4>(lv, lb, ld, fv, av, jv, batch, p, s);
     else
       launch_pullback<8>(lv, lb, ld, fv, av, jv, batch, p, s);
     return (int)cudaGetLastError();
   }
-  const size_t smem = 2 * (size_t)p * (p | 1) * sizeof(float);
-  chol_pullback_block<<<batch, 64, smem, s>>>(lv, lb, ld, fv, av, jv, p);
+  auto launch = [&](auto kernel) {
+    kernel<<<batch, kThreads, 0, s>>>(lv, lb, ld, fv, av, jv, p);
+  };
+  switch (nb) {
+    case 2: launch(chol_pullback_tile<2>); break;
+    case 4: launch(chol_pullback_tile<4>); break;
+    case 6: launch(chol_pullback_tile<6>); break;
+    default: launch(chol_pullback_tile<8>); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,9 @@ custom VJP, or a composition of such):
 * :func:`cholesky_pullback` — the Cholesky pullback of K2 and K4 (and KC
   up to P = 64) in one launch: product, both K5 substitutions and the
   symmetrization of the JAX package's ``_cholesky_bwd``;
-  ``ops/cuda/csrc/tri_solve.cu``.
+  ``ops/cuda/csrc/tri_solve.cu``: one entry a lane up to P = 8, the
+  register-tiled core's pullback mode for 9 <= P <= 64 (route from
+  :func:`jittered_tier`).
 * :func:`cholesky_jittered` — lower Cholesky factor of ``A + f*jit*I``
   with per-member jitter escalation (replaces K2,
   ``_chol_jittered_kernel``); ``ops/cuda/csrc/cholesky_jittered.cu``:
@@ -54,8 +56,9 @@ A CPU tensor runs the plain PyTorch twin (``*_ref``), an explicit batched
 column loop with the kernel's arithmetic (K8 and KC: the same composition
 over the twins). A CUDA tensor launches the hand written kernel or raises;
 there is no fallback. Each wrapper counts its kernel launches in
-``.launches`` (K8 and KC count their calls at other widths, which compose
-other kernels, in ``.composed``); each twin counts the calls it gets with
+``.launches`` (K3's wide kernel in ``.wide_launches``, KP's pullback mode
+in ``.tile_launches``; K8 and KC count their calls at other widths, which
+compose other kernels, in ``.composed``); each twin counts the calls it gets with
 CUDA tensors in ``.cuda_calls`` (only kernel-versus-twin comparisons make
 any). The twins update in place, so the Functions run them (and the
 kernels) without autograd and differentiate by their own backward, which
@@ -668,7 +671,10 @@ def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
     JAX package's ``_cholesky_bwd`` and ``_cholesky_jittered_bwd``.
 
     On the card one launch for P <= 64 (the backward passes call it under
-    ``once_differentiable``; it is not differentiable itself); on the CPU
+    ``once_differentiable``; it is not differentiable itself): up to P = 8
+    the lane kernel (counted in ``cholesky_pullback.launches``), for 9 <= P
+    <= 64 the register-tiled core's pullback mode at :func:`tile_tier`
+    (in ``.tile_launches``; route from :func:`jittered_tier`); on the CPU
     the twin :func:`cholesky_pullback_ref`."""
     if l.device.type == "cpu":
         return cholesky_pullback_ref(l, lbar, ldbar, f)
@@ -684,14 +690,19 @@ def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
     jbar = None if f is None else torch.empty_like(f)
     n = abar.numel() // (p * p)
     if n:
+        tier = jittered_tier(p)
         _launched("cholesky_pullback", lib.pymra_chol_pullback(
             l.data_ptr(), lbar.data_ptr(), _ptr(ldbar), _ptr(f),
-            abar.data_ptr(), _ptr(jbar), n, p, *_where(l)))
-        cholesky_pullback.launches += 1
+            abar.data_ptr(), _ptr(jbar), n, p, tier, *_where(l)))
+        if tier:
+            cholesky_pullback.tile_launches += 1
+        else:
+            cholesky_pullback.launches += 1
     return abar, jbar
 
 
 cholesky_pullback.launches = 0
+cholesky_pullback.tile_launches = 0
 
 
 def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):

@@ -301,6 +301,41 @@ def test_kernel_scaling_times_k2_and_its_pullback_at_the_side_shapes(
     assert reps == [10] * 6 + [chip_smoke.PULLBACK_DEVICE_REPS]
 
 
+def test_kernel_scaling_times_the_pullback_mode_by_width_and_batch(
+        monkeypatch):
+    # tools/kernel_scaling.py --pullback on CPU tensors, its timers
+    # replaced by the host clock: a row per (B, P) with its bound; the
+    # kernel's usage read from the build directory (none here), and the
+    # occupancy rules of sm_90 (K4's 80 registers gave 12 blocks an SM)
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_scaling", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                       "tools", "kernel_scaling.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    reps = []
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=10: _host_timer(fn, 1))
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=10: (
+        reps.append(n) or _host_timer(fn, 1), 1.0))
+    monkeypatch.setattr(ks, "resource_usage", lambda pattern: {
+        "_ZN12_GLOBAL__N_118chol_pullback_tileILi4EEEvPKfS2_S2_S2_PfS3_i":
+            {"regs": 80, "stack": 0, "shared": 9000, "local": 0}})
+    res = ks._time_pullback(np.random.default_rng(0), "cpu", widths=(9, 17),
+                            batches=(4,))
+    assert set(res) == {"cholesky_pullback 4x9x9", "cholesky_pullback 4x17x17"}
+    assert reps == [chip_smoke.PULLBACK_DEVICE_REPS] * 2
+    assert res["cholesky_pullback 4x9x9"]["kernel"] is None
+    row = res["cholesky_pullback 4x17x17"]
+    assert row["kernel"] == "chol_pullback_tile<4>" and row["regs"] == 80
+    assert row["blocks_per_sm"] == 12 and row["bound_ms"] > 0
+    assert ks.occupancy(80, 0) == 12 and ks.occupancy(64, 0) == 16
+    # the kernel it replaced: 33 KB of dynamic shared memory at P = 64
+    assert ks.occupancy(40, 2 * 64 * 65 * 4) == 6
+
+
 def test_solve_and_pullback_are_timed_at_their_paths_shapes(monkeypatch):
     # K5's record is the one call the dense-R path makes per evaluation
     # (phase 10's tree and R: yw = L_R^-1 y0 at the 256 leaves of 49,
@@ -346,13 +381,14 @@ def test_backward_phase_passes_with_twins():
         timer=_host_timer,
         dev_timer=_no_device_timer, pullback_side=((5, 17),))
     assert err == dict.fromkeys(
-        ["cholesky_pullback", "cholesky_jittered", "leaf_factor",
-         "cholesky_logdet", "cholesky_inv_logdet", "cholesky_cascade",
-         "cholesky_blocked"], 0.0)
-    # the pullback is also checked and timed at the side paths' shapes
+        ["cholesky_pullback", "cholesky_pullback_tile", "cholesky_jittered",
+         "leaf_factor", "cholesky_logdet", "cholesky_inv_logdet",
+         "cholesky_cascade", "cholesky_blocked"], 0.0)
+    # the pullback is also checked and timed at the side paths' shapes,
+    # above P = 8 under the record of its pullback mode
     assert set(times) == {("cholesky_jittered_backward", 8, 4),
                           ("cholesky_pullback", 8, 4),
-                          ("cholesky_pullback", 5, 17)}
+                          ("cholesky_pullback_tile", 5, 17)}
     assert times["cholesky_jittered_backward", 8, 4]["ms"] > 0
     assert times["cholesky_pullback", 8, 4]["library_ms"] is None
 
@@ -810,13 +846,52 @@ def test_kernel_phase_checks_and_times_the_side_shapes():
     assert ("cholesky_inv_logdet", 4, 33) not in times
 
 
-def test_tri_n1m_phase_passes_on_small_inputs():
-    side = 40
-    n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
-                               golden=_flagship_golden(side), n_evals=1)
+@pytest.fixture(scope="module")
+def tri_n1m_inputs():
+    """Phase 5 on a 128^2 grid (leaves of 64; the five-point check's
+    float32 noise sits well inside its tolerance there, as in phase 8's
+    rehearsal) and its float64 objective as the golden."""
+    side = 128
+    golden = _flagship_golden(side)
+    return chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                                golden=golden, n_evals=1), golden
+
+
+def test_tri_n1m_phase_passes_on_small_inputs(tri_n1m_inputs):
+    # the objective, the likelihood-only and value-and-gradient timings on
+    # both routes, the triangular route's gradient against the difference
+    n1m, golden = tri_n1m_inputs
     out = chip_smoke.phase_tri_n1m(n1m, "cpu", timer=_host_timer,
-                                   golden=_flagship_golden(side), n_evals=1)
-    assert set(out) == set(chip_smoke.ROUTES)
+                                   golden=golden, n_evals=1, n_grad=1,
+                                   pairs=2)
+    for key in ("ms_fwd", "ms_grad"):
+        assert set(out[key]) == set(chip_smoke.ROUTES)
+    assert all(len(v) == 2 for v in out["ms_grad"].values())
+    for k in ("l", "sig"):
+        assert abs(out["ad"][k] - out["fd"][k]) <= (
+            chip_smoke.FD_RTOL * abs(out["fd"][k]))
+
+
+def test_tri_n1m_phase_rejects_a_wrong_leaf_pullback(tri_n1m_inputs,
+                                                     monkeypatch):
+    # K2's backward at the leaves (the pullback above P = 8, the card's
+    # pullback mode) returning half its Abar: the triangular route's
+    # gradient leaves the five-point difference
+    n1m, golden = tri_n1m_inputs
+    real = tl.cholesky_pullback
+
+    def half(l, lbar, ldbar=None, f=None):
+        abar, jbar = real(l, lbar, ldbar, f)
+        if tl.jittered_tier(l.shape[-1]) == 0:
+            return abar, jbar
+        return 0.5 * abar, None if jbar is None else 0.5 * jbar
+
+    half.launches = half.tile_launches = 0  # the wrapper's counters
+    monkeypatch.setattr(tl, "cholesky_pullback", half)
+    with pytest.raises(SystemExit, match="off the difference"):
+        chip_smoke.phase_tri_n1m(n1m, "cpu", timer=_host_timer,
+                                 golden=golden, n_evals=1, n_grad=1,
+                                 pairs=1)
 
 
 # ---------------------------------------------------------------------------

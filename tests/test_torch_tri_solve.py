@@ -1,5 +1,6 @@
-"""K5 ``solve_triangular_batched`` on the card — ``tri_solve.cu``, the
-register-tiled core's solve mode — held here by what runs on the CPU.
+"""K5 ``solve_triangular_batched`` and KP ``cholesky_pullback`` at 9 <= P
+<= 64 on the card — ``tri_solve.cu``, the register-tiled core's solve and
+pullback modes — held here by what runs on the CPU.
 
 * The core's solve mode (``chol_tile::solve``: the tile map of L, X on a
   (64 / C) x C grid of threads, one step a column with its buffers, and
@@ -12,6 +13,17 @@ register-tiled core's solve mode — held here by what runs on the CPU.
   subnormal diagonal entry, an inverse that overflows); the threads run in
   either order give the same bits (no two threads touch one buffer entry
   between two barriers).
+* The core's pullback mode (``chol_tile::pullback``: the whole square on
+  the tile map, L in shared memory, the product and the two substitution
+  sweeps; a subnormal diagonal entry's row and column scaled into the
+  quotient's range, the twin's zero terms for a non-finite Lbar'), from
+  the same host build, against the twin ``cholesky_pullback_ref`` at P in
+  {9, 16, 17, 33, 49, 64} with and without ``ldbar`` and ``f``, on
+  ``chip_smoke.chol_case``'s factors (escalated members and an all-fail
+  NaN member), one with a subnormal diagonal entry and one with an inf in
+  Lbar: within phase 3b's 1e-5 + 1e-4 max|twin| of each member (the
+  twin's product is a matmul, summed in another order), NaN and inf
+  patterns identical; the threads in either order give the same bits.
 * The twin against the JAX K5 (its Pallas kernel interpreted on the CPU,
   as ``tests/test_pallas.py`` runs it) at the paths' shapes: one
   right-hand side at P = 49 (the dense-R whitening) and 8 x 8, both
@@ -93,11 +105,41 @@ extern "C" int solve(const float* l, const float* b, float* x, int* ok,
       }
   });
 }
+
+// KP's pullback mode on every member as the card's blocks run it (ldbar
+// and f may be null: no jbar then)
+extern "C" int pullback(const float* l, const float* lbar,
+                        const float* ldbar, const float* f, float* abar,
+                        float* jbar, long batch, int p, int tier, int rev) {
+  auto run = [&](auto nbv) {
+    constexpr int NB = decltype(nbv)::value;
+    using Part = chol_tile::PullbackPart<NB>;
+    for (long m = 0; m < batch; ++m) {
+      auto* team = new HostTeam<Part>();
+      auto* buf = new chol_tile::PullbackBuffers<NB>();
+      team->rev = rev;
+      chol_tile::pullback<NB>(*team, *buf, l + m * p * p, lbar + m * p * p,
+                              ldbar ? ldbar + m : nullptr, abar + m * p * p,
+                              f ? jbar + m : nullptr, f ? f[m] : 0.f, p);
+      delete buf;
+      delete team;
+    }
+    return 1;
+  };
+  switch (chol_tile::tier_nb(tier)) {
+    case 2: return run(chol_tile::Int<2>());
+    case 4: return run(chol_tile::Int<4>());
+    case 6: return run(chol_tile::Int<6>());
+    case 8: return run(chol_tile::Int<8>());
+    default: return 0;
+  }
+}
 """
 
 
 @pytest.fixture(scope="module")
-def host_solve(tmp_path_factory):
+def host_lib(tmp_path_factory):
+    """The core's solve and pullback modes, one host build for both."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     from pymra_torch.ops.cuda import build
@@ -110,7 +152,12 @@ def host_solve(tmp_path_factory):
     subprocess.run(["g++", "-O2", "-ffp-contract=off", "-std=c++17",
                     "-shared", "-fPIC", "-I", str(tmp), "-I", csrc,
                     str(tmp / "main.cpp"), "-o", str(so)], check=True)
-    fn = ctypes.CDLL(str(so)).solve
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_solve(host_lib):
+    fn = host_lib.solve
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 6
 
     def solve(lt, b, trans, rev=False):
@@ -149,6 +196,64 @@ def test_core_solve_is_the_twin(host_solve, p):
             x_rev, _ = host_solve(lt, b, trans, rev=True)
             np.testing.assert_array_equal(x_rev.view(np.uint32),
                                           x.view(np.uint32))
+
+
+@pytest.fixture(scope="module")
+def host_pullback(host_lib):
+    fn = host_lib.pullback
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long] + [ctypes.c_int] * 3
+
+    def pullback(lt, lbar, ldbar=None, f=None, rev=False):
+        lt, lbar = (np.ascontiguousarray(x, np.float32) for x in (lt, lbar))
+        b, p = lt.shape[:2]
+        abar = np.full_like(lt, np.float32(7.0))
+        jbar = np.full(b, np.float32(7.0))
+        ld, fv = (None if x is None else np.ascontiguousarray(x, np.float32)
+                  for x in (ldbar, f))
+        assert fn(lt.ctypes.data, lbar.ctypes.data,
+                  None if ld is None else ld.ctypes.data,
+                  None if fv is None else fv.ctypes.data, abar.ctypes.data,
+                  jbar.ctypes.data, b, p, tl.tile_tier(p), int(rev))
+        return abar, (None if f is None else jbar)
+    return pullback
+
+
+@pytest.mark.parametrize("p", [9, 16, 17, 33, 49, 64])
+def test_core_pullback_is_the_twin(host_pullback, p):
+    # K2's factors of chol_case (member 1 and 2 escalated, member 3 the
+    # all-fail NaN factor), member 4 with a subnormal diagonal entry (its
+    # row and column scaled by 2^64 before the quotient; with ldbar its
+    # ldbar / L[j][j] may overflow) and member 5
+    # with an inf in Lbar's lower triangle (the twin's product turns it
+    # into NaN below it through L's zeros above the diagonal)
+    rng = np.random.default_rng(100 + p)
+    m, jit = chip_smoke.chol_case(rng, 7, p)
+    l, _, f = tl.cholesky_jittered_ref(torch.as_tensor(m),
+                                       torch.as_tensor(jit))
+    lt = l.numpy().copy()
+    lt[4, p // 2, p // 2] = 1e-39
+    lbar = rng.standard_normal(lt.shape).astype(np.float32)
+    lbar[5, p // 2, 1] = np.inf
+    ldbar = rng.standard_normal(7).astype(np.float32)
+    f = f.numpy()
+    for ld, ff in ((None, None), (ldbar, f), (ldbar, None), (None, f)):
+        abar, jbar = host_pullback(lt, lbar, ld, ff)
+        want = tl.cholesky_pullback_ref(
+            *(None if x is None else torch.as_tensor(x)
+              for x in (lt, lbar, ld, ff)))
+        got = [torch.as_tensor(abar)] + (
+            [] if ff is None else [torch.as_tensor(jbar)])
+        want = [want[0]] + ([] if ff is None else [want[1]])
+        chip_smoke.compare(f"pullback P={p}", got, want, per_member=True)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            assert torch.equal(torch.isinf(g), torch.isinf(w))
+        assert torch.isfinite(got[0][[0, 1, 2, 6]]).all()
+        assert torch.isnan(got[0][3]).all()
+        assert torch.isnan(got[0][5]).any()
+        rev = host_pullback(lt, lbar, ld, ff, rev=True)
+        np.testing.assert_array_equal(rev[0].view(np.uint32),
+                                      abar.view(np.uint32))
 
 
 @pytest.mark.parametrize("trans", [False, True])

@@ -15,7 +15,7 @@ exponents, the per-member time and the rate of useful float32 operations
 root of the tree to time on a machine with an NVIDIA GPU::
 
     python3 tools/kernel_scaling.py [--out FILE] [--quick | --logdet |
-                                     --solve | --jittered]
+                                     --solve | --jittered | --pullback]
 
 ``--quick`` times P = 64, B = 16384 and K3 at 4096 x 256 only.
 ``--logdet`` times K6 ``cholesky_logdet`` and K7 ``cholesky_inv_logdet``
@@ -36,6 +36,13 @@ and ``chip_smoke.CHOL_SIDE``, on the clean batch beside its library call
 (``chip_smoke.LIBRARY``) and on ``chip_smoke.chol_case`` (escalated and
 all-fail members), and its backward, the fused ``cholesky_pullback``, at
 ``CHOL_SIDE`` on phase 3b's inputs, per call and on the device alone.
+``--pullback`` times the fused ``cholesky_pullback`` at the widths of its
+9 <= P <= 64 route (``PULLBACK_WIDTHS``) at the triangular route's batches
+B = 256 and 16384 (N=10^4 and N=10^6), on phase 3b's inputs: ms a call,
+device ms over ``chip_smoke.PULLBACK_DEVICE_REPS`` launches, the share of
+the bound (``chip_smoke.work``) the device time reaches, and the kernel's
+registers a thread and shared memory (``cuobjdump -res-usage`` of the
+built library) with the blocks an SM they allow (``occupancy``).
 
 The kernels timed are the package of the working directory's tree;
 ``chip_smoke``'s helpers are those of the tree this tool lies in, so the
@@ -45,6 +52,7 @@ the older tree's root as ``python3 NEWER/tools/kernel_scaling.py``.
 import argparse
 import json
 import os
+import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -237,6 +245,111 @@ def _time_solve(rng, device="cuda"):
     return res
 
 
+#: KP's widths above P = 8 (the tiers' edges and the paths' 49 and 64) and
+#: the triangular route's leaf batches
+PULLBACK_WIDTHS = (9, 16, 17, 32, 33, 48, 49, 64)
+PULLBACK_BATCHES = (256, 16384)
+#: Hopper (sm_90) per SM: registers (allocated to a warp in units of 256),
+#: shared memory and the part of it each block reserves (bytes), blocks
+#: and warps
+SM_REGS, SM_SMEM, BLOCK_RESERVED, SM_BLOCKS, SM_WARPS = (
+    65536, 233472, 1024, 32, 64)
+USAGE_RE = re.compile(r"Function (\S+):\s*REG:(\d+)\s+STACK:(\d+)\s+"
+                      r"SHARED:(\d+)\s+LOCAL:(\d+)")
+
+
+def occupancy(regs: int, smem: int, threads: int = 64) -> int:
+    """Blocks an SM of ``threads`` threads with ``regs`` registers a
+    thread and ``smem`` bytes of shared memory (static and dynamic), by the
+    occupancy rules of sm_90."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = min(SM_REGS // per_warp, SM_WARPS) // warps if regs else \
+        SM_BLOCKS
+    by_smem = SM_SMEM // (smem + BLOCK_RESERVED)
+    return min(SM_BLOCKS, SM_WARPS // warps, by_regs, by_smem)
+
+
+def resource_usage(lib_glob: str) -> dict:
+    """``{mangled kernel name: {"regs", "stack", "shared", "local"}}`` of
+    the newest built library matching ``lib_glob`` in the timed package's
+    build directory, from ``cuobjdump -res-usage``; empty where the tool or
+    the library is missing."""
+    import glob
+    import subprocess
+
+    from pymra_torch.ops import BUILD_DIR
+    from pymra_torch.ops.cuda import build
+
+    libs = sorted(glob.glob(os.path.join(BUILD_DIR, lib_glob)),
+                  key=os.path.getmtime)
+    if not libs:
+        return {}
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    res = subprocess.run([tool, "-res-usage", libs[-1]], capture_output=True,
+                         text=True, timeout=120)
+    return {m[1]: dict(zip(("regs", "stack", "shared", "local"),
+                           map(int, m.groups()[1:])))
+            for m in USAGE_RE.finditer(res.stdout)}
+
+
+def _pullback_kernel(usage: dict, p: int):
+    """(name, usage, dynamic shared bytes) of the kernel the pullback
+    launches at 9 <= P <= 64 in the timed tree: the core's pullback mode
+    at the tier's NB, or the thread-per-column kernel it replaced."""
+    from pymra_torch.ops import linalg as tl
+
+    nb = tl.tile_tier(p) // 8
+    for key, use in usage.items():
+        if f"chol_pullback_tileILi{nb}E" in key:
+            return f"chol_pullback_tile<{nb}>", use, 0
+    for key, use in usage.items():
+        if "chol_pullback_block" in key:
+            return "chol_pullback_block", use, 2 * p * (p | 1) * 4
+    return None, None, 0
+
+
+def _time_pullback(rng, device="cuda", widths=PULLBACK_WIDTHS,
+                   batches=PULLBACK_BATCHES):
+    """The pullback at ``widths`` x ``batches``: ms a call, device ms,
+    launches a call, the bound and the device time's share of it, and the
+    kernel's registers, shared memory and blocks an SM."""
+    from pymra_torch.ops import linalg as tl
+
+    usage = resource_usage("libpymra_tri_solve_*.so")
+    res = {}
+    for b in batches:
+        for p in widths:
+            key = f"cholesky_pullback {b}x{p}x{p}"
+            args = _pullback_inputs(rng, b, p, device)
+            row = _run(key, lambda: tl.cholesky_pullback(*args),
+                       cs.PULLBACK_DEVICE_REPS)
+            b_ms, b_by = cs.bound_ms(*cs.work(
+                "cholesky_pullback", list(args),
+                list(tl.cholesky_pullback(*args))))
+            dev = row["device_ms"]
+            name, use, dyn = _pullback_kernel(usage, p)
+            row.update(bound_ms=b_ms, bound_by=b_by,
+                       device_bound_share=None if dev is None else b_ms / dev,
+                       kernel=name)
+            if use is not None:
+                row.update(regs=use["regs"], local_bytes=use["local"],
+                           shared_bytes=use["shared"] + dyn,
+                           blocks_per_sm=occupancy(use["regs"],
+                                                   use["shared"] + dyn))
+            res[key] = row
+            print(f"  bound {b_ms:.4f} ms ({b_by}), "
+                  f"{'n/m' if dev is None else f'{100 * b_ms / dev:.1f}%'}"
+                  f" of the device time; {name}: "
+                  + ("usage not measured" if use is None else
+                     f"{use['regs']} registers a thread, {use['local']} "
+                     f"bytes local, {use['shared'] + dyn} bytes shared, "
+                     f"{row['blocks_per_sm']} blocks an SM"), flush=True)
+    return res
+
+
 def _wide_case(rng, b, p):
     import torch
 
@@ -254,6 +367,7 @@ def main():
     parser.add_argument("--logdet", action="store_true")
     parser.add_argument("--solve", action="store_true")
     parser.add_argument("--jittered", action="store_true")
+    parser.add_argument("--pullback", action="store_true")
     args = parser.parse_args()
     card = cs.phase_device()
     cs.phase_build()
@@ -267,6 +381,9 @@ def main():
         return
     if args.jittered:
         _report({"card": card, "jittered": _time_jittered(rng)}, args.out)
+        return
+    if args.pullback:
+        _report({"card": card, "pullback": _time_pullback(rng)}, args.out)
         return
     if args.quick:
         _time(MAIN_B, 64, *_cases(rng, MAIN_B, 64))
