@@ -79,7 +79,23 @@ non-zero exit code and no result line:
 13b. a short NUTS at N=10^6 on phase 5's tree and data, from phase 8's
    fit (run before phase 5's plan is freed): finite draws and log_prob,
    ms per draw, acceptance, divergences and the roughness;
-14. launch counters over phases 13-13b: K1-K4 and the pullback launched,
+13c. parameter sets batched through one sweep: ``MRAModel.loglik_fn(...,
+   batched=True)`` at 4 sets on phase 4's N=10^4 tree and phase 5's N=10^6
+   plan and data (R=1e-2): loglik and gradient against each set evaluated
+   alone on the card (phase 20's limits: 1e-5 and 1e-4),
+   kernel launches per batched evaluation equal to one single
+   evaluation's, ms per batched and per single evaluation, peak memory;
+13d. phase 13's samplers batched on its model, from its starts, run
+   lengths and generator seed: NUTS and HMC chains in lockstep, ADVI's
+   draws and SMC's particles in one evaluation; phase 13's checks (NUTS's
+   acceptance range, ``check_samples``, each chain's last draw against its
+   batch evaluated again); ms per draw beside phase 13's, evaluations per
+   transition (batched calls: the most among the chains; points: the mean
+   over them), agreement with phase 13's draws;
+13e. phase 13b's NUTS with 4 chains in lockstep on phase 5's N=10^6 plan
+   and data: finite draws, the last draws against their batch, ms per draw
+   beside 13b's, evaluations per transition, peak memory;
+14. launch counters over phases 13-13e: K1-K4 and the pullback launched,
    no twin ran on a CUDA tensor;
 15. a dense covariance matrix at N=10^4: ``MRATree`` with the exponential
    (l=2) as an ``[N, N]`` float32 matrix on the card (index-mode plan,
@@ -129,7 +145,8 @@ non-zero exit code and no result line:
    log_prob matches a serial evaluation. A rank that fails or hangs fails
    the phase: the ranks are joined by a deadline and killed past it.
 
-Phases 13-14, 18b, 20 and 20b run after phase 9, before phase 10; phases
+Phases 13-14 (13c-13e included), 18b, 20 and 20b run after phase 9,
+before phase 10; phases
 15-19 after phase 12. Times of phases 20-20b come from ranks that share
 one card: they are not a scaling figure. Phase 3 also times K2, K5 and K6 at the side paths'
 shapes (``CHOL_SIDE``, ``SOLVE_SIDE``, ``LOGDET_SIDE``).
@@ -1745,41 +1762,80 @@ def log_posterior(f):
 
     def logp(theta):
         prior = sum(-0.5 * (theta[k] / PRIOR_SD) ** 2 for k in SAMPLER_PARAMS)
-        return f(natural(theta)) + prior
+        value = f(natural(theta))
+        # a batch's [C] prior on the host goes to the loglik's device (a
+        # 0-dim one meets it as a scalar)
+        return value + (prior.to(value.device) if prior.dim() else prior)
 
     return logp
 
 
-def _key(theta) -> tuple:
-    return tuple(float(theta[k].detach()) for k in sorted(theta))
+def _key(theta, row=None) -> tuple:
+    """The parameter values of a point (``row`` of a batch of them)."""
+    return tuple(float(theta[k].detach() if row is None
+                       else theta[k].detach()[row]) for k in sorted(theta))
 
 
 class CountingLogProb:
-    """A sampler's ``log_prob_fn``: counts its evaluations and keeps each
-    one's value and the gradient the sampler's backward pass sent to its
-    parameters, keyed by the parameter values."""
+    """A sampler's ``log_prob_fn``: counts its evaluations (``calls``) and
+    the points they evaluated (``rows``: a batched call, whose leaves carry
+    a leading ``[k]`` axis, evaluates ``k``), and keeps each point's value
+    and the gradient the sampler's backward pass sent to its parameters,
+    keyed by the parameter values; a batched call's points also keep the
+    whole batch and their row in it."""
 
     def __init__(self, fn):
-        self.fn, self.calls, self.seen = fn, 0, {}
+        self.fn, self.calls, self.rows, self.seen = fn, 0, 0, {}
 
     def __call__(self, theta):
         self.calls += 1
-        rec = self.seen[_key(theta)] = {"grad": {}}
+        lead = theta[SAMPLER_PARAMS[0]].shape
+        if not lead:
+            self.rows += 1
+            recs = [{"grad": {}}]
+            self.seen[_key(theta)] = recs[0]
+        else:
+            self.rows += lead[0]
+            batch = {k: t.detach().clone() for k, t in theta.items()}
+            recs = [{"grad": {}, "batch": batch, "row": i}
+                    for i in range(lead[0])]
+            for i, rec in enumerate(recs):
+                self.seen[_key(theta, i)] = rec
+        def keep(g, k):
+            for rec, gi in zip(recs, g.reshape(-1).tolist()):
+                rec["grad"][k] = gi
+
         for k, t in theta.items():
             if t.requires_grad:
-                t.register_hook(lambda g, k=k: rec["grad"].update(
-                    {k: float(g)}))
+                t.register_hook(lambda g, k=k: keep(g, k))
         value = self.fn(theta)
-        rec["value"] = float(value.detach())
+        for rec, v in zip(recs, value.detach().reshape(-1).tolist()):
+            rec["value"] = v
         return value
+
+
+def fresh_evaluation(logp, rec, theta):
+    """``logp``'s value and gradient evaluated again where ``rec`` was:
+    at ``theta`` (0-dim leaves), or for a point of a batched call at that
+    call's whole batch again (``logp`` batched), read at its row."""
+    if "batch" in rec:
+        theta = {k: v.clone().requires_grad_(True)
+                 for k, v in rec["batch"].items()}
+    value = logp(theta)
+    value.sum().backward()
+    row = rec.get("row", 0)
+    return (float(value.detach().reshape(-1)[row]),
+            {k: float(theta[k].grad.reshape(-1)[row])
+             for k in SAMPLER_PARAMS})
 
 
 def check_last_draws(tag, res, counter, logp) -> float:
     """Each chain's last draw: the log_prob the sampler recorded there, and
     the value and gradient its evaluation there returned, held to ``logp``
     evaluated again (catches a sampler, or a ``log_prob_fn``, that carries a
-    stale value or gradient). Returns the largest difference relative to
-    ``max(1, |log_prob|)``."""
+    stale value or gradient); after a batched run ``logp`` is the batched
+    log posterior and evaluates that evaluation's batch again. Returns the
+    largest difference relative to ``max(1, |log_prob|)``."""
     worst = 0.0
     for c in range(res.log_prob.shape[0]):
         theta = {k: res.samples[k][c, -1].clone().requires_grad_(True)
@@ -1787,18 +1843,15 @@ def check_last_draws(tag, res, counter, logp) -> float:
         rec = counter.seen.get(_key(theta))
         check(rec is not None, f"{tag} chain {c}: no evaluation at its last "
                                "draw")
-        value = logp(theta)
-        value.backward()
-        v = float(value.detach())
+        v, grad = fresh_evaluation(logp, rec, theta)
         diffs = [abs(float(res.log_prob[c, -1]) - v), abs(rec["value"] - v)]
-        diffs += [abs(rec["grad"].get(k, np.nan) - float(theta[k].grad))
+        diffs += [abs(rec["grad"].get(k, np.nan) - grad[k])
                   for k in SAMPLER_PARAMS]
         scale = max(1.0, abs(v))
         check(all(d <= REEVAL_RTOL * scale for d in diffs),
               f"{tag} chain {c}: log_prob {float(res.log_prob[c, -1])!r}, "
               f"evaluation {rec['value']!r} with gradient {rec['grad']} at "
-              f"the last draw; evaluated again {v!r} with gradient "
-              f"{ {k: float(theta[k].grad) for k in SAMPLER_PARAMS} } "
+              f"the last draw; evaluated again {v!r} with gradient {grad} "
               f"(limit {REEVAL_RTOL} of {scale:.6g})")
         worst = max(worst, max(diffs) / scale)
     return worst
@@ -1953,6 +2006,23 @@ def _fit(tag, f, steps) -> dict:
     return fit["theta"]
 
 
+def smc_prior(x_mle):
+    """SMC's prior, a normal of ``SMC_PRIOR_SD`` in log-space around the
+    MLE: its log density (of 0-dim leaves, or of a batch of them) and one
+    draw from a generator."""
+    import torch
+
+    def log_prior(theta):
+        return sum(-0.5 * ((theta[k] - x_mle[k]) / SMC_PRIOR_SD) ** 2
+                   for k in SAMPLER_PARAMS)
+
+    def prior_sample(g):
+        return {k: x_mle[k] + SMC_PRIOR_SD * torch.randn(
+            (), generator=g, dtype=torch.float64) for k in SAMPLER_PARAMS}
+
+    return log_prior, prior_sample
+
+
 def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
                    R=SAMPLER_R, rough_rs=ROUGH_RS, runs=SAMPLER_RUNS,
                    mle_steps=10, timer=time_ms, wrap=None,
@@ -1994,11 +2064,14 @@ def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
                                                  dtype=torch.float64)
                 for k in SAMPLER_PARAMS}
 
-    out = {"mle": mle}
+    # phase 13d runs the same samplers batched on this model, from the same
+    # start and generators
+    out = {"mle": mle, "model": model, "y": y, "x_mle": x_mle, "results": {}}
     kw = dict(runs["nuts"])
     chains = kw.pop("chains")
     counter = CountingLogProb(target)
     res, wall = _timed(lambda: nuts(counter, init(chains), gen, **kw))
+    out["results"]["nuts"] = res
     out["nuts"] = _chain_report(
         "NUTS", res, chains * (kw["num_warmup"] + kw["num_samples"]),
         counter, wall, ms_mle, logp, x_mle, replay, res.num_divergent)
@@ -2016,6 +2089,7 @@ def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
     chains = kw.pop("chains")
     counter = CountingLogProb(target)
     res, wall = _timed(lambda: hmc(counter, init(chains), gen, **kw))
+    out["results"]["hmc"] = res
     out["hmc"] = _chain_report(
         "HMC", res, chains * (kw["num_warmup"] + kw["num_samples"]),
         counter, wall, ms_mle, logp, x_mle, replay)
@@ -2024,6 +2098,7 @@ def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
     res, wall = _timed(lambda: advi(
         counter, {k: torch.tensor(x_mle[k], dtype=torch.float64)
                   for k in SAMPLER_PARAMS}, gen, **runs["advi"]))
+    out["results"]["advi"] = res
     hist = res.elbo_history.numpy()
     check(bool(np.isfinite(hist).all()), "ADVI ELBO history not finite")
     out["advi"] = {"wall_s": wall, "evals": counter.calls,
@@ -2038,17 +2113,11 @@ def phase_samplers(ms_grad, device="cuda", data="large", r=4, M=4,
     def log_like(theta):
         return f(natural(theta))
 
-    def log_prior(theta):
-        return sum(-0.5 * ((theta[k] - x_mle[k]) / SMC_PRIOR_SD) ** 2
-                   for k in SAMPLER_PARAMS)
-
-    def prior_sample(g):
-        return {k: x_mle[k] + SMC_PRIOR_SD * torch.randn(
-            (), generator=g, dtype=torch.float64) for k in SAMPLER_PARAMS}
-
+    log_prior, prior_sample = smc_prior(x_mle)
     counter = CountingLogProb(log_like)
     res, wall = _timed(lambda: smc(counter, log_prior, prior_sample, gen,
                                    **runs["smc"]))
+    out["results"]["smc"] = res
     check(bool(np.isfinite(float(res.log_evidence))),
           f"SMC log-evidence {float(res.log_evidence)} not finite")
     out["smc"] = {"wall_s": wall, "evals": counter.calls,
@@ -2140,6 +2209,321 @@ def phase_nuts_n1m(n1m, theta0, ms_grad, device="cuda", R=1e-2,
     out["roughness"] = roughness(tag, f, theta0, sd)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 13b wall time {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 13c-13e: parameter sets batched through one sweep
+# ---------------------------------------------------------------------------
+
+#: phase 13c: the parameter sets batched at each tree (R = SAMPLER_R), and
+#: the batched loglik and gradient against the same sets evaluated one at a
+#: time on the card, within phase 20's limits (the batch changes nothing but
+#: rounding: the kernels' members are independent, the matmuls' batches and
+#: the sums' lengths change)
+BATCH_N10K = {"l": (1.5, 2.0, 2.5, 3.0), "sig": (1.0, 1.2, 0.8, 1.1)}
+BATCH_N1M = {"l": (0.04, 0.05, 0.06, 0.045), "sig": (1.0, 1.1, 0.9, 1.2)}
+BATCH_OBJ_RTOL = 1e-5
+BATCH_GRAD_RTOL = 1e-4
+#: phase 13e: phase 13b's run with this many chains in lockstep
+N1M_BATCHED_NUTS = {**N1M_NUTS, "chains": 4}
+
+
+def batched_value_and_grad(f, sets):
+    """``f`` (a batched ``loglik_fn``) at the parameter sets ``{l: [C],
+    sig: [C]}`` and its gradient: ``(values [C], {k: [C]})``, read back."""
+    import torch
+
+    theta = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+             for k, v in sets.items()}
+    value = f(theta)
+    value.sum().backward()
+    return (value.detach().cpu().numpy(),
+            {k: t.grad.numpy() for k, t in theta.items()})
+
+
+def _launch_snapshot():
+    from pymra_torch.ops import linalg as tl
+
+    return {n: launches_of(tl, n) for n in KERNEL_NAMES}
+
+
+def _check_batch(tag, model, y, R, sets, device, timer, n_evals) -> dict:
+    """The batched value and gradient at ``sets`` against each set alone;
+    launches per batched evaluation against one single evaluation's; ms per
+    evaluation of both; peak memory of the batched evaluation."""
+    C = len(sets["l"])
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder)
+    fb = model.loglik_fn(y, R, kernel_builder=exponential_builder,
+                         batched=True)
+    value_and_grad(f, sets["l"][0], sets["sig"][0])  # warm-up, uncounted
+    before = _launch_snapshot()
+    singles = [value_and_grad(f, sets["l"][c], sets["sig"][c])
+               for c in range(C)]
+    mid = _launch_snapshot()
+    _reset_peak(device)
+    values, grads = batched_value_and_grad(fb, sets)
+    peak = _peak_gib(device)
+    after = _launch_snapshot()
+    per_single = {n: (mid[n] - before[n]) / C for n in KERNEL_NAMES}
+    per_batch = {n: after[n] - mid[n] for n in KERNEL_NAMES}
+    print(f"{tag} kernel launches per evaluation: one set alone "
+          f"{ {n: v for n, v in per_single.items() if v} }, {C} sets batched "
+          f"{ {n: v for n, v in per_batch.items() if v} }")
+    check(per_batch == per_single, f"{tag}: the batch of {C} launched "
+          f"{per_batch}, one set alone {per_single}")
+    worst = {"value": 0.0, "grad": 0.0}
+    for c, (v1, g1) in enumerate(singles):
+        worst["value"] = max(worst["value"], abs(values[c] - v1) / abs(v1))
+        for k in ("l", "sig"):
+            worst["grad"] = max(worst["grad"],
+                                abs(grads[k][c] - g1[k]) / abs(g1[k]))
+    print(f"{tag} batched C={C} against each set alone: loglik rel diff "
+          f"{worst['value']:.3g} (limit {BATCH_OBJ_RTOL}), gradient "
+          f"{worst['grad']:.3g} (limit {BATCH_GRAD_RTOL}); loglik "
+          f"{[round(float(v), 3) for v in values]}")
+    check(worst["value"] <= BATCH_OBJ_RTOL,
+          f"{tag}: batched loglik off the single evaluations by "
+          f"{worst['value']:.3g}")
+    check(worst["grad"] <= BATCH_GRAD_RTOL,
+          f"{tag}: batched gradient off the single evaluations by "
+          f"{worst['grad']:.3g}")
+    shifts = iter(np.exp(np.linspace(-0.01, 0.01, n_evals + 1)))
+
+    def batch_call():
+        t = next(shifts)
+        batched_value_and_grad(fb, {"l": [l * t for l in sets["l"]],
+                                    "sig": sets["sig"]})
+
+    ms_batch = timer(batch_call, reps=n_evals)
+    ls = iter(sets["l"][0] * np.exp(np.linspace(-0.01, 0.01, n_evals + 1)))
+    ms_single = timer(lambda: value_and_grad(f, float(next(ls)),
+                                             sets["sig"][0]), reps=n_evals)
+    print(f"{tag} value and gradient: {ms_batch:.3f} ms per batched "
+          f"evaluation of {C} sets against {ms_single:.3f} ms for one set "
+          f"alone ({C} alone: {C * ms_single:.3f}; {n_evals} evals each); "
+          f"{C * ms_single / ms_batch:.2f}x; peak device memory of the "
+          f"batched evaluation {peak:.2f} GiB")
+    return {"ms_batch": ms_batch, "ms_single": ms_single, "peak": peak,
+            "worst": worst, "launches": per_batch}
+
+
+def phase_batched(n1m, device="cuda", timer=time_ms, data="large", r=4,
+                  M=4, R=SAMPLER_R, n_evals=5, sets_n10k=BATCH_N10K,
+                  sets_n1m=BATCH_N1M) -> dict:
+    """Phase 13c: ``loglik_fn(..., batched=True)`` at C parameter sets on
+    phase 4's N=10^4 tree and phase 5's N=10^6 plan and data."""
+    import torch
+
+    from pymra_torch import MRAModel, PlanConfig, load_data
+
+    locs, y_obs = load_data(data)
+    print(f"== phase 13c: {len(sets_n10k['l'])} parameter sets batched "
+          f"through one sweep at N={len(locs)} (bundled {data}, r={r}, "
+          f"M={M}) and N={n1m['model'].dplan.n_locs} (phase 5), R={R}")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    out = {"n10k": _check_batch(f"N={len(locs)}", model, y, R, sets_n10k,
+                                device, timer, n_evals)}
+    out["n1m"] = _check_batch(f"N={n1m['model'].dplan.n_locs}",
+                              n1m["model"], n1m["y"], R, sets_n1m, device,
+                              timer, n_evals)
+    return out
+
+
+def _lockstep_report(tag, res, counter, wall, transitions, serial, serial_res,
+                     logp) -> dict:
+    """The checks and report of a sampler run in lockstep: each chain's
+    last draw against its batch evaluated again, ms per transition of all
+    chains and per chain draw beside the serial run's, evaluations per
+    transition (batched calls: the largest count among the chains; points:
+    the mean over them), and how far the draws follow the serial run's
+    with the same generators (float32 rounding may part them)."""
+    chains = res.log_prob.shape[0]
+    reeval = check_last_draws(tag, res, counter, logp)
+    check(bool(np.isfinite(res.log_prob.numpy()).all()),
+          f"{tag} log_prob not finite")
+    xs, xs_serial = _draws(res), _draws(serial_res)
+    same = (res.tree_depth == serial_res.tree_depth).double().mean() if (
+        hasattr(res, "tree_depth")) else float("nan")
+    out = {"wall_s": wall, "ms_per_transition": 1e3 * wall / transitions,
+           "ms_per_draw": 1e3 * wall / (chains * transitions),
+           "calls_per_transition": counter.calls / transitions,
+           "evals_per_draw": counter.rows / (chains * transitions),
+           "ms_per_call": 1e3 * wall / counter.calls,
+           "accept": float(res.accept_rate.mean()), "reeval_rel": reeval,
+           "same_depths": float(same),
+           "max_draw_diff": float(np.abs(xs - xs_serial).max()),
+           "serial_ms_per_draw": serial["ms_per_draw"]}
+    print(f"{tag}: {chains} chains x {transitions} transitions in lockstep "
+          f"in {wall:.2f} s: {out['ms_per_transition']:.3f} ms per "
+          f"transition of all chains, {out['ms_per_draw']:.3f} ms per chain "
+          f"draw against {serial['ms_per_draw']:.3f} serial (phase 13: "
+          f"{serial['ms_per_draw'] / out['ms_per_draw']:.2f}x); "
+          f"evaluations per transition: {out['calls_per_transition']:.3f} "
+          f"batched calls (the most among the chains), "
+          f"{out['evals_per_draw']:.3f} points a chain (serial "
+          f"{serial['evals_per_draw']:.3f}); {out['ms_per_call']:.3f} ms per "
+          f"batched call; accept {out['accept']:.4f}; last draws against "
+          f"their batch evaluated again {reeval:.3g} of |log_prob| (limit "
+          f"{REEVAL_RTOL}); against the serial run: tree depths equal "
+          f"{out['same_depths']:.3f}, max |draw diff| "
+          f"{out['max_draw_diff']:.3g}")
+    return out
+
+
+def phase_samplers_batched(serial, device="cuda", R=SAMPLER_R,
+                           runs=SAMPLER_RUNS, wrap=None) -> dict:
+    """Phase 13d: phase 13's samplers with ``batched=True`` on its model,
+    from its start, run lengths and generator seed: NUTS and HMC chains in
+    lockstep, ADVI's draws and SMC's particles in one evaluation; phase
+    13's checks. ``wrap`` (tests) wraps the log posterior the samplers see,
+    not the one the checks evaluate."""
+    import torch
+
+    from pymra_torch.utils.health import check_samples
+    from pymra_torch.infer import advi, hmc, nuts, smc
+
+    model, y, x_mle = serial["model"], serial["y"], serial["x_mle"]
+    tag = f"N={model.dplan.n_locs}"
+    print(f"== phase 13d: phase 13's samplers batched at {tag} (R={R}, the "
+          "same starts and generators)")
+    t_phase = time.perf_counter()
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder,
+                        batched=True)
+    logp = log_posterior(f)
+    target = wrap(logp) if wrap else logp
+    gen = torch.Generator().manual_seed(0)
+
+    def init(chains):
+        return {k: x_mle[k] + 0.01 * torch.randn(chains, generator=gen,
+                                                 dtype=torch.float64)
+                for k in SAMPLER_PARAMS}
+
+    out = {}
+    kw = dict(runs["nuts"])
+    chains = kw.pop("chains")
+    T = kw["num_warmup"] + kw["num_samples"]
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: nuts(counter, init(chains), gen, batched=True,
+                                    **kw))
+    out["nuts"] = _lockstep_report("NUTS batched", res, counter, wall, T,
+                                   serial["nuts"], serial["results"]["nuts"],
+                                   logp)
+    rep = check_samples(res.samples, res.num_divergent,
+                        max_divergence_rate=MAX_DIVERGENCE_RATE)
+    check(rep.ok, f"NUTS batched draws: {rep}")
+    lo, hi = ACCEPT_RANGE
+    check(lo <= out["nuts"]["accept"] <= hi, f"NUTS batched mean acceptance "
+          f"{out['nuts']['accept']} outside [{lo}, {hi}]")
+
+    kw = dict(runs["hmc"])
+    chains = kw.pop("chains")
+    T = kw["num_warmup"] + kw["num_samples"]
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: hmc(counter, init(chains), gen, batched=True,
+                                   **kw))
+    out["hmc"] = _lockstep_report("HMC batched", res, counter, wall, T,
+                                  serial["hmc"], serial["results"]["hmc"],
+                                  logp)
+    rep = check_samples(res.samples, max_divergence_rate=MAX_DIVERGENCE_RATE)
+    check(rep.ok, f"HMC batched draws: {rep}")
+
+    counter = CountingLogProb(target)
+    res, wall = _timed(lambda: advi(
+        counter, {k: torch.tensor(x_mle[k], dtype=torch.float64)
+                  for k in SAMPLER_PARAMS}, gen, batched=True,
+        **runs["advi"]))
+    hist = res.elbo_history.numpy()
+    check(bool(np.isfinite(hist).all()), "ADVI batched ELBO not finite")
+    ser = serial["results"]["advi"].elbo_history.numpy()
+    out["advi"] = {"wall_s": wall, "calls": counter.calls,
+                   "elbo_last": float(hist[-1]),
+                   "max_elbo_diff": float(np.abs(hist - ser).max())}
+    print(f"ADVI batched: {len(hist)} steps, {counter.calls} evaluations of "
+          f"{runs['advi']['num_mc']} draws in {wall:.2f} s "
+          f"({1e3 * wall / counter.calls:.3f} ms each; serial "
+          f"{1e3 * serial['advi']['wall_s'] / serial['advi']['evals']:.3f} "
+          f"ms a draw); ELBO {float(hist[-1])!r} (serial {float(ser[-1])!r},"
+          f" max diff {out['advi']['max_elbo_diff']:.3g})")
+
+    log_prior, prior_sample = smc_prior(x_mle)
+    counter = CountingLogProb(lambda theta: f(natural(theta)))
+    res, wall = _timed(lambda: smc(counter, log_prior, prior_sample, gen,
+                                   batched=True, **runs["smc"]))
+    check(bool(np.isfinite(float(res.log_evidence))),
+          f"SMC batched log-evidence {float(res.log_evidence)} not finite")
+    ser = serial["results"]["smc"]
+    out["smc"] = {"wall_s": wall, "calls": counter.calls,
+                  "log_evidence": float(res.log_evidence)}
+    print(f"SMC batched: {runs['smc']['n_particles']} particles, "
+          f"{counter.calls} evaluations of all particles in {wall:.2f} s "
+          f"({1e3 * wall / counter.calls:.3f} ms each; serial "
+          f"{serial['smc']['wall_s']:.2f} s for {serial['smc']['evals']}); "
+          f"log-evidence {out['smc']['log_evidence']!r} (serial "
+          f"{float(ser.log_evidence)!r}); betas "
+          f"{[round(b, 6) for b in res.betas.tolist()]}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13d wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_nuts_n1m_batched(n1m, theta0, serial, device="cuda", R=1e-2,
+                           run=N1M_BATCHED_NUTS) -> dict:
+    """Phase 13e: phase 13b's NUTS with its chains in lockstep on phase
+    5's N=10^6 plan and data: finite draws, the last draws against their
+    batch evaluated again, ms per draw beside phase 13b's, evaluations per
+    transition, peak memory."""
+    import torch
+
+    from pymra_torch.infer import nuts
+
+    model, y = n1m["model"], n1m["y"]
+    tag = f"N={model.dplan.n_locs}"
+    kw = dict(run)
+    chains = kw.pop("chains")
+    T = kw["num_warmup"] + kw["num_samples"]
+    print(f"== phase 13e: NUTS batched at {tag}, {chains} chains in lockstep "
+          f"({kw}, R={R}, from phase 8's fit {theta0})")
+    f = model.loglik_fn(y, R, kernel_builder=exponential_builder,
+                        batched=True)
+    logp = log_posterior(f)
+    gen = torch.Generator().manual_seed(1)
+    init = {k: float(np.log(theta0[k[4:]])) + 1e-3 * torch.randn(
+        chains, generator=gen, dtype=torch.float64) for k in SAMPLER_PARAMS}
+    counter = CountingLogProb(logp)
+    _reset_peak(device)
+    res, wall = _timed(lambda: nuts(counter, init, gen, batched=True, **kw))
+    peak = _peak_gib(device)
+    check(bool(np.isfinite(_draws(res)).all()), f"{tag} NUTS batched draws "
+                                                "not finite")
+    check(bool(np.isfinite(res.log_prob.numpy()).all()),
+          f"{tag} NUTS batched log_prob not finite")
+    reeval = check_last_draws(f"{tag} NUTS batched", res, counter, logp)
+    depths = np.bincount(res.tree_depth.numpy().ravel(),
+                         minlength=kw["max_depth"] + 1)
+    out = {"wall_s": wall, "ms_per_transition": 1e3 * wall / T,
+           "ms_per_draw": 1e3 * wall / (chains * T),
+           "calls_per_transition": counter.calls / T,
+           "evals_per_draw": counter.rows / (chains * T),
+           "ms_per_call": 1e3 * wall / counter.calls, "peak": peak,
+           "accept": float(res.accept_rate.mean()),
+           "divergent": int(res.num_divergent.sum()), "reeval_rel": reeval,
+           "depth_histogram": depths.tolist()}
+    print(f"{tag} NUTS batched: {chains} chains x {T} transitions in "
+          f"{wall:.2f} s: {out['ms_per_transition']:.3f} ms per transition "
+          f"of all chains, {out['ms_per_draw']:.3f} ms per chain draw "
+          f"(phase 13b serial, {N1M_NUTS['chains']} chains: "
+          f"{serial['ms_per_draw']:.3f}); {out['calls_per_transition']:.3f} "
+          f"batched calls per transition, {out['evals_per_draw']:.3f} points "
+          f"a chain (13b: {serial['evals_per_draw']:.3f}); "
+          f"{out['ms_per_call']:.3f} ms per batched call; peak device memory "
+          f"{peak:.2f} GiB; accept {out['accept']:.4f}, divergent "
+          f"{out['divergent']} of {chains * kw['num_samples']}, tree depths "
+          f"{dict(enumerate(depths.tolist()))}; last draws against their "
+          f"batch evaluated again {reeval:.3g} (limit {REEVAL_RTOL})")
     return out
 
 
@@ -3247,9 +3631,12 @@ def main() -> int:
 
     reset_counters(tl)
     samplers = phase_samplers(ms_grad)
-    phase_nuts_n1m(n1m, grad_n1m["theta"], grad_n1m["ms"])
+    nuts_n1m = phase_nuts_n1m(n1m, grad_n1m["theta"], grad_n1m["ms"])
+    phase_batched(n1m)
+    phase_samplers_batched(samplers)
+    phase_nuts_n1m_batched(n1m, grad_n1m["theta"], nuts_n1m)
     sampler = read_counters(
-        tl, "phase 14: launch counters over phases 13 and 13b",
+        tl, "phase 14: launch counters over phases 13-13e",
         GRADIENT_KERNELS)
 
     reset_counters(tl)

@@ -1,10 +1,24 @@
 """Flat float64 parameter vectors for the samplers (the port's stand-in for
-``jax.flatten_util.ravel_pytree``), per-chain generators and the
-value-and-gradient call every gradient sampler makes."""
+``jax.flatten_util.ravel_pytree``), per-chain generators, the
+value-and-gradient call every gradient sampler makes, and the runners that
+run the chains' programs one after another or in lockstep.
+
+A chain's program is a Python generator: it yields each point it needs
+evaluated (a float64 vector ``[dim]``) and receives ``(value, gradient)``
+for it, and yields :data:`WAIT` at the end of each transition. One copy of
+the sampler's code thus serves both runners: :func:`run_serial` answers
+every point of one chain at a time; :func:`run_lockstep` answers the points
+of all chains that want one in one batched evaluation, and lets the chains
+that reached the end of their transition wait until every chain has (the
+port's counterpart of a ``jax.vmap`` of the sampler's loop: a transition
+costs the largest evaluation count among its chains, not their sum).
+Each chain draws from its own generator, so both runners make the same
+decisions and draws, up to the rounding of a batched against a single
+evaluation."""
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Generator
 
 import torch
 
@@ -72,6 +86,100 @@ def value_and_grad(log_prob_fn: Callable, unravel: Callable) -> Callable:
         return float(lp.detach()), grad
 
     return vg
+
+
+def batch_values(values: torch.Tensor, k: int) -> torch.Tensor:
+    """A batched density's values at ``k`` points as float64 on the CPU
+    (differentiably), refusing any shape but ``[k]``."""
+    if tuple(values.shape) != (k,):
+        raise ValueError(f"a batched density maps [k] points to [k] values; "
+                         f"got {tuple(values.shape)} for k={k}")
+    return values.to("cpu", F64)
+
+
+def batched_value_and_grad(log_prob_fn: Callable,
+                           unravel: Callable) -> Callable:
+    """``x [k, dim] -> (log_prob [k], gradient [k, dim])``, both float64
+    CPU tensors, from one evaluation of ``log_prob_fn`` on the structure
+    with a leading ``[k]`` axis (it returns ``[k]``) and one backward of
+    the sum: the ``k`` points are independent, so row ``i`` of the
+    gradient is that of ``log_prob[i]``."""
+
+    def vg(x: torch.Tensor):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            lp = batch_values(log_prob_fn(unravel(x)), x.shape[0])
+            (grad,) = torch.autograd.grad(lp.sum(), x)
+        return lp.detach(), grad
+
+    return vg
+
+
+#: what a chain's program yields at the end of a transition
+WAIT = None
+
+
+class _Chain:
+    """A chain's program and the request it is stopped at."""
+
+    def __init__(self, program: Generator):
+        self.program, self.done, self.result = program, False, None
+        self.send(None)  # starts it: runs to its first request
+
+    def send(self, reply) -> None:
+        try:
+            self.request = self.program.send(reply)
+        except StopIteration as stop:
+            self.done, self.result = True, stop.value
+
+
+def run_serial(programs, vg: Callable, chunk: int | None = None) -> list:
+    """Run each program to its end in turn, answering each point with
+    ``vg(x) -> (float, [dim])``; with ``chunk``, every program runs that
+    many transitions before the next one does, round after round. Returns
+    the programs' return values."""
+    chains = [_Chain(p) for p in programs]
+    while not all(ch.done for ch in chains):
+        for ch in chains:
+            passed = 0
+            while not ch.done and (chunk is None or passed < chunk):
+                if ch.request is WAIT:
+                    passed += 1
+                    ch.send(None)
+                else:
+                    ch.send(vg(ch.request))
+    return [ch.result for ch in chains]
+
+
+def run_lockstep(programs, vg_batched: Callable) -> list:
+    """Run the programs together: each tick evaluates the points of every
+    chain that wants one in one call of ``vg_batched(x [k, dim]) ->
+    (log_prob [k], gradient [k, dim])``; when every live chain has reached
+    the end of its transition, all go on to the next. Returns the
+    programs' return values."""
+    chains = [_Chain(p) for p in programs]
+    while True:
+        live = [ch for ch in chains if not ch.done]
+        if not live:
+            return [ch.result for ch in chains]
+        want = [ch for ch in live if ch.request is not WAIT]
+        if not want:
+            for ch in live:
+                ch.send(None)
+            continue
+        lp, grad = vg_batched(torch.stack([ch.request for ch in want]))
+        for i, ch in enumerate(want):
+            ch.send((float(lp[i]), grad[i]))
+
+
+def run_chains(programs, log_prob_fn: Callable, unravel: Callable,
+               batched: bool, chunk: int | None = None) -> list:
+    """:func:`run_lockstep` over ``log_prob_fn`` as a batched log density
+    (``batched``), else :func:`run_serial` over it as a single one."""
+    if batched:
+        return run_lockstep(programs,
+                            batched_value_and_grad(log_prob_fn, unravel))
+    return run_serial(programs, value_and_grad(log_prob_fn, unravel), chunk)
 
 
 def log_uniform(gen: torch.Generator) -> float:

@@ -5,8 +5,9 @@ Fits a diagonal-Gaussian approximation to ``exp(log_prob_fn)`` in the
 unconstrained space by maximizing the reparameterized ELBO with
 ``torch.optim.Adam`` (optax's ``adam`` in the JAX package: the same
 defaults, betas (0.9, 0.999) and eps 1e-8 outside the square root). The
-``num_mc`` Monte-Carlo draws of a step are evaluated one after another
-(batching them through one sweep is later work).
+``num_mc`` Monte-Carlo draws of a step are evaluated one after another, or
+with ``batched=True`` in one call of a batched log density (the JAX
+package vmaps them).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from pymra_torch.infer._flat import F64, ravel
+from pymra_torch.infer._flat import F64, batch_values, ravel
 
 __all__ = ["advi", "ADVIResult"]
 
@@ -42,6 +43,7 @@ def advi(
     steps: int = 500,
     num_mc: int = 8,
     learning_rate: float = 5e-2,
+    batched: bool = False,
 ) -> ADVIResult:
     """Mean-field ADVI.
 
@@ -50,6 +52,9 @@ def advi(
         density in the unconstrained space.
       init_params: dict of initial mean values (no chain axis).
       generator: CPU ``torch.Generator`` for the Monte-Carlo draws.
+      batched: ``log_prob_fn`` takes leaves with a leading ``[num_mc]``
+        axis and returns ``[num_mc]``: a step's draws in one evaluation and
+        one backward.
 
     Returns:
       :class:`ADVIResult`; ``result.sample(generator, n)`` draws from the
@@ -65,8 +70,11 @@ def advi(
     for _ in range(steps):
         z = torch.randn(num_mc, dim, generator=generator, dtype=F64)
         draws = mu + z * torch.exp(log_sd)
-        lps = torch.stack([log_prob_fn(unravel(d)).to("cpu", F64)
-                           for d in draws])
+        if batched:
+            lps = batch_values(log_prob_fn(unravel(draws)), num_mc)
+        else:
+            lps = torch.stack([log_prob_fn(unravel(d)).to("cpu", F64)
+                               for d in draws])
         elbo = lps.mean() + log_sd.sum() + entropy_const
         opt.zero_grad()
         (-elbo).backward()

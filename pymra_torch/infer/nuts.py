@@ -19,10 +19,14 @@ divergence. Warmup is the per-step Stan schedule of
 :mod:`pymra_torch.infer.adapt` (step size by dual averaging, a diagonal
 metric from the slow windows).
 
-As in :mod:`pymra_torch.infer.hmc`, the state is float64 on the host, each
-leapfrog step reads the value and gradient back (the U-turn and accept
-decisions need them), and chains run one after another with their own
-generators; batching chains through one sweep is later work.
+As in :mod:`pymra_torch.infer.hmc`, the state is float64 on the host and
+each leapfrog step reads the value and gradient back (the U-turn and accept
+decisions need them). Each chain is one program
+(:mod:`pymra_torch.infer._flat`) with its own generator: one after another,
+or with ``batched=True`` in lockstep, as the JAX package vmaps its chains'
+``while_loop``: at each leapfrog tick the chains whose transition still
+needs a point are evaluated in one call of the batched log density, and a
+chain whose transition is over waits for the others.
 """
 from __future__ import annotations
 
@@ -33,10 +37,11 @@ import torch
 
 from pymra_torch.infer._flat import (
     F64,
+    WAIT,
     chain_generators,
     log_uniform,
     ravel,
-    value_and_grad,
+    run_chains,
 )
 from pymra_torch.infer.adapt import (
     da_final,
@@ -109,8 +114,11 @@ def nuts(
     init_step_size: float = 0.1,
     adapt_mass: bool = True,
     steps_per_call: int | None = None,
+    batched: bool = False,
 ) -> NUTSResult:
-    """Run NUTS chains (same contract as :func:`pymra_torch.infer.hmc.hmc`).
+    """Run NUTS chains (same contract as :func:`pymra_torch.infer.hmc.hmc`,
+    ``batched`` included: the chains in lockstep through one evaluation of
+    a batched ``log_prob_fn`` a leapfrog tick).
 
     ``steps_per_call`` is accepted for the JAX package's signature and
     changes nothing but the loop order: when set, the run goes in chunks
@@ -120,18 +128,19 @@ def nuts(
     a chunk bounds one compiled dispatch; here there is none to bound, and
     each chain draws from its own generator, so the draws, step sizes,
     metrics, divergence counts, cost and memory are those of one call.
-    ``None``: each chain runs its whole schedule in turn.
+    ``None``: each chain runs its whole schedule in turn. With ``batched``
+    the chains advance together and the chunks change nothing.
     """
     if steps_per_call is not None and steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     x0, unravel = ravel(init_params, batch_dims=1)
     chains, dim = x0.shape
-    vg = value_and_grad(log_prob_fn, unravel)
 
+    # generators: each ``yield q`` asks for the value and gradient at q
     def leapfrog(q, p, grad, eps, inv_mass):
         p = p + 0.5 * eps * grad
         q = q + eps * inv_mass * p
-        lp, grad = vg(q)
+        lp, grad = yield q
         p = p + 0.5 * eps * grad
         return q, p, lp, grad
 
@@ -154,7 +163,7 @@ def nuts(
         turning = diverging = False
         n = 0
         while n < (1 << depth) and not turning and not diverging:
-            q, p, lp, grad = leapfrog(q, p, grad, eps, inv_mass)
+            q, p, lp, grad = yield from leapfrog(q, p, grad, eps, inv_mass)
             lw = lp - kinetic(p, inv_mass)
             # a non-finite energy (a NaN loglik at an extreme parameter,
             # an infinite momentum) is a divergence, as in Stan
@@ -192,9 +201,9 @@ def nuts(
         while depth < max_depth and not turning and not diverging:
             go_right = float(torch.rand((), generator=gen, dtype=F64)) < 0.5
             (z_new, sub_prop, sub_lse, sub_turn, sub_div, sub_acc,
-             sub_n) = build_subtree(gen, depth, z_right if go_right else
-                                    z_left, eps if go_right else -eps,
-                                    inv_mass, lw0)
+             sub_n) = yield from build_subtree(
+                 gen, depth, z_right if go_right else z_left,
+                 eps if go_right else -eps, inv_mass, lw0)
             acc_sum += sub_acc
             n_total += sub_n
             ok = not (sub_turn or sub_div)
@@ -226,8 +235,8 @@ def nuts(
         # average (da restarted at the last window boundary, so
         # da_final(da) is the adapted step size)
         eps = float(torch.exp(da.log_eps) if warm else da_final(da))
-        x, lp, grad, acc, div, depth = transition(x, lp, grad, eps,
-                                                  inv_mass, gen)
+        x, lp, grad, acc, div, depth = yield from transition(
+            x, lp, grad, eps, inv_mass, gen)
         if warm:
             da = da_update(da, acc, target_accept)
         if slow:
@@ -243,20 +252,26 @@ def nuts(
         return x, lp, acc, depth, div
 
     schedule = _schedule(num_warmup, num_samples)
+
+    def chain(x, gen):
+        """One chain's program: its whole schedule, then ``(state,
+        records)``."""
+        lp, grad = yield x
+        st = [x, lp, grad, da_init(init_step_size), wf0,
+              torch.ones(dim, dtype=F64)]
+        recs = []
+        for t, flags in enumerate(schedule):
+            rec = yield from step(st, gen, *flags)
+            if t >= num_warmup:
+                recs.append(rec)
+            yield WAIT
+        return st, recs
+
     gens = chain_generators(generator, chains)
-    states = []
-    for c in range(chains):
-        lp, grad = vg(x0[c])
-        states.append([x0[c], lp, grad, da_init(init_step_size), wf0,
-                       torch.ones(dim, dtype=F64)])
-    records = [[] for _ in range(chains)]
-    chunk = steps_per_call or max(len(schedule), 1)
-    for start in range(0, len(schedule), chunk):
-        for c in range(chains):
-            for t in range(start, min(start + chunk, len(schedule))):
-                rec = step(states[c], gens[c], *schedule[t])
-                if t >= num_warmup:
-                    records[c].append(rec)
+    out = run_chains([chain(x0[c], gens[c]) for c in range(chains)],
+                     log_prob_fn, unravel, batched, steps_per_call)
+    states = [st for st, _ in out]
+    records = [recs for _, recs in out]
 
     def stacked(i, dtype):
         return torch.tensor([[r[i] for r in recs] for recs in records],

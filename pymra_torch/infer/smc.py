@@ -10,8 +10,9 @@ Metropolis mutations scaled by the particle cloud's standard deviation.
 The stage loop runs on the host, as the JAX package's ``host_loop=True``
 does (documented there as giving the same results as its on-device loop;
 the port has no other, so it takes no ``host_loop`` argument). Particles
-are evaluated one after another under ``torch.no_grad()`` (batching them
-through one sweep is later work). Each particle carries its
+are evaluated under ``torch.no_grad()``, one after another, or with
+``batched=True`` all in one call of batched log densities per stage and
+per mutation (the JAX package vmaps them). Each particle carries its
 log-likelihood: a resampled or mutated particle's value is the one its
 evaluation returned, so a stage costs ``n_mutations * n_particles``
 evaluations (the JAX package evaluates the resampled cloud again).
@@ -23,7 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from pymra_torch.infer._flat import F64, ravel
+from pymra_torch.infer._flat import F64, batch_values, ravel
 
 __all__ = ["smc", "SMCResult"]
 
@@ -82,6 +83,7 @@ def smc(
     n_mutations: int = 5,
     max_stages: int = 50,
     rw_scale: float = 0.5,
+    batched: bool = False,
 ) -> SMCResult:
     """Adaptive tempered SMC.
 
@@ -90,6 +92,10 @@ def smc(
       log_prior_fn: ``theta_dict -> 0-dim tensor`` log-prior.
       prior_sample_fn: ``generator -> theta_dict``, one prior draw.
       generator: CPU ``torch.Generator``.
+      batched: ``log_like_fn`` and ``log_prior_fn`` take leaves with a
+        leading ``[n_particles]`` axis and return ``[n_particles]``: every
+        particle in one evaluation. The same draws as the serial run, up to
+        the rounding of batched evaluations.
 
     Returns:
       :class:`SMCResult` (posterior particles, log-evidence estimate).
@@ -100,7 +106,10 @@ def smc(
     dim = particles.shape[1]
 
     def evaluate(fn, parts):
-        return torch.stack([fn(unravel(x)).to("cpu", F64) for x in parts])
+        if not batched:
+            return torch.stack([fn(unravel(x)).to("cpu", F64)
+                                for x in parts])
+        return batch_values(fn(unravel(parts)), len(parts))
 
     beta, log_evidence = 0.0, 0.0
     betas, accs = [], []

@@ -2,7 +2,10 @@
 
 Batched torch functions of ``(locs1, locs2)`` plus hyper-parameters,
 broadcast over leading node dimensions. :class:`Kernel` binds a family to
-its hyper-parameters, held as 0-dim tensor buffers of an ``nn.Module``.
+its hyper-parameters, held as 0-dim tensor buffers of an ``nn.Module``, or
+as ``[C]`` buffers for ``C`` parameter sets at once (a chains, particles or
+draws axis, the port's form of ``jax.vmap`` over the hyper-parameters): the
+family then broadcasts that axis in front of the node dimensions.
 
 Python-number hyper-parameters are stored as float64. A 0-dim tensor does
 not promote the dtype of the locations it meets, so a float32 sweep computes
@@ -189,7 +192,15 @@ class MatrixKernel(nn.Module):
         super().__init__()
         self.register_buffer("matrix", _as_param(matrix))
 
+    #: no hyper-parameter, so no batch of them
+    batch_shape = ()
+
     def forward(self, xi, yi=None):
+        if self.matrix.dim() != 2:
+            raise NotImplementedError(
+                f"MatrixKernel: a [N, N] matrix, got "
+                f"{tuple(self.matrix.shape)}; it has no hyper-parameter to "
+                "batch, so there is no batched MatrixKernel")
         if yi is None:
             yi = xi
         i = torch.as_tensor(xi)[..., 0].long()
@@ -216,6 +227,10 @@ class Kernel(nn.Module):
     ``circular`` select code structure and stay plain Python values; every
     other parameter is a tensor buffer (int ``radius`` of ``kanter`` stays
     an int: it is an ensemble size, not a length).
+
+    A parameter of shape ``[C]`` makes the kernel batched
+    (:attr:`batch_shape` ``(C,)``): the call returns ``[C, ..., p, q]``,
+    one covariance per parameter set, 0-dim parameters shared by all.
     """
 
     STATIC_PARAMS = ("nu", "circular")
@@ -237,8 +252,37 @@ class Kernel(nn.Module):
     def params(self) -> dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self._param_names}
 
+    @property
+    def batch_shape(self) -> tuple[int, ...]:
+        """``(C,)`` when a parameter has a leading ``[C]`` axis, else
+        ``()``. Every batched parameter must have the same one axis."""
+        shapes = {tuple(v.shape) for v in self.params.values() if v.dim()}
+        if not shapes:
+            return ()
+        if len(shapes) > 1 or len(next(iter(shapes))) != 1:
+            raise ValueError(
+                f"Kernel {self.name!r}: batched parameters need one common "
+                f"[C] axis, got shapes "
+                f"{ {k: tuple(v.shape) for k, v in self.params.items()} }")
+        return shapes.pop()
+
     def forward(self, locs1, locs2=None):
-        return self._fn(locs1, locs2, **self.params, **self.static)
+        params = self.params
+        batch = self.batch_shape
+        if batch:
+            # [C] -> [C, 1, ..., 1]: the axis goes in front of the nodes.
+            # Rounded to the locations' dtype and moved to their device
+            # first, as a 0-dim parameter meets them: a [C] tensor would
+            # otherwise promote a float32 sweep to float64
+            locs1 = torch.as_tensor(locs1)
+            nd = max(locs1.dim(), 0 if locs2 is None
+                     else torch.as_tensor(locs2).dim())
+            to = dict(device=locs1.device)
+            if locs1.is_floating_point():
+                to["dtype"] = locs1.dtype
+            params = {k: v.to(**to).reshape(batch + (1,) * nd) if v.dim()
+                      else v for k, v in params.items()}
+        return self._fn(locs1, locs2, **params, **self.static)
 
     def replace(self, **params) -> "Kernel":
         new = dict(self.params)

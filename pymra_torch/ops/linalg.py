@@ -52,6 +52,13 @@ custom VJP, or a composition of such):
   escalation in the kernel); other widths compose K4, K3 and
   ``torch.matmul`` (float64 for a float32 input), KC over K4 up to 64.
 
+Every entry point takes any leading batch shape and runs it as one flat
+batch of members: ``[C, n, P, P]`` (``C`` parameter sets of the sweep's
+``n`` nodes) is one launch over ``C*n`` members, equal member for member to
+the same call on ``[C*n, P, P]``. The kernels index members (a lane kernel
+its lanes) in 32-bit ints; a batch that would pass them is refused
+(:func:`_fits_int32`), never wrapped around.
+
 A CPU tensor runs the plain PyTorch twin (``*_ref``), an explicit batched
 column loop with the kernel's arithmetic (K8 and KC: the same composition
 over the twins). A CUDA tensor launches the hand written kernel or raises;
@@ -497,6 +504,26 @@ def _launched(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+#: members (and lanes) past this overflow the kernels' 32-bit indices
+_INT32_LIMIT = 2 ** 31
+#: threads of one block of the lane kernels (``subwarp::kThreads``): the
+#: last block's indices run this far past the batch
+_BLOCK_SLACK = 128
+#: most threads a member of the lane kernels takes (K2's sub-warp groups
+#: and KP's lane kernel at P <= 8: a warp at most)
+_LANES = 32
+
+
+def _fits_int32(name: str, n: int, per_member: int = 1) -> None:
+    """Refuse a launch of ``n`` members of ``per_member`` blocks or lanes
+    each whose indices would pass a 32-bit int (a flat batch of ``C``
+    parameter sets is ``C`` times the sweep's own)."""
+    if (n + _BLOCK_SLACK) * per_member >= _INT32_LIMIT:
+        raise ValueError(
+            f"{name}: {n} members of {per_member} blocks or lanes each "
+            "pass the kernel's 32-bit indices; split the batch")
+
+
 def _where(t: torch.Tensor) -> tuple[int, int]:
     """``(device index, current stream)`` arguments of a launch: the raw
     handle of the device's current stream, without building a
@@ -545,6 +572,7 @@ def _cholesky_fwd(mat: torch.Tensor) -> torch.Tensor:
     _check("cholesky: mat", mat, mat.shape, mat.device)
     out = torch.empty_like(mat)
     n = out.numel() // (p * p)
+    _fits_int32("cholesky", n)
     if n:
         _launched("cholesky", lib.pymra_cholesky(
             mat.data_ptr(), out.data_ptr(), n, p, tile_tier(p),
@@ -583,6 +611,7 @@ def _tri_inv_launch(l: torch.Tensor) -> torch.Tensor:
     lib = build.load_library()
     out = torch.empty_like(l)
     n = out.numel() // (p * p)
+    _fits_int32("triangular_inverse_lower", n)
     if n:
         if p <= MAX_P:
             _launched("triangular_inverse_lower", lib.pymra_tri_inv(
@@ -624,9 +653,7 @@ def _tri_solve_fwd(l: torch.Tensor, b: torch.Tensor,
     cols = solve_cols(q)
     out = torch.empty_like(b)
     n = out.numel() // (p * q)
-    if n * -(-q // cols) >= 2 ** 31:
-        raise ValueError(f"solve_triangular_batched: {n} members of {q} "
-                         "columns exceed the kernel's grid")
+    _fits_int32("solve_triangular_batched", n, -(-q // cols))
     if n:
         _launched("solve_triangular_batched", lib.pymra_tri_solve(
             l.data_ptr(), b.data_ptr(), out.data_ptr(), n, p, q,
@@ -647,6 +674,7 @@ def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     out = torch.empty_like(mat)
     ld, f = torch.empty_like(jit), torch.empty_like(jit)
     n = out.numel() // (p * p)
+    _fits_int32("cholesky_jittered", n, 1 if jittered_tier(p) else _LANES)
     if n:
         _launched("cholesky_jittered", lib.pymra_cholesky_jittered(
             mat.data_ptr(), jit.data_ptr(), out.data_ptr(), ld.data_ptr(),
@@ -689,8 +717,9 @@ def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
     abar = torch.empty_like(l)
     jbar = None if f is None else torch.empty_like(f)
     n = abar.numel() // (p * p)
+    tier = jittered_tier(p)
+    _fits_int32("cholesky_pullback", n, 1 if tier else _LANES)
     if n:
-        tier = jittered_tier(p)
         _launched("cholesky_pullback", lib.pymra_chol_pullback(
             l.data_ptr(), lbar.data_ptr(), _ptr(ldbar), _ptr(f),
             abar.data_ptr(), _ptr(jbar), n, p, tier, *_where(l)))
@@ -720,6 +749,7 @@ def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
     ldp, ldq = torch.empty(batch, **vec), torch.empty(batch, **vec)
     fp, fq = torch.empty(batch, **vec), torch.empty(batch, **vec)
     n = li.numel() // (p * p)
+    _fits_int32("leaf_factor", n)
     if n:
         _launched("leaf_factor", lib.pymra_leaf_factor(
             c_own.data_ptr(), kmask.data_ptr(), a_oo.data_ptr(),
@@ -749,6 +779,7 @@ def _cholesky_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
                                           factors)
     ld = torch.empty(batch, dtype=mat.dtype, device=mat.device)
     f = torch.empty_like(ld)
+    _fits_int32("cholesky_logdet", ld.numel())
     if ld.numel():
         _launched("cholesky_logdet", lib.pymra_chol_logdet(
             mat.data_ptr(), jit.data_ptr(), ld.data_ptr(), f.data_ptr(),
@@ -767,6 +798,7 @@ def _cholesky_inv_logdet_fwd(mat: torch.Tensor, jit: torch.Tensor,
     x = torch.empty_like(mat)
     ld = torch.empty(batch, dtype=mat.dtype, device=mat.device)
     f = torch.empty_like(ld)
+    _fits_int32("cholesky_inv_logdet", ld.numel())
     if ld.numel():
         _launched("cholesky_inv_logdet", lib.pymra_chol_inv_logdet(
             mat.data_ptr(), jit.data_ptr(), x.data_ptr(), ld.data_ptr(),
@@ -810,6 +842,7 @@ def _chol_wide(mat: torch.Tensor, jit: torch.Tensor | None, factors):
     lib = build.load_library()
     out = torch.empty_like(mat)
     n = out.numel() // (p * p)
+    _fits_int32("chol_wide", n)
     ld = f = None
     if jit is not None:
         ld, f = torch.empty((2,) + batch, dtype=mat.dtype, device=mat.device)
@@ -1206,7 +1239,9 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     """Fused MRA leaf factorization stage.
 
     Args: ``c_own [..., P, P]`` conditional covariance, ``kmask [..., P]``
-    own-knot mask (float 0/1), ``a_oo [..., P, P]`` data Gram block —
+    own-knot mask (float 0/1; broadcast to ``c_own``'s batch, so one mask
+    of the nodes serves ``C`` parameter sets), ``a_oo [..., P, P]`` data
+    Gram block —
     required to vanish outside the knot rows/columns, which the sweep's
     ``B_own``-based Gram guarantees — and ``jitter``, the raw
     scale-relative jitter.
@@ -1219,6 +1254,7 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     prior block at ``fp`` (K4) and inverts that factor (K3), and takes the
     posterior pullback from ``Li`` in float64 products.
     """
+    kmask = kmask.expand(c_own.shape[:-1]).contiguous()
     return _apply(_LeafFactor, _leaf_factor_fwd, c_own, kmask, a_oo,
                   float(jitter), tuple(factors))
 

@@ -99,8 +99,8 @@ class MRAModel:
         res = self.sweep(cov, y, R, compute_posterior=True)
         return res.mean, torch.sqrt(torch.clamp(res.var, min=0.0))
 
-    def loglik_fn(self, y, R, kernel_builder: Callable | None = None
-                  ) -> Callable:
+    def loglik_fn(self, y, R, kernel_builder: Callable | None = None,
+                  batched: bool = False) -> Callable:
         """Return ``theta -> loglik`` for gradient-based inference.
 
         ``kernel_builder(theta)`` maps the parameters (for example a dict
@@ -118,6 +118,14 @@ class MRAModel:
         ``R`` is a scalar or an ``[N]`` diagonal, as the JAX package's
         ``loglik_fn`` takes it; for a dense R differentiate
         ``sweep(...).loglik``.
+
+        ``batched``: ``theta`` holds ``C`` parameter sets (leaves with a
+        leading ``[C]`` axis) and the function returns ``[C]``, all sets in
+        one sweep (each level's kernels launch once for all of them): the
+        port's form of ``jax.vmap(model.loglik_fn(y, R, kernel_builder))``.
+        The builder must carry the axis into the covariance (a
+        :class:`pymra_torch.kernels.Kernel` built from ``[C]`` leaves); one
+        without it (a ``MatrixKernel``) raises.
         """
         if _ndim(R) == 2:
             raise NotImplementedError(
@@ -131,9 +139,20 @@ class MRAModel:
                 theta = {k: v.to(self.device) if torch.is_tensor(v) else v
                          for k, v in theta.items()}
             cov = kernel_builder(theta) if kernel_builder else theta
-            return mra_sweep(self.dplan, cov, None, None,
-                             compute_posterior=False, jitter=self.jitter,
-                             prep=prep).loglik
+            if batched and not getattr(cov, "batch_shape", ()):
+                raise NotImplementedError(
+                    f"a batched loglik_fn needs a covariance with a [C] "
+                    f"batch of hyper-parameters; {type(cov).__name__} has "
+                    "none (a MatrixKernel has no hyper-parameter to batch)")
+            out = mra_sweep(self.dplan, cov, None, None,
+                            compute_posterior=False, jitter=self.jitter,
+                            prep=prep).loglik
+            if not batched and out.dim():
+                raise ValueError(
+                    f"loglik_fn: the covariance carries a batch "
+                    f"{tuple(out.shape)} of parameter sets; pass "
+                    "batched=True")
+            return out
 
         return fn
 

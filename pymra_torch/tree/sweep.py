@@ -75,6 +75,19 @@ points: they are only stacked, gathered and handed to the covariance.
 assembled from (:mod:`pymra_torch.tree.basis`); it takes the unfused leaf
 route and replays the posterior's per-ancestor downdates.
 
+A batch of parameter sets (a covariance with a ``batch_shape`` of
+``(C,)``, such as a :class:`pymra_torch.kernels.Kernel` with ``[C]``
+hyper-parameters: the port's counterpart of ``jax.vmap`` over chains,
+particles or Monte-Carlo draws): every tensor that depends on the
+hyper-parameters carries a leading ``[C]`` axis in front of the node axis,
+and the likelihood comes out ``[C]``. The plan, the points, ``y``, ``R`` and
+:func:`prepare_obs`'s tensors stay shared and unbatched. Each
+factorization and solve sees ``C`` times the level's batch in one call, so
+each level's kernels launch once for all ``C`` sets; the jitter scale stays
+per member, hence per set. The batch runs the likelihood passes only: the
+posterior, a dense R, ``keep_internals`` and sharding raise under it
+(later work), and no path loops over the sets.
+
 Sharding (``axis_name``: the data axis's ``torch.distributed`` process
 group, where the JAX package names a ``shard_map`` axis): each rank runs
 the sweep on its slice of a plan padded by
@@ -496,7 +509,9 @@ def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
     (``Zt = W = 0``) and carry zero observation weight.
 
     Returns ``(Zt [n, q, S], C_own [n, q, q], W | None, Wg | None)``; ``Wg``
-    is the group-major ``[n/c, c q, S]`` view of ``W``.
+    is the group-major ``[n/c, c q, S]`` view of ``W``. A batched ``covfn``
+    and ``chain_GG`` (a ``[C]`` axis in front of the nodes) put the same
+    axis in front of every output; ``X`` and ``chain_Q`` are points, shared.
     """
     n, q = X.shape[0], X.shape[1]
     S = chain_GG.shape[-2]
@@ -511,17 +526,18 @@ def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
             Qg, GGg = chain_Q, chain_GG
         else:
             gpar = parent[::group]
-            Qg, GGg = chain_Q[gpar], chain_GG[gpar]
+            Qg, GGg = chain_Q[gpar], _rows(chain_GG, gpar)
         if not want_W:
             GGg = GGg[..., :S]
-        ZW = covfn(Xg, Qg) @ GGg  # [n/c, c q, S or 2S]
-        Zt = ZW[..., :S].reshape(n, q, S)
+        ZW = covfn(Xg, Qg) @ GGg  # [(C,) n/c, c q, S or 2S]
+        batch = ZW.shape[:-3]
+        Zt = ZW[..., :S].reshape(batch + (n, q, S))
         if want_W:
             Wg = ZW[..., S:]
-            W = Wg.reshape(n, q, S)
+            W = Wg.reshape(batch + (n, q, S))
     else:
         Qp = chain_Q[parent]
-        GGp = (chain_GG if want_W else chain_GG[..., :S])[parent]
+        GGp = _rows(chain_GG if want_W else chain_GG[..., :S], parent)
         ZW = covfn(X, Qp) @ GGp
         Zt = ZW[..., :S]
         if want_W:
@@ -643,7 +659,25 @@ def mra_sweep(
         rank's posterior slot segments as ``mean``/``var`` instead of
         ``[N]`` vectors; the caller reassembles them through
         ``dplan.post_inv``.
+
+    A ``covfn`` with a ``batch_shape`` of ``(C,)`` (a
+    :class:`pymra_torch.kernels.Kernel` with ``[C]`` hyper-parameters) runs
+    ``C`` parameter sets through one sweep: ``objective`` and ``loglik``
+    come out ``[C]``. It needs ``compute_posterior=False`` and takes no
+    ``r_dense``, ``keep_internals`` or ``axis_name``.
     """
+    batch = _batch_of(covfn)
+    if batch:
+        for asked, what in ((compute_posterior, "compute_posterior=True"),
+                            (r_dense is not None, "a dense R (r_dense)"),
+                            (keep_internals, "keep_internals"),
+                            (axis_name is not None, "sharding (axis_name)")):
+            if asked:
+                raise NotImplementedError(
+                    f"mra_sweep: a batch of {batch[0]} parameter sets runs "
+                    f"the likelihood passes only; {what} under a batch is "
+                    "later work (queued in ROADMAP.md); call it once per "
+                    "set")
     group = axis_name
     if group is not None and not isinstance(group, dist.ProcessGroup):
         raise TypeError(
@@ -661,7 +695,16 @@ def mra_sweep(
         prep = prepare_obs(dplan, y, r_diag)
     return _mra_sweep_impl(dplan, covfn, compute_posterior, float(jitter),
                            prep, dense, keep_internals, group,
-                           posterior_segments)
+                           posterior_segments, batch)
+
+
+def _batch_of(covfn) -> tuple[int, ...]:
+    """The covariance's batch of parameter sets: ``()`` or ``(C,)``."""
+    batch = tuple(getattr(covfn, "batch_shape", ()))
+    if len(batch) > 1:
+        raise ValueError(f"mra_sweep: one batch axis of parameter sets, got "
+                         f"batch_shape {batch}")
+    return batch
 
 
 class _AllReduce(torch.autograd.Function):
@@ -718,22 +761,33 @@ def _window_start(shard_idx, crit: int, m: int, n_local: int, c: int):
     return None
 
 
+def _rows(stash, idx):
+    """Rows ``idx`` of a stash ``[(C,) n, a, b]``: a gather over its node
+    axis, the third from the end, shared by a batch in front of it."""
+    return stash[..., idx, :, :]
+
+
 def _parent_rows(stash, parent, c: int, n_local: int, start=None):
-    """Per-node rows of a parent-level stash: a broadcast when the plan
-    certifies iota grouping (the stash is local to the rank or whole), the
-    rank's window from row ``start`` at the transition level of a sharded
-    plan, else a gather."""
+    """Per-node rows of a parent-level stash ``[(C,) n_par, a, b]``: a
+    broadcast when the plan certifies iota grouping (the stash is local to
+    the rank or whole), the rank's window from row ``start`` at the
+    transition level of a sharded plan, else a gather."""
     if c:
         n_par = n_local // c
-        if stash.shape[0] == n_par:
-            return stash.repeat_interleave(c, dim=0)
+        if stash.shape[-3] == n_par:
+            return stash.repeat_interleave(c, dim=-3)
         if start is not None:
-            return stash[start:start + n_par].repeat_interleave(c, dim=0)
-    return stash[parent]
+            return stash[..., start:start + n_par, :, :].repeat_interleave(
+                c, dim=-3)
+    return _rows(stash, parent)
 
 
 def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
-                    keep_internals, group=None, posterior_segments=False):
+                    keep_internals, group=None, posterior_segments=False,
+                    batch=()):
+    # ``batch``: ``()`` or ``(C,)``, the axis in front of the node axis of
+    # every hyper-parameter-dependent tensor; ``nd`` is the node axis
+    nd = len(batch)
     levels = dplan.levels
     M, r = dplan.M, dplan.r
     dtype = dplan.dtype
@@ -789,7 +843,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         L = _chol(C_own, jitter)
         LinvT = _tri_inv(L).transpose(-1, -2)
         prior_L[m] = L
-        eye_r = torch.eye(r, **fl).expand(n_int, r, r)
+        eye_r = torch.eye(r, **fl).expand(batch + (n_int, r, r))
         if m == 0:
             chain_Q[m] = Q
             chain_GG[m] = torch.cat([LinvT, eye_r], dim=-1)
@@ -798,8 +852,8 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             GGp = _parent_rows(chain_GG[m - 1], lvl.int_parent, pgrp, n_int,
                                pstart)
             GpT, GLTp = GGp[..., :S], GGp[..., S:]
-            neg = -(GpT @ Zt.transpose(-1, -2))  # [n, S, r]
-            zeros_bot = torch.zeros(n_int, r, S, **fl)
+            neg = -(GpT @ Zt.transpose(-1, -2))  # [(C,) n, S, r]
+            zeros_bot = torch.zeros(batch + (n_int, r, S), **fl)
             chain_GG[m] = torch.cat([
                 torch.cat([GpT, neg @ LinvT, GLTp, neg], dim=-1),
                 torch.cat([zeros_bot, LinvT, zeros_bot, eye_r], dim=-1),
@@ -819,7 +873,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
     # rank's part of a sum over the ranks (serially everything is "rep",
     # in the passes' order)
     leaf_key = "rep" if group is None else "sh"
-    tot = {key: [torch.zeros((), **fl), torch.zeros((), **fl)]
+    tot = {key: [torch.zeros(batch, **fl), torch.zeros(batch, **fl)]
            for key in {"rep", leaf_key}}
 
     def add(key, d, u):
@@ -943,7 +997,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         # log-determinant and the data quadratic form
         d_leaf = 2.0 * (ld_post - ld_prior) + lp["logdet_R"]
         u_leaf = lp["quad_y"] - (v * v).sum(-1)
-        add(leaf_key, d_leaf.sum(), u_leaf.sum())
+        add(leaf_key, d_leaf.sum(-1), u_leaf.sum(-1))
         n_obs_total = n_obs_total + lp["n_obs"].sum()
 
         if S:
@@ -953,13 +1007,14 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 # same contractions over c*P rows land [n/c, S, S] blocks
                 # with no per-leaf A_hh in memory
                 n_par = n_leaf // grp
-                Xblkg = Xblk.reshape(n_par, grp * P, S)
+                Xblkg = Xblk.reshape(batch + (n_par, grp * P, S))
                 ATil = _message_downdate(Wg, w.reshape(n_par, grp * P), Xblkg)
                 omgTil = (
                     (Wg.transpose(-1, -2)
                      @ wy.reshape(n_par, grp * P)[..., None])[..., 0]
                     - (Xblkg.transpose(-1, -2)
-                       @ v.reshape(n_par, grp * P)[..., None])[..., 0])
+                       @ v.reshape(batch + (n_par, grp * P))[..., None])[
+                           ..., 0])
                 if shard is not None:
                     # the rows are this rank's window of parents
                     children[m].append((ATil, omgTil, None, True, 1))
@@ -976,9 +1031,9 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                     ATil = _message_downdate(Bw_h, None, Xblk)
                 omgTil = omg_h - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
                 children[m].append((ATil, omgTil, lvl.leaf_parent, True, grp))
-            G = solve(Xblk, trans=True)  # [n, P, S]
+            G = solve(Xblk, trans=True)  # [(C,) n, P, S]
         else:
-            G = torch.zeros(n_leaf, P, 0, **fl)
+            G = torch.zeros(batch + (n_leaf, P, 0), **fl)
         g = solve(v[..., None], trans=True)[..., 0]
         leaf_stash[m] = {"W": W, "B_own": B_own, "grp": grp,
                          "L_prior": L_prior, "L_post": L_post, "Li": Li,
@@ -1010,14 +1065,16 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 po_s = _window(torch.cat([po.new_zeros((start,)
                                                        + po.shape[1:]), po]),
                                0, n_int)
-            elif grp and pa.shape[0] == grp * n_int:
-                pa_s = pa.reshape(n_int, grp, *pa.shape[1:]).sum(1)
-                po_s = po.reshape(n_int, grp, *po.shape[1:]).sum(1)
+            elif grp and pa.shape[nd] == grp * n_int:
+                pa_s = pa.reshape(batch + (n_int, grp) + pa.shape[nd + 1:]
+                                  ).sum(nd + 1)
+                po_s = po.reshape(batch + (n_int, grp) + po.shape[nd + 1:]
+                                  ).sum(nd + 1)
             else:
-                pa_s = pa.new_zeros((n_int,) + pa.shape[1:]).index_add(
-                    0, pp, pa)
-                po_s = po.new_zeros((n_int,) + po.shape[1:]).index_add(
-                    0, pp, po)
+                pa_s = pa.new_zeros(batch + (n_int,) + pa.shape[nd + 1:]
+                                    ).index_add(nd, pp, pa)
+                po_s = po.new_zeros(batch + (n_int,) + po.shape[nd + 1:]
+                                    ).index_add(nd, pp, po)
             prev = msgs[leaf_origin]
             msgs[leaf_origin] = ((pa_s, po_s) if prev is None
                                  else (prev[0] + pa_s, prev[1] + po_s))
@@ -1026,8 +1083,8 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                                                   "messages"))
         parts = [p for p in (msgs[True], msgs[False]) if p is not None]
         if not parts:
-            parts = [(torch.zeros(n_int, S + r, S + r, **fl),
-                      torch.zeros(n_int, S + r, **fl))]
+            parts = [(torch.zeros(batch + (n_int, S + r, S + r), **fl),
+                      torch.zeros(batch + (n_int, S + r), **fl))]
         A, omg = parts[0]
         for pa_s, po_s in parts[1:]:
             A = A + pa_s
@@ -1036,17 +1093,18 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         Kc = prior_L[m]
         Kmat = Kc @ Kc.transpose(-1, -2)
         prior_scale = torch.diagonal(Kmat, dim1=-2, dim2=-1).abs().mean(-1)
-        L_post = _chol(Kmat + A[:, S:, S:], jitter, scale=prior_scale)
-        v = _tri_solve(L_post, omg[:, S:, None])[..., 0]
+        L_post = _chol(Kmat + A[..., S:, S:], jitter, scale=prior_scale)
+        v = _tri_solve(L_post, omg[..., S:, None])[..., 0]
         lvl_sharded = shard_idx is not None and m >= crit
         add("sh" if lvl_sharded else "rep",
-            (2.0 * (_logdiag_sum(L_post) - _logdiag_sum(Kc))).sum(),
-            -(v * v).sum())
+            (2.0 * (_logdiag_sum(L_post) - _logdiag_sum(Kc))).sum(-1),
+            -(v * v).sum((-2, -1)))
 
         if S:
-            Xblk = _tri_solve(L_post, A[:, S:, :S])
-            ATil = A[:, :S, :S] - Xblk.transpose(-1, -2) @ Xblk
-            omgTil = omg[:, :S] - (Xblk.transpose(-1, -2) @ v[..., None])[..., 0]
+            Xblk = _tri_solve(L_post, A[..., S:, :S])
+            ATil = A[..., :S, :S] - Xblk.transpose(-1, -2) @ Xblk
+            omgTil = omg[..., :S] - (Xblk.transpose(-1, -2)
+                                     @ v[..., None])[..., 0]
             c_int = _int_group(dplan, m, n_int)
             if lvl_sharded and m == crit:
                 # the transition to the replicated levels: sum the local
@@ -1061,7 +1119,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                                     c_int))
             G = _tri_solve(L_post, Xblk, trans=True)
         else:
-            G = torch.zeros(n_int, r, 0, **fl)
+            G = torch.zeros(batch + (n_int, r, 0), **fl)
         g = _tri_solve(L_post, v[..., None], trans=True)[..., 0]
         int_stash[m] = {"L_post": L_post, "G": G, "g": g}
 

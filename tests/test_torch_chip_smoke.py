@@ -946,3 +946,92 @@ def test_chains_phase_passes_on_small_inputs():
     for o in ranks:
         assert len(o["gathered"]["log_prob"]) == chip_smoke.CHAIN_MESH["chain"]
         assert o["evals"] >= chip_smoke.CHAIN_RUN["num_warmup"]
+
+
+# ---------------------------------------------------------------------------
+# phases 13c-13e: parameter sets batched through one sweep
+# ---------------------------------------------------------------------------
+
+N1M_SMALL_NUTS = {"chains": 2, "num_warmup": 4, "num_samples": 4,
+                  "max_depth": 3}
+
+
+@pytest.fixture(scope="module")
+def batched_inputs():
+    """Phase 5 at a 40^2 grid and phase 13 (small runs, no roughness) on
+    the bundled small data: what phases 13c-13e take; phase 13b's report
+    (which 13e prints beside its own) as its test above leaves it."""
+    chip_smoke.reset_counters(tl)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as one_torch_thread, for the module's setup
+    try:
+        side = 40
+        n1m = chip_smoke.phase_n1m("cpu", timer=_host_timer, side=side,
+                                   golden=_flagship_golden(side), n_evals=1)
+        serial = chip_smoke.phase_samplers(5.0, "cpu", data="small", M=-1,
+                                           runs=SMALL_RUNS,
+                                           timer=_host_timer, rough_rs=())
+        nuts_n1m = {"ms_per_draw": 200.0, "evals_per_draw": 2.0}
+    finally:
+        torch.set_num_threads(threads)
+    return n1m, serial, nuts_n1m
+
+
+def _phase_13c(n1m):
+    return chip_smoke.phase_batched(n1m, "cpu", timer=_host_timer,
+                                    data="small", M=-1, n_evals=1)
+
+
+def test_batched_phase_passes_on_small_inputs(batched_inputs):
+    out = _phase_13c(batched_inputs[0])
+    for tree in ("n10k", "n1m"):
+        run = out[tree]
+        assert run["worst"]["value"] <= chip_smoke.BATCH_OBJ_RTOL
+        assert run["worst"]["grad"] <= chip_smoke.BATCH_GRAD_RTOL
+        assert run["ms_batch"] > 0 and run["ms_single"] > 0
+        # on the CPU no kernel launches, batched or not
+        assert set(run["launches"].values()) == {0}
+
+
+def test_batched_phase_rejects_a_batch_out_of_order(batched_inputs,
+                                                    monkeypatch):
+    # the batched loglik with its sets rolled: each value is another set's
+    real = MRAModel.loglik_fn
+
+    def rolled(self, *a, batched=False, **k):
+        f = real(self, *a, batched=batched, **k)
+        return (lambda th: f(th).roll(1)) if batched else f
+
+    monkeypatch.setattr(MRAModel, "loglik_fn", rolled)
+    with pytest.raises(SystemExit, match="batched loglik off"):
+        _phase_13c(batched_inputs[0])
+
+
+def test_batched_sampler_phases_pass_on_small_inputs(batched_inputs):
+    n1m, serial, nuts_n1m = batched_inputs
+    out = chip_smoke.phase_samplers_batched(serial, "cpu", runs=SMALL_RUNS)
+    for name in ("nuts", "hmc"):
+        run = out[name]
+        assert run["reeval_rel"] == 0.0
+        # lockstep: a transition costs the most points among its chains
+        assert run["calls_per_transition"] >= run["evals_per_draw"] >= 1
+        assert run["ms_per_draw"] > 0
+    # SMC evaluates its particles in one call each time
+    assert out["smc"]["calls"] < serial["smc"]["evals"]
+    assert np.isfinite(out["advi"]["elbo_last"])
+    chains = chip_smoke.N1M_BATCHED_NUTS["chains"]
+    nb = chip_smoke.phase_nuts_n1m_batched(
+        n1m, {"l": 0.05, "sig": 1.0}, nuts_n1m, "cpu",
+        run={**N1M_SMALL_NUTS, "chains": chains})
+    assert nb["reeval_rel"] == 0.0 and sum(nb["depth_histogram"]) == (
+        chains * N1M_SMALL_NUTS["num_samples"])
+    for name in chip_smoke.KERNEL_NAMES:
+        wrapper = chip_smoke.wrapper_of(name)[0]
+        assert getattr(tl, f"{wrapper}_ref").cuda_calls == 0
+
+
+def test_batched_sampler_phase_rejects_a_drifting_log_prob(batched_inputs):
+    with pytest.raises(SystemExit, match="at the last draw"):
+        chip_smoke.phase_samplers_batched(batched_inputs[1], "cpu",
+                                          runs=TINY_RUNS,
+                                          wrap=_drifting_value)

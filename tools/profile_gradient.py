@@ -23,10 +23,18 @@ around 0.05), ``dense`` (the ``n10k`` tree under phase 10's correlated
   likelihood-only evaluations: device time by kernel name, and the
   device's busy share of the wall time.
 
+With ``--batched`` it profiles instead one batched value-and-gradient
+evaluation of ``MRAModel.loglik_fn(..., batched=True)`` at each count of
+parameter sets in ``BATCHES`` (C sets through one sweep): the port's
+kernel launches per batched evaluation, ms per batched evaluation (the
+median of ``--reps`` CUDA-event loops), peak memory, and the profiled
+wall and device ms, busy share and device launches (``dense`` has no
+batch: skipped).
+
 Run from the repository root on a machine with an NVIDIA GPU::
 
     python3 tools/profile_gradient.py [--reps 5] [--side 1000]
-        [--cells n10k,n1m,dense,wide] [--out FILE]
+        [--cells n10k,n1m,dense,wide] [--batched] [--out FILE]
 
 It prints a summary and, with ``--out``, writes the numbers as JSON.
 """
@@ -52,23 +60,26 @@ from pymra_torch.utils import gen_locations_2d  # noqa: E402
 
 
 CELLS = ("n10k", "n1m", "dense", "wide")
+#: parameter sets per batched evaluation (``--batched``), by cell
+BATCHES = {"n10k": (1, 2, 4, 8), "n1m": (1, 2, 4), "wide": (1, 2, 4)}
 
 
 def cells(side, names):
+    """``(key, name, locs, y, r, M, R, l0)`` of each cell in ``names``."""
     locs, y = load_data("large")
     if "n10k" in names:
-        yield "N=10^4", locs, y, 4, 4, 1e-4, 2.0
+        yield "n10k", "N=10^4", locs, y, 4, 4, 1e-4, 2.0
     if "dense" in names:
-        yield "N=10^4 dense R", locs, y, 4, 4, "correlated", 2.0
+        yield "dense", "N=10^4 dense R", locs, y, 4, 4, "correlated", 2.0
     locs = gen_locations_2d(side)
     rng = np.random.default_rng(0)
     y = rng.standard_normal(len(locs)).astype(np.float32)
     y[rng.random(len(locs)) > 0.9] = np.nan
     if "n1m" in names:
-        yield (f"N={side * side}", locs, y, 8, tpu_shaped_M(len(locs), 8),
-               1e-2, 0.05)
+        yield ("n1m", f"N={side * side}", locs, y, 8,
+               tpu_shaped_M(len(locs), 8), 1e-2, 0.05)
     if "wide" in names:
-        yield f"N={side * side} M=6", locs, y, 8, 6, 1e-2, 0.05
+        yield "wide", f"N={side * side} M=6", locs, y, 8, 6, 1e-2, 0.05
 
 
 def launches(run):
@@ -185,6 +196,52 @@ def profile_cell(name, locs, y, r, M, R, l0, reps, device="cuda"):
     return out
 
 
+def profile_batched(name, locs, y, r, M, R, l0, reps, counts,
+                    device="cuda"):
+    """One batched value-and-gradient evaluation at each C of ``counts``:
+    launches, ms (median of ``reps`` loops of 5), peak memory, trace."""
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y_dev = torch.as_tensor(y, dtype=torch.float32, device=device)
+    fb = model.loglik_fn(y_dev, R, kernel_builder=cs.exponential_builder,
+                         batched=True)
+    shifts = np.exp(np.linspace(-0.02, 0.02, 6))
+    out = {}
+    print(f"== {name}, batched value and gradient")
+    for C in counts:
+        def run(t=1.0, C=C):
+            cs.batched_value_and_grad(fb, {
+                "l": list(l0 * t * np.linspace(0.9, 1.1, C)),
+                "sig": [1.0] * C})
+
+        rec = {"launches": launches(run)}
+        ms = []
+        for _ in range(reps):
+            it = iter(shifts)
+            ms.append(cs.time_ms(lambda: run(float(next(it))), reps=5))
+        rec["ms_value_and_grad"] = quartiles(ms)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["profile"] = trace(run, shifts)
+        pr, q = rec["profile"], rec["ms_value_and_grad"]
+        print(f"C={C}: {q['median']:.3f} ms per batched evaluation (IQR "
+              f"{q['q1']:.3f}-{q['q3']:.3f}), {q['median'] / C:.3f} per "
+              f"set; launches {sum(rec['launches'].values())} "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }; peak "
+              f"{rec['peak_gib']:.2f} GiB; profiled wall "
+              f"{pr['wall_ms']:.3f} ms, device kernels "
+              f"{pr['device_kernel_ms']:.3f} ms, busy {pr['busy_share']:.1%}"
+              f", {pr['device_launches']:g} device launches")
+        for k, v in pr["top"][:8]:
+            print(f"  {v:9.3f} ms/eval  {k[:110]}")
+        out[C] = rec
+    return out
+
+
 def trace(evaluate, ls, n_prof=3):
     """``torch.profiler`` over ``n_prof`` evaluations at the first values
     of ``ls``: wall and device-kernel ms per evaluation, the busy share,
@@ -211,6 +268,9 @@ def main():
     parser.add_argument("--side", type=int, default=1000)
     parser.add_argument("--cells", default="n10k,n1m",
                         help=f"comma-separated, of {', '.join(CELLS)}")
+    parser.add_argument("--batched", action="store_true",
+                        help="profile batched evaluations at the counts "
+                             "of BATCHES instead")
     parser.add_argument("--out", help="write the numbers as JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -226,8 +286,14 @@ def main():
     unknown = set(names) - set(CELLS)
     if unknown:
         raise SystemExit(f"profile_gradient: unknown cells {sorted(unknown)}")
-    for cell in cells(args.side, names):
-        result[cell[0]] = profile_cell(*cell, reps=args.reps)
+    for key, *cell in cells(args.side, names):
+        if not args.batched:
+            result[cell[0]] = profile_cell(*cell, reps=args.reps)
+        elif key in BATCHES:
+            result[cell[0]] = profile_batched(*cell, reps=args.reps,
+                                              counts=BATCHES[key])
+        else:
+            print(f"== {cell[0]}: no batch (a dense R runs one set)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
