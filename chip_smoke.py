@@ -60,6 +60,12 @@ non-zero exit code and no result line:
    the diagonal path's own objective; (b) a correlated R against a frozen
    float64 objective and gradient, ms per full and per value-and-gradient
    evaluation, peak memory;
+10b. phase 10's correlated R with 4 parameter sets through one sweep:
+   each set's loglik and gradient against the set alone (1e-5 / 1e-4),
+   the golden's set against the frozen golden, launches per batched value
+   and gradient equal to one single evaluation's (R's blocks factored by
+   K2 and y whitened by K5 once for all sets), the batched posterior's
+   shape, ms, peak memory;
 11. leaves wider than 64: the N=10^4 tree at M=3 (64 leaves of 169)
    against its frozen float64 objective and gradient, and the N=10^6 grid
    at M=6 (4096 leaves of 256): ms per evaluation with and without the
@@ -95,7 +101,15 @@ non-zero exit code and no result line:
 13e. phase 13b's NUTS with 4 chains in lockstep on phase 5's N=10^6 plan
    and data: finite draws, the last draws against their batch, ms per draw
    beside 13b's, evaluations per transition, peak memory;
-14. launch counters over phases 13-13e: K1-K4 and the pullback launched,
+13f. the posterior of 4 parameter sets through one sweep
+   (``MRAModel.sweep`` with a batched ``Kernel``) on phase 4's tree
+   (R=1e-4, sets around l=2) and phase 5's plan and data (l in {0.04,
+   0.05, 0.0625, 0.08}): the golden's set against the golden, each set's
+   objective against the set alone on the card (1e-5), its mean and var
+   within phase 20's limits of the set alone's, launches per batched
+   evaluation equal to one single evaluation's, ms per batched and per
+   single evaluation, device time (busy share) and peak memory;
+14. launch counters over phases 13-13f: K1-K4 and the pullback launched,
    no twin ran on a CUDA tensor;
 15. a dense covariance matrix at N=10^4: ``MRATree`` with the exponential
    (l=2) as an ``[N, N]`` float32 matrix on the card (index-mode plan,
@@ -113,7 +127,10 @@ non-zero exit code and no result line:
    posterior basis matrix's row sums of squares against the sweep's
    variance; ``getB_lk`` against the sweep's ancestor basis block;
    ``drawBasisFunctions`` to ``chiprun_out/`` (without matplotlib: the
-   arrays it draws);
+   arrays it draws); 17b: two parameter sets through one
+   ``keep_internals`` sweep, every stash with the ``[C]`` axis in front,
+   objective and posterior of each set against its single sweep at phase
+   17's limits, launches equal, the host basis matrix refusing the batch;
 18. the triangular leaf route (``PYMRA_LEAF_SOLVE=tri``: K6, K2, K5) at
    N=10^4: objective and gradient against the goldens, ms on both routes,
    the float32 roughness of both routes at phase 13's points (R=1e-2 and
@@ -143,9 +160,17 @@ non-zero exit code and no result line:
    tree and R, from phase 13's fit): data partners draw bit-identical
    chains, the gathered draws are finite and healthy, each chain's last
    log_prob matches a serial evaluation. A rank that fails or hangs fails
-   the phase: the ranks are joined by a deadline and killed past it.
+   the phase: the ranks are joined by a deadline and killed past it;
+20c. the sharded batch: phase 13c's first 2 N=10^6 sets through one
+   sharded sweep on phase 20's 2 ranks (posterior, and
+   ``sharded_loglik_fn(..., batched=True)``'s value and gradient): ranks
+   bit-identical, each set's loglik and gradient against 13c's serial
+   batch (1e-5 / 1e-4), the posterior against the serial batched sweep's
+   (phase 20's limits); then phase 20b's mesh with 2 chains a chain rank
+   in lockstep (one batched sharded evaluation of both a step): 20b's
+   checks, batched calls per transition beside 20b's.
 
-Phases 13-14 (13c-13e included), 18b, 20 and 20b run after phase 9,
+Phases 13-14 (13c-13f included), 18b, 20, 20b and 20c run after phase 9,
 before phase 10; phases
 15-19 after phase 12. Times of phases 20-20b come from ranks that share
 one card: they are not a scaling figure. Phase 3 also times K2, K5 and K6 at the side paths'
@@ -198,6 +223,26 @@ GOLDEN_DENSE_R_N10K = {"objective": 119999.24034216302,
 #: posterior blocks fail every jitter factor, in the JAX package too)
 GOLDEN_WIDE_N10K = {"objective": 26656.746190704536,
                     "l": -6463.406800508911, "sig": 12930.823023250949}
+#: phase 13f: the posterior of C=4 sets through one sweep, on phase 4's
+#: tree at its R and on phase 5's plan and data at theirs; the first
+#: N=10^4 set and the second N=10^6 set are the goldens' parameters
+POST_BATCH_N10K = {"l": (2.0, 1.6, 2.5, 3.2), "sig": (1.0, 1.2, 0.8, 1.1)}
+POST_BATCH_N1M = {"l": (0.04, 0.05, 0.0625, 0.08), "sig": (1.0,) * 4}
+#: at R = 1e-4 (phase 13f at N=10^4, phase 10b) a batch's float32 result
+#: is held, like each set alone, to the set's float64 result (the
+#: goldens' arithmetic, on the host in the same run): objective and
+#: gradient within ANCHOR_RTOL and GRAD_RTOL, the posterior mean and var
+#: within these times the set's largest magnitude. Against each other the
+#: two float32 evaluations differ by more than the R=1e-2 limits: the
+#: card's products round differently at C·n members than at n, and R=1e-4
+#: amplifies it. On an NVIDIA H100 (700 W; tools/batch_rounding.py) the
+#: batch moved the objective by up to 6.9e-4 from the set alone, the
+#: posterior mean and var by 3.2e-2 and 1.9e-2 of their scale, the dense-R
+#: loglik and gradient by 2.3e-4 and 6.9e-4, while either lay as close to
+#: float64 as the other: objective 2.2e-4 / 4.7e-4 at most, mean 1.7e-2 /
+#: 1.4e-2, var 1.8e-2 / 1.6e-2; a set alone is repeatable bit for bit, C
+#: copies of one set agree with each other bit for bit, no member escalated
+F64_POST_RTOL = {"mean": 5e-2, "var": 5e-2}
 WIDE_R = 1e-2
 #: kernel-versus-twin agreement: max|kernel - twin| <= ATOL + RTOL max|twin|
 #: per output (two float32 column loops rounding in different places; the
@@ -1554,8 +1599,10 @@ def _held(tag, got, golden, rtol):
 
 def sweep_value_and_grad(model, y, R, l, sig):
     """Objective and gradient of ``sweep(...).loglik`` in (l, sig), the
-    parameters 0-dim float64 tensors on the model's device: the gradient
-    path of a dense R (``loglik_fn`` takes a diagonal R)."""
+    parameters float64 tensors on the model's device: the gradient path of
+    a dense R (``loglik_fn`` takes a diagonal R). ``l`` and ``sig`` as
+    lists of C values run C sets through one sweep: every entry is then a
+    list (of the sets' values)."""
     import torch
 
     from pymra_torch import Kernel
@@ -1565,9 +1612,10 @@ def sweep_value_and_grad(model, y, R, l, sig):
           for k, v in (("l", l), ("sig", sig))}
     res = model.sweep(Kernel("exponential", l=th["l"], sig=th["sig"]), y, R,
                       compute_posterior=False)
-    res.loglik.backward()
-    return {"objective": float(res.objective.detach()),
-            **{k: float(t.grad) for k, t in th.items()}}
+    res.loglik.sum().backward()
+    return {"objective": res.objective.detach().tolist(),
+            "loglik": res.loglik.detach().tolist(),
+            **{k: t.grad.tolist() for k, t in th.items()}}
 
 
 def phase_dense_r(device="cuda", timer=time_ms, n_evals=10, data="large",
@@ -1604,8 +1652,8 @@ def phase_dense_r(device="cuda", timer=time_ms, n_evals=10, data="large",
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    _held(f"{tag} (b)", sweep_value_and_grad(model, y, R, 2.0, 1.0), golden,
-          GRAD_RTOL)
+    got = sweep_value_and_grad(model, y, R, 2.0, 1.0)
+    _held(f"{tag} (b)", {k: got[k] for k in golden}, golden, GRAD_RTOL)
     full = model.sweep(kern, y, R)
     for name, v in (("mean", full.mean), ("var", full.var)):
         check(tuple(v.shape) == (n,) and bool(torch.isfinite(v).all()),
@@ -1624,7 +1672,105 @@ def phase_dense_r(device="cuda", timer=time_ms, n_evals=10, data="large",
           f"l in [1.5, 2.5]); peak device memory with autograd {peak:.2f} "
           "GiB (R itself takes "
           f"{R.numel() * 4 / 2**30:.2f})")
-    return {"ms_full": ms_full, "ms_grad": ms_grad, "peak": peak}
+    return {"ms_full": ms_full, "ms_grad": ms_grad, "peak": peak,
+            "model": model, "y": y, "R": R}
+
+
+#: phase 10b: phase 13f's N=10^4 sets under phase 10's correlated R, the
+#: first at the golden's parameters
+DENSE_BATCH = POST_BATCH_N10K
+
+
+def phase_dense_r_batched(dense, device="cuda", timer=time_ms, n_evals=5,
+                          sets=DENSE_BATCH, golden=GOLDEN_DENSE_R_N10K):
+    """Phase 10b: phase 10's tree and correlated R with C sets through one
+    sweep: the batched objective and gradient and each set's alone against
+    the set's float64 ones (computed here on the host: see
+    ``F64_POST_RTOL``), the golden's set against the frozen golden,
+    launches per batched value and gradient against one single
+    evaluation's (R's blocks factored and y whitened once), the batched
+    posterior's shape, ms and peak memory."""
+    import torch
+
+    from pymra_torch import MRAModel
+
+    model, y, R = dense["model"], dense["y"], dense["R"]
+    n = model.dplan.n_locs
+    C = len(sets["l"])
+    tag = f"dense R N={n} batched"
+    print(f"== phase 10b: phase 10's correlated R with {C} parameter sets "
+          f"through one sweep ({sets})")
+
+    def one(c, t=1.0):
+        return sweep_value_and_grad(model, y, R, sets["l"][c] * t,
+                                    sets["sig"][c])
+
+    def batch(t=1.0):
+        return sweep_value_and_grad(model, y, R,
+                                    [l * t for l in sets["l"]],
+                                    list(sets["sig"]))
+
+    one(0)  # warm-up, uncounted
+    before = _launch_snapshot()
+    singles = [one(c) for c in range(C)]
+    mid = _launch_snapshot()
+    _reset_peak(device)
+    got = batch()
+    peak = _peak_gib(device)
+    after = _launch_snapshot()
+    per_single = {k: (mid[k] - before[k]) / C for k in KERNEL_NAMES}
+    per_batch = {k: after[k] - mid[k] for k in KERNEL_NAMES}
+    print(f"{tag} kernel launches per value and gradient: one set alone "
+          f"{ {k: v for k, v in per_single.items() if v} }, {C} sets batched "
+          f"{ {k: v for k, v in per_batch.items() if v} } (R's blocks by K2 "
+          "and y's whitening by K5 once for all sets)")
+    check(per_batch == per_single, f"{tag}: the batch of {C} launched "
+          f"{per_batch}, one set alone {per_single}")
+    _held(f"{tag} set 0", {k: got[k][0] for k in golden}, golden, GRAD_RTOL)
+    exact = MRAModel(model.plan.locs, model.plan.r, plan=model.plan,
+                     dtype=torch.float64, device="cpu")
+    R64 = R.detach().to("cpu", torch.float64)
+    y64 = y.detach().to("cpu", torch.float64)
+    f64 = [sweep_value_and_grad(exact, y64, R64, sets["l"][c],
+                                sets["sig"][c]) for c in range(C)]
+    worst = {}
+    for name, runs in (("batched", [{k: got[k][c] for k in got}
+                                     for c in range(C)]),
+                       ("alone", singles)):
+        for key, limit in (("objective", ANCHOR_RTOL), ("grad", GRAD_RTOL)):
+            names = ("objective",) if key == "objective" else ("l", "sig")
+            worst[name, key] = max(abs(o[k] - w[k]) / abs(w[k])
+                                   for o, w in zip(runs, f64)
+                                   for k in names)
+            print(f"{tag} {name} {key} against each set's float64: rel diff"
+                  f" {worst[name, key]:.3g} (limit {limit})")
+            check(worst[name, key] <= limit,
+                  f"{tag}: {name} {key} off float64 by "
+                  f"{worst[name, key]:.3g}")
+    worst["loglik"] = max(abs(got["loglik"][c] - o["loglik"])
+                          / abs(o["loglik"]) for c, o in enumerate(singles))
+    worst["grad"] = max(abs(got[k][c] - o[k]) / abs(o[k])
+                        for c, o in enumerate(singles) for k in ("l", "sig"))
+    print(f"{tag} against each set alone: loglik rel diff "
+          f"{worst['loglik']:.3g}, gradient {worst['grad']:.3g} (reported; "
+          "see F64_POST_RTOL)")
+    full = model.sweep(batched_kernel(sets), y, R)
+    check(tuple(full.mean.shape) == (C, n)
+          and bool(torch.isfinite(full.mean).all())
+          and bool((full.var > 0).all()),
+          f"{tag}: batched posterior of shape {tuple(full.mean.shape)}, "
+          "not finite or a variance not positive")
+    shifts = np.exp(np.linspace(-0.01, 0.01, n_evals + 1))
+    it = iter(shifts)
+    ms_batch = timer(lambda: batch(float(next(it))), reps=n_evals)
+    it = iter(shifts)
+    ms_single = timer(lambda: one(0, float(next(it))), reps=n_evals)
+    print(f"{tag} value and gradient: {ms_batch:.3f} ms per batched "
+          f"evaluation of {C} sets against {ms_single:.3f} ms for one set "
+          f"alone ({C} alone: {C * ms_single:.3f}; {n_evals} evals each); "
+          f"peak device memory of the batched evaluation {peak:.2f} GiB")
+    return {"ms_batch": ms_batch, "ms_single": ms_single, "peak": peak,
+            "worst": worst, "launches": per_batch}
 
 
 def phase_wide(device="cuda", timer=time_ms, n_evals=8, data="large", r=4,
@@ -2305,7 +2451,8 @@ def _check_batch(tag, model, y, R, sets, device, timer, n_evals) -> dict:
           f"{C * ms_single / ms_batch:.2f}x; peak device memory of the "
           f"batched evaluation {peak:.2f} GiB")
     return {"ms_batch": ms_batch, "ms_single": ms_single, "peak": peak,
-            "worst": worst, "launches": per_batch}
+            "worst": worst, "launches": per_batch, "values": values.tolist(),
+            "grads": {k: v.tolist() for k, v in grads.items()}}
 
 
 def phase_batched(n1m, device="cuda", timer=time_ms, data="large", r=4,
@@ -2330,6 +2477,189 @@ def phase_batched(n1m, device="cuda", timer=time_ms, data="large", r=4,
     out["n1m"] = _check_batch(f"N={n1m['model'].dplan.n_locs}",
                               n1m["model"], n1m["y"], R, sets_n1m, device,
                               timer, n_evals)
+    return out
+
+
+def batched_kernel(sets, device="cpu"):
+    """The exponential kernel at the parameter sets ``{l: [C], sig: [C]}``
+    (float64 leaves; ``Kernel`` rounds them to the sweep's dtype)."""
+    import torch
+
+    from pymra_torch import Kernel
+
+    return Kernel("exponential", **{
+        k: torch.tensor(v, dtype=torch.float64, device=device)
+        for k, v in sets.items()})
+
+
+def _set_of(sets, c):
+    return {k: v[c] for k, v in sets.items()}
+
+
+def _moments_off(tag, got, want, limits) -> dict:
+    """Each posterior moment of ``got`` against ``want`` (``{mean, var}``
+    arrays ``[..., N]``): max |diff| relative to the largest magnitude of
+    ``want``'s set (its last axis), within ``limits[name]``; returns the
+    max and the median."""
+    out = {}
+    for name in ("mean", "var"):
+        a = np.asarray(got[name], dtype=np.float64)
+        b = np.asarray(want[name], dtype=np.float64)
+        check(a.shape == b.shape and bool(np.isfinite(a).all()),
+              f"{tag} posterior {name}: shape {a.shape} against {b.shape}, "
+              "or not finite")
+        d = np.abs(a - b) / np.maximum(np.abs(b).max(-1, keepdims=True),
+                                       1e-30)
+        out[name] = (float(d.max()), float(np.median(d)))
+        print(f"{tag} posterior {name}: max |diff| {out[name][0]:.3g} of "
+              f"its largest magnitude, median {out[name][1]:.3g} (limit "
+              f"{limits[name]})")
+        check(out[name][0] <= limits[name],
+              f"{tag} posterior {name} off by {out[name][0]:.3g}")
+    return out
+
+
+def _host(res) -> dict:
+    """A sweep result's moments as float64 numpy arrays."""
+    return {k: getattr(res, k).detach().cpu().double().numpy()
+            for k in ("mean", "var")}
+
+
+def _check_posterior_batch(tag, model, y, R, sets, golden, device, timer,
+                           dev_timer, n_evals, exact=None) -> dict:
+    """The batched posterior sweep at ``sets`` against each set alone:
+    objective (the golden's set also against ``golden``), mean and var;
+    launches per batched evaluation against one single evaluation's; ms of
+    both, the batch's device time and peak memory. With ``exact`` (a
+    float64 host model on the same plan, and ``y`` there) the batch and
+    each set alone are held to that set's float64 result instead (see
+    ``F64_POST_RTOL``), their difference reported."""
+    import torch
+
+    from pymra_torch import Kernel
+
+    C = len(sets["l"])
+    g = sets["l"].index(golden[0])
+
+    def single(c, t=1.0):
+        return model.sweep(Kernel("exponential", l=sets["l"][c] * t,
+                                  sig=sets["sig"][c]), y, R)
+
+    def batch(t=1.0):
+        return model.sweep(batched_kernel(
+            {"l": [l * t for l in sets["l"]], "sig": sets["sig"]}), y, R)
+
+    single(0)  # warm-up, uncounted
+    before = _launch_snapshot()
+    singles = [_host(r) | {"objective": float(r.objective)}
+               for r in (single(c) for c in range(C))]
+    mid = _launch_snapshot()
+    _reset_peak(device)
+    res = batch()
+    objective = res.objective.detach().cpu().double().numpy()
+    peak = _peak_gib(device)
+    after = _launch_snapshot()
+    per_single = {n: (mid[n] - before[n]) / C for n in KERNEL_NAMES}
+    per_batch = {n: after[n] - mid[n] for n in KERNEL_NAMES}
+    print(f"{tag} kernel launches per posterior evaluation: one set alone "
+          f"{ {n: v for n, v in per_single.items() if v} }, {C} sets batched "
+          f"{ {n: v for n, v in per_batch.items() if v} }")
+    check(per_batch == per_single, f"{tag}: the batch of {C} launched "
+          f"{per_batch}, one set alone {per_single}")
+    n = model.dplan.n_locs
+    check(objective.shape == (C,) and tuple(res.mean.shape) == (C, n)
+          and bool((res.var > 0).all()),
+          f"{tag}: objective {objective.shape}, mean "
+          f"{tuple(res.mean.shape)} (expected ({C},), ({C}, {n})), or a "
+          "variance not positive")
+    _anchor(f"{tag} batched set {g}", float(objective[g]), golden[1])
+    obj = max(abs(objective[c] - o["objective"]) / abs(o["objective"])
+              for c, o in enumerate(singles))
+    got = _host(res)
+    alone = {k: np.stack([o[k] for o in singles]) for k in ("mean", "var")}
+    if exact is None:
+        print(f"{tag} batched C={C} objective against each set alone: rel "
+              f"diff {obj:.3g} (limit {BATCH_OBJ_RTOL}); objectives "
+              f"{[round(float(v), 3) for v in objective]}")
+        check(obj <= BATCH_OBJ_RTOL, f"{tag}: batched objective off the "
+                                     f"single evaluations by {obj:.3g}")
+        moments = _moments_off(f"{tag} batched against each set alone",
+                               got, alone, SHARD_POST_RTOL)
+    else:
+        model64, y64 = exact
+        f64 = [model64.sweep(Kernel("exponential", l=sets["l"][c],
+                                    sig=sets["sig"][c]), y64, R)
+               for c in range(C)]
+        want = {k: np.stack([getattr(r, k).numpy() for r in f64])
+                for k in ("mean", "var")}
+        for name, values in (("batched", objective),
+                             ("alone", [o["objective"] for o in singles])):
+            worst = max(abs(values[c] - float(r.objective))
+                        / abs(float(r.objective)) for c, r in enumerate(f64))
+            print(f"{tag} {name} objective against each set's float64: rel "
+                  f"diff {worst:.3g} (limit {ANCHOR_RTOL})")
+            check(worst <= ANCHOR_RTOL, f"{tag}: {name} objective off "
+                                        f"float64 by {worst:.3g}")
+        print(f"{tag} batched C={C} objective against each set alone: rel "
+              f"diff {obj:.3g} (reported; see F64_POST_RTOL); objectives "
+              f"{[round(float(v), 3) for v in objective]}")
+        moments = _moments_off(f"{tag} batched against float64", got, want,
+                               F64_POST_RTOL)
+        _moments_off(f"{tag} alone against float64", alone, want,
+                     F64_POST_RTOL)
+        d = {k: float((np.abs(got[k] - alone[k]) / np.abs(alone[k]).max(
+            -1, keepdims=True)).max()) for k in ("mean", "var")}
+        print(f"{tag} posterior batched against alone: max |diff| {d} of "
+              "the set's largest magnitude (reported)")
+    shifts = np.exp(np.linspace(-0.01, 0.01, n_evals + 1))
+    it = iter(shifts)
+    ms_batch = timer(lambda: batch(float(next(it))), reps=n_evals)
+    it = iter(shifts)
+    ms_single = timer(lambda: single(0, float(next(it))), reps=n_evals)
+    dev, _ = dev_timer(lambda: batch(), reps=3)
+    busy = (f"{dev:.3f} ms device (torch.profiler, 3 evals), busy "
+            f"{100 * dev / ms_batch:.1f}%" if dev is not None
+            else "device time not measured")
+    print(f"{tag} full likelihood+posterior: {ms_batch:.3f} ms per batched "
+          f"evaluation of {C} sets against {ms_single:.3f} ms for one set "
+          f"alone ({C} alone: {C * ms_single:.3f}; {n_evals} evals each; "
+          f"{C * ms_single / ms_batch:.2f}x); {busy}; peak device memory of "
+          f"the batched evaluation {peak:.2f} GiB")
+    return {"ms_batch": ms_batch, "ms_single": ms_single, "device_ms": dev,
+            "peak": peak, "objective": obj, "moments": moments,
+            "launches": per_batch, "mean": got["mean"], "var": got["var"]}
+
+
+def phase_batched_posterior(n1m, device="cuda", timer=time_ms,
+                            dev_timer=device_ms, data="large", r=4, M=4,
+                            n_evals=5, sets_n10k=POST_BATCH_N10K,
+                            sets_n1m=POST_BATCH_N1M, golden_n10k=GOLDEN_N10K,
+                            golden_n1m=GOLDEN_N1M) -> dict:
+    """Phase 13f: ``MRAModel.sweep`` with a batched covariance (the
+    posterior, the default) at C sets on phase 4's N=10^4 tree (R=1e-4)
+    and phase 5's N=10^6 plan and data (R=1e-2)."""
+    import torch
+
+    from pymra_torch import MRAModel, PlanConfig, load_data
+
+    locs, y_obs = load_data(data)
+    n1 = n1m["model"].dplan.n_locs
+    print(f"== phase 13f: the posterior of {len(sets_n10k['l'])} parameter "
+          f"sets through one sweep at N={len(locs)} (bundled {data}, r={r}, "
+          f"M={M}, R=1e-4, {sets_n10k}) and N={n1} (phase 5, R=1e-2, "
+          f"{sets_n1m})")
+    model = MRAModel(locs, r=r, M=M, dtype=torch.float32,
+                     config=PlanConfig(r=r, kmeans_impl="native"),
+                     device=device)
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    exact = MRAModel(locs, r=r, plan=model.plan, dtype=torch.float64,
+                     device="cpu")
+    out = {"n10k": _check_posterior_batch(
+        f"N={len(locs)}", model, y, 1e-4, sets_n10k, (2.0, golden_n10k),
+        device, timer, dev_timer, n_evals, exact=(exact, y_obs))}
+    out["n1m"] = _check_posterior_batch(
+        f"N={n1}", n1m["model"], n1m["y"], 1e-2, sets_n1m,
+        (0.05, golden_n1m), device, timer, dev_timer, n_evals)
     return out
 
 
@@ -2897,6 +3227,117 @@ def phase_keep_internals(device="cuda", timer=time_ms, n_evals=5,
     return {"ms_keep": ms_keep, "ms_base": ms_base, "t_basis": t_basis}
 
 
+#: phase 17b: two sets through one keep_internals sweep, the first at the
+#: golden's parameters
+KEEP_BATCH = {"l": (2.0, 2.5), "sig": (1.0, 0.9)}
+
+
+def _stash_leaves(tree, prefix=""):
+    """``{path: tensor}`` of a ``keep_internals`` stash tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree} if hasattr(tree, "shape") else {}
+    out = {}
+    for k, v in items:
+        out.update(_stash_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def phase_keep_internals_batched(device="cuda", timer=time_ms, n_evals=3,
+                                 data="large", r=4, M=4, R=1e-4,
+                                 golden=GOLDEN_N10K, sets=KEEP_BATCH):
+    """Phase 17b: phase 17's tree with C sets through one ``keep_internals``
+    sweep: every stash with the ``[C]`` axis in front, objective and
+    posterior of each set against the single ``keep_internals`` sweep at
+    phase 17's limits, launches equal, ms; the host basis matrix refuses
+    the batch."""
+    import torch
+
+    from pymra_torch import Kernel
+    from pymra_torch.tree.basis import basis_matrix
+    from pymra_torch.tree.sweep import mra_sweep
+
+    tree = _tree(data, r, M, Kernel("exponential", l=2.0), R, device)
+    model, y_obs = tree.model, tree.obs
+    y = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
+    C = len(sets["l"])
+    tag = f"keep_internals N={model.plan.n_locs} batched"
+    print(f"== phase 17b: keep_internals with {C} parameter sets through one "
+          f"sweep (phase 17's tree, R={R}, {sets})")
+
+    def keep(cov):
+        return mra_sweep(model.dplan, cov, y, R, jitter=model.jitter,
+                         keep_internals=True)
+
+    def single(c, t=1.0):
+        return keep(Kernel("exponential", l=sets["l"][c] * t,
+                           sig=sets["sig"][c]))
+
+    single(0)  # warm-up, uncounted
+    before = _launch_snapshot()
+    singles = [single(c) for c in range(C)]
+    mid = _launch_snapshot()
+    res, stash = keep(batched_kernel(sets))
+    after = _launch_snapshot()
+    per_single = {n: (mid[n] - before[n]) / C for n in KERNEL_NAMES}
+    per_batch = {n: after[n] - mid[n] for n in KERNEL_NAMES}
+    print(f"{tag} kernel launches per sweep: one set alone "
+          f"{ {n: v for n, v in per_single.items() if v} }, {C} sets batched "
+          f"{ {n: v for n, v in per_batch.items() if v} }")
+    check(per_batch == per_single, f"{tag}: the batch of {C} launched "
+          f"{per_batch}, one set alone {per_single}")
+    got, want = _stash_leaves(stash), _stash_leaves(singles[0][1])
+    check(set(got) == set(want) and all(
+        tuple(got[k].shape) == (C,) + tuple(want[k].shape) for k in want),
+        f"{tag}: the stashes lack the [C] axis in front")
+    stash_off = 0.0
+    for c, (one, one_stash) in enumerate(singles):
+        for k, w in _stash_leaves(one_stash).items():
+            if w.is_floating_point() and w.numel():
+                d = float((got[k][c] - w).abs().max())
+                stash_off = max(stash_off, d / max(float(w.abs().max()),
+                                                   1e-30))
+    _anchor(f"{tag} set 0", float(res.objective[0]), golden)
+    obj = max(abs(float(res.objective[c]) - float(one.objective))
+              / abs(float(one.objective)) for c, (one, _) in
+              enumerate(singles))
+    print(f"{tag} against each set's keep_internals sweep alone: objective "
+          f"rel diff {obj:.3g} (limit {ANCHOR_RTOL}); every stash within "
+          f"{stash_off:.3g} of its largest magnitude (reported)")
+    check(obj <= ANCHOR_RTOL, f"{tag}: objective off the single sweeps by "
+                              f"{obj:.3g}")
+    for name, limit in (("mean", KEEP_MEAN_ATOL), ("var", KEEP_VAR_ATOL)):
+        diff = max(float((getattr(res, name)[c] - getattr(one, name))
+                         .abs().max()) for c, (one, _) in enumerate(singles))
+        print(f"{tag} {name} against each set's: max|diff| {diff:.3g} "
+              f"(limit {limit})")
+        check(diff <= limit, f"{tag} {name} off the single sweeps by "
+                             f"{diff:.3g}")
+    try:
+        basis_matrix(model, batched_kernel(sets), y=y_obs, R=R)
+        fail(f"{tag}: the host basis matrix took a batch")
+    except NotImplementedError as e:
+        print(f"{tag} basis matrix under the batch refused: {e}")
+    del stash, singles
+    it = iter(np.exp(np.linspace(-0.01, 0.01, n_evals + 1)))
+
+    def batch_at_next():
+        t = float(next(it))
+        return keep(batched_kernel({"l": [l * t for l in sets["l"]],
+                                    "sig": sets["sig"]}))
+
+    ms_batch = timer(batch_at_next, reps=n_evals)
+    it = iter(np.exp(np.linspace(-0.01, 0.01, n_evals + 1)))
+    ms_single = timer(lambda: single(0, float(next(it))), reps=n_evals)
+    print(f"{tag}: {ms_batch:.3f} ms per batched sweep of {C} sets against "
+          f"{ms_single:.3f} ms for one set alone ({n_evals} evals each)")
+    return {"ms_batch": ms_batch, "ms_single": ms_single,
+            "objective": obj, "stash": stash_off, "launches": per_batch}
+
+
 def phase_tri_route(device="cuda", timer=time_ms, n_evals=10,
                     data="large", r=4, M=4, R=1e-4, golden=GOLDEN_N10K,
                     golden_grad=GOLDEN_GRAD_N10K, rough=None):
@@ -3060,10 +3501,17 @@ SHARD_GRAD_RTOL = 1e-4
 CHAIN_MESH = {"chain": 2, "data": 2}
 CHAIN_RUN = {"num_warmup": 10, "num_samples": 10, "num_leapfrog": 4}
 CHAIN_REEVAL_RTOL = 1e-5
+#: phase 20c: phase 13c's first sets through one sharded sweep on phase
+#: 20's ranks, and phase 20b's mesh with this many chains a chain rank, run
+#: in lockstep (one batched sharded evaluation of all of them a step)
+SHARD_BATCH = 2
+LOCKSTEP_CHAINS = 2
 #: the faults the ranks can be told to inject (for the tests): rank 1
 #: drops its messages from the transition level's cross-rank sum, or every
-#: rank's gradient misses its cross-rank mean
+#: rank's gradient misses its cross-rank mean (phase 20); rank 1 drops set
+#: 1 of a batch from its partial sums, messages and totals (phase 20c)
 FAULTS = ("transition", "grad")
+BATCH_FAULTS = ("set1",)
 
 
 def run_ranks(target, n_ranks: int, tmp: str, args: tuple,
@@ -3137,8 +3585,21 @@ def _rank_setup(rank, n_ranks, tmp, device, mesh_shape, fault):
         from pymra_torch.parallel import sharded
 
         sharded.mean_grad = lambda x, group: x
+    elif fault == "set1" and rank == 1:
+        import torch
+
+        from pymra_torch.tree import sweep
+
+        orig_packed = sweep._all_reduce_packed
+        one = torch.tensor([1], device=device)
+
+        def dropped_set1(tensors, group, what):
+            return orig_packed([t.index_fill(0, one, 0.0) if t.dim() else t
+                                for t in tensors], group, what)
+
+        sweep._all_reduce_packed = dropped_set1
     elif fault is not None:
-        check(fault in FAULTS, f"unknown fault {fault!r}")
+        check(fault in FAULTS + BATCH_FAULTS, f"unknown fault {fault!r}")
     return mesh
 
 
@@ -3385,8 +3846,144 @@ def phase_sharded(n1m, grad_n1m, device="cuda", n_ranks=SHARD_RANKS,
     return ranks
 
 
-def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault):
-    """Phase 20b on one rank: HMC on its chain over its data share."""
+def _rank_sharded_batched(rank, n_ranks, tmp, device, R, sets, n_evals,
+                          fault):
+    """Phase 20c on one rank: the sets through one sharded sweep with the
+    posterior, and through ``sharded_loglik_fn(..., batched=True)``'s value
+    and gradient."""
+    import torch
+
+    from pymra_torch import MRAModel
+    from pymra_torch.ops import linalg as tl
+    from pymra_torch.parallel import pad_plan_for_sharding, sharded_sweep
+    from pymra_torch.parallel.sharded import sharded_loglik_fn
+    from pymra_torch.tree.sweep import prepare_obs
+    from pymra_torch.utils.checkpoint import load_plan
+
+    mesh = _rank_setup(rank, n_ranks, tmp, device, {"data": n_ranks}, fault)
+    plan = load_plan(os.path.join(tmp, "plan.npz"))
+    y = torch.as_tensor(np.load(os.path.join(tmp, "y.npy")), device=device)
+    model = MRAModel(plan.locs, plan.r, plan=plan, dtype=torch.float32,
+                     device=device)
+    dplan_p = pad_plan_for_sharding(model.dplan, n_ranks)
+    prep = prepare_obs(dplan_p, y, R)
+    f = sharded_loglik_fn(model.dplan, y, R, mesh, jitter=model.jitter,
+                          kernel_builder=exponential_builder, batched=True)
+
+    def evaluate(t=1.0):
+        return sharded_sweep(dplan_p, batched_kernel(
+            {"l": [l * t for l in sets["l"]], "sig": sets["sig"]}), y, R,
+            mesh, jitter=model.jitter, prep=prep)
+
+    timer = _rank_timer(device)
+    reset_counters(tl)
+    _reset_peak(device)
+    full = evaluate()
+    values, grads = batched_value_and_grad(f, sets)
+    shifts = np.exp(np.linspace(-0.01, 0.01, n_evals + 1))
+    it = iter(shifts)
+    ms_full = timer(lambda: evaluate(float(next(it))), reps=n_evals)
+    it = iter(shifts)
+
+    def value_and_grad_at_next():
+        t = float(next(it))
+        return batched_value_and_grad(f, {"l": [l * t for l in sets["l"]],
+                                          "sig": sets["sig"]})
+
+    ms_grad = timer(value_and_grad_at_next, reps=n_evals)
+    out = {"objective": full.objective.tolist(), "values": values.tolist(),
+           "grads": {k: v.tolist() for k, v in grads.items()},
+           "ms_full": ms_full, "ms_grad": ms_grad,
+           "peak_gib": _peak_gib(device), **_rank_launches()}
+    if rank == 0:
+        np.save(os.path.join(tmp, "mean.npy"), full.mean.cpu().numpy())
+        np.save(os.path.join(tmp, "var.npy"), full.var.cpu().numpy())
+    _rank_done(tmp, rank, out)
+
+
+def phase_sharded_batched(n1m, batch13c, device="cuda",
+                          n_ranks=SHARD_RANKS, R=SAMPLER_R,
+                          sets=None, n_evals=3, fault=None) -> list:
+    """Phase 20c: phase 13c's first ``SHARD_BATCH`` N=10^6 sets through one
+    sharded sweep on phase 20's ranks: the ranks bit-identical, each set's
+    loglik and gradient against 13c's serial batch, the posterior against
+    the serial batched sweep's, at phase 20's limits. ``batch13c`` is
+    phase 13c's N=10^6 report. Returns the ranks' reports."""
+    import tempfile
+
+    import torch
+
+    from pymra_torch.utils.checkpoint import save_plan
+
+    sets = sets or {k: v[:SHARD_BATCH] for k, v in BATCH_N1M.items()}
+    C = len(sets["l"])
+    model = n1m["model"]
+    n = model.dplan.n_locs
+    tag = f"N={n} sharded batched"
+    print(f"== phase 20c: {C} parameter sets through one sharded sweep at "
+          f"N={n} (phase 5's grid and data, R={R}, {sets}): {n_ranks} ranks "
+          "time-sliced on one card over gloo")
+    t_phase = time.perf_counter()
+    serial = model.sweep(batched_kernel(sets), n1m["y"], R)
+    want = _host(serial)
+    want_obj = serial.objective.detach().cpu().double().numpy()
+    del serial
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_plan(os.path.join(tmp, "plan.npz"), model.plan)
+        np.save(os.path.join(tmp, "y.npy"), n1m["y"].cpu().numpy())
+        run_ranks(_rank_sharded_batched, n_ranks, tmp,
+                  (device, R, sets, n_evals, fault))
+        ranks = _rank_reports(tmp, n_ranks)
+        got = {"mean": np.load(os.path.join(tmp, "mean.npy")),
+               "var": np.load(os.path.join(tmp, "var.npy"))}
+    r0 = ranks[0]
+    for r, o in enumerate(ranks):
+        check(all(o[k] == r0[k] for k in ("objective", "values", "grads")),
+              f"{tag}: the ranks disagree: rank 0 {r0['values']} "
+              f"{r0['grads']}, rank {r} {o['values']} {o['grads']}")
+    worst = {"objective": 0.0, "loglik": 0.0, "grad": 0.0}
+    for c in range(C):
+        worst["objective"] = max(worst["objective"], abs(
+            r0["objective"][c] - want_obj[c]) / abs(want_obj[c]))
+        ref = batch13c["values"][c]
+        worst["loglik"] = max(worst["loglik"],
+                              abs(r0["values"][c] - ref) / abs(ref))
+        for k in ("l", "sig"):
+            ref = batch13c["grads"][k][c]
+            worst["grad"] = max(worst["grad"],
+                                abs(r0["grads"][k][c] - ref) / abs(ref))
+    print(f"{tag}: ranks bit-identical; against the serial batch: objective "
+          f"rel diff {worst['objective']:.3g}, loglik (13c) "
+          f"{worst['loglik']:.3g} (limit {SHARD_OBJ_RTOL}), gradient (13c) "
+          f"{worst['grad']:.3g} (limit {SHARD_GRAD_RTOL})")
+    for key, limit in (("objective", SHARD_OBJ_RTOL),
+                       ("loglik", SHARD_OBJ_RTOL), ("grad", SHARD_GRAD_RTOL)):
+        check(worst[key] <= limit, f"{tag}: {key} off the serial batch by "
+                                   f"{worst[key]:.3g}")
+    moments = _moments_off(f"{tag} against the serial batched sweep", got,
+                           want, SHARD_POST_RTOL)
+    if device != "cpu":
+        _check_launches(tag, ranks, GRADIENT_KERNELS)
+    label = (f"{n_ranks} ranks time-sliced on one card over gloo (host "
+             "staging): not a scaling figure")
+    for r, o in enumerate(ranks):
+        print(f"{tag} rank {r}: full sweep of {C} sets {o['ms_full']:.3f} "
+              f"ms/eval, batched value and gradient {o['ms_grad']:.3f} "
+              f"ms/eval ({n_evals} evals; {label}); peak device memory "
+              f"{o['peak_gib']:.2f} GiB; launches {o['launches']}")
+    print(f"{tag}: phase {time.perf_counter() - t_phase:.1f} s")
+    for o in ranks:
+        o["worst"], o["moments"] = worst, moments
+    return ranks
+
+
+def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault,
+                 lockstep=1):
+    """Phase 20b on one rank: HMC on its chain over its data share; with
+    ``lockstep = k > 1`` (phase 20c) on its ``k`` chains in lockstep, one
+    batched sharded evaluation of all of them a step."""
     import torch
 
     from pymra_torch import MRAModel
@@ -3407,8 +4004,9 @@ def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault):
                      device=device)
     f = sharded_loglik_fn(model.dplan, y, R, mesh, axis="data",
                           jitter=model.jitter,
-                          kernel_builder=exponential_builder)
-    chains = CHAIN_MESH["chain"]
+                          kernel_builder=exponential_builder,
+                          batched=lockstep > 1)
+    chains = CHAIN_MESH["chain"] * lockstep
     gen = torch.Generator().manual_seed(seed)
     init = {k: start[k] + 0.01 * torch.randn(chains, generator=gen,
                                              dtype=torch.float64)
@@ -3418,9 +4016,10 @@ def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault):
     _reset_peak(device)
     t0 = time.perf_counter()
     res = hmc(counter, shard_chains(init, mesh, "chain"),
-              shard_generators(gen, chains, mesh, "chain"), **run)
+              shard_generators(gen, chains, mesh, "chain"),
+              batched=lockstep > 1, **run)
     wall = time.perf_counter() - t0
-    out = {"wall_s": wall, "evals": counter.calls,
+    out = {"wall_s": wall, "evals": counter.calls, "rows": counter.rows,
            "peak_gib": _peak_gib(device), **_rank_launches(),
            "accept": res.accept_rate.tolist(),
            "samples": {k: v.tolist() for k, v in res.samples.items()},
@@ -3431,22 +4030,37 @@ def _rank_chains(rank, n_ranks, tmp, device, R, run, start, seed, fault):
                                    every["samples"].items()},
                        "log_prob": every["log_prob"].tolist()}
     # each chain's last draw, evaluated again on the serial sweep (no
-    # collective: every rank does its own)
+    # collective: every rank does its own); in lockstep the batch that
+    # draw's evaluation belonged to, again through the serial batched sweep
+    # (a batch rounds otherwise than one point alone)
     logp = log_posterior(model.loglik_fn(y, R,
-                                         kernel_builder=exponential_builder))
-    with torch.no_grad():
-        out["serial_last"] = [float(logp({k: res.samples[k][c, -1]
-                                          for k in SAMPLER_PARAMS}))
-                              for c in range(res.log_prob.shape[0])]
+                                         kernel_builder=exponential_builder,
+                                         batched=lockstep > 1))
+    if lockstep > 1:
+        out["serial_last"] = []
+        for c in range(res.log_prob.shape[0]):
+            theta = {k: res.samples[k][c, -1].clone() for k in SAMPLER_PARAMS}
+            rec = counter.seen.get(_key(theta))
+            check(rec is not None, f"rank {rank} chain {c}: no evaluation "
+                                   "at its last draw")
+            out["serial_last"].append(fresh_evaluation(logp, rec, theta)[0])
+    else:
+        with torch.no_grad():
+            out["serial_last"] = [float(logp({k: res.samples[k][c, -1]
+                                              for k in SAMPLER_PARAMS}))
+                                  for c in range(res.log_prob.shape[0])]
     _rank_done(tmp, rank, out)
 
 
 def phase_chains(start, device="cuda", data="large", r=4, M=4, R=SAMPLER_R,
-                 run=CHAIN_RUN, seed=0, fault=None) -> list:
+                 run=CHAIN_RUN, seed=0, fault=None, lockstep=1,
+                 beside=None) -> list:
     """Phase 20b: HMC on a chain x data mesh of 4 ranks time-sliced on the
     card: data partners draw bit-identical chains, the gathered draws are
     finite and healthy, each chain's last log_prob matches a serial
-    evaluation. Returns the ranks' reports."""
+    evaluation. With ``lockstep = k > 1`` (phase 20c) each chain rank runs
+    ``k`` chains in lockstep, its evaluations per transition reported
+    beside ``beside`` (phase 20b's reports). Returns the ranks' reports."""
     import tempfile
 
     import torch
@@ -3458,9 +4072,13 @@ def phase_chains(start, device="cuda", data="large", r=4, M=4, R=SAMPLER_R,
     locs, y_obs = load_data(data)
     n_ranks = CHAIN_MESH["chain"] * CHAIN_MESH["data"]
     tag = f"N={len(locs)} chains x data"
-    print(f"== phase 20b: HMC on a {CHAIN_MESH} mesh at N={len(locs)} "
+    phase = "20b"
+    if lockstep > 1:
+        tag, phase = f"{tag} lockstep", "20c"
+    print(f"== phase {phase}: HMC on a {CHAIN_MESH} mesh at N={len(locs)} "
           f"(bundled {data}, r={r}, M={M}, R={R}, {run}), {n_ranks} ranks "
-          f"time-sliced on one card over gloo, from {start}")
+          f"time-sliced on one card over gloo, {lockstep} chain(s) a chain "
+          f"rank{' in lockstep' if lockstep > 1 else ''}, from {start}")
     t_phase = time.perf_counter()
     plan = build_plan(locs, r, M=M, config=PlanConfig(r=r,
                                                       kmeans_impl="native"))
@@ -3470,7 +4088,7 @@ def phase_chains(start, device="cuda", data="large", r=4, M=4, R=SAMPLER_R,
         save_plan(os.path.join(tmp, "plan.npz"), plan)
         np.save(os.path.join(tmp, "y.npy"), np.asarray(y_obs, np.float32))
         run_ranks(_rank_chains, n_ranks, tmp,
-                  (device, R, run, x0, seed, fault))
+                  (device, R, run, x0, seed, fault, lockstep))
         ranks = _rank_reports(tmp, n_ranks)
     n_data = CHAIN_MESH["data"]
     worst = 0.0
@@ -3501,10 +4119,19 @@ def phase_chains(start, device="cuda", data="large", r=4, M=4, R=SAMPLER_R,
              "staging): not a scaling figure")
     total = run["num_warmup"] + run["num_samples"]
     for r, o in enumerate(ranks):
-        print(f"{tag} rank {r}: {o['evals']} evaluations in {o['wall_s']:.2f}"
-              f" s, {1e3 * o['wall_s'] / total:.1f} ms per transition "
-              f"({label}); acceptance {o['accept']}; peak device memory "
+        print(f"{tag} rank {r}: {o['evals']} evaluations ({o['rows']} points)"
+              f" in {o['wall_s']:.2f} s, {1e3 * o['wall_s'] / total:.1f} ms "
+              f"per transition of its {len(o['accept'])} chain(s), "
+              f"{o['evals'] / total:.3f} calls per transition ({label}); "
+              f"acceptance {o['accept']}; peak device memory "
               f"{o['peak_gib']:.2f} GiB; launches {o['launches']}")
+        if beside is not None:
+            b = beside[r]
+            print(f"{tag} rank {r} beside phase 20b's (one chain a rank): "
+                  f"{o['evals'] / total:.3f} batched calls per transition "
+                  f"against {b['evals'] / total:.3f}, "
+                  f"{1e3 * o['wall_s'] / total:.1f} ms per transition "
+                  f"against {1e3 * b['wall_s'] / total:.1f}")
     means = {k: v.mean(1).tolist() for k, v in draws.items()}
     print(f"{tag}: data partners' draws bit-identical; chain means of the "
           f"gathered draws {means}, check_samples ok; last log_prob against "
@@ -3632,11 +4259,12 @@ def main() -> int:
     reset_counters(tl)
     samplers = phase_samplers(ms_grad)
     nuts_n1m = phase_nuts_n1m(n1m, grad_n1m["theta"], grad_n1m["ms"])
-    phase_batched(n1m)
+    batch13c = phase_batched(n1m)
     phase_samplers_batched(samplers)
     phase_nuts_n1m_batched(n1m, grad_n1m["theta"], nuts_n1m)
+    phase_batched_posterior(n1m)
     sampler = read_counters(
-        tl, "phase 14: launch counters over phases 13-13e",
+        tl, "phase 14: launch counters over phases 13-13f",
         GRADIENT_KERNELS)
 
     reset_counters(tl)
@@ -3649,25 +4277,32 @@ def main() -> int:
     # their run); the parent launches nothing meanwhile
     sharded = phase_sharded(n1m, grad_n1m)
     chains = phase_chains(samplers["mle"])
+    sharded_batched = phase_sharded_batched(n1m, batch13c["n1m"])
+    lockstep = phase_chains(samplers["mle"], lockstep=LOCKSTEP_CHAINS,
+                            beside=chains)
 
     del n1m  # its N=10^6 plan and data
     torch.cuda.empty_cache()
     reset_counters(tl)
-    phase_dense_r()
+    phase_dense_r_batched(phase_dense_r())
+    torch.cuda.empty_cache()
     phase_wide()
     slice3 = read_counters(
-        tl, "phase 12: launch counters over phases 10-11", SLICE3_KERNELS)
+        tl, "phase 12: launch counters over phases 10-11 (10b included)",
+        SLICE3_KERNELS)
 
     torch.cuda.empty_cache()
     reset_counters(tl)
     phase_matrix_cov(ms_coord=ms_n10k)
     phase_matern()
     phase_keep_internals()
+    phase_keep_internals_batched()
     before = {n: launches_of(tl, n) for n in KERNEL_NAMES}
     phase_tri_route(rough=samplers["roughness"])
     tri_n10k = {n: launches_of(tl, n) - before[n] for n in KERNEL_NAMES}
     side = read_counters(
-        tl, "phase 19: launch counters over phases 15-18 (18b: above)",
+        tl, "phase 19: launch counters over phases 15-18 (17b included; "
+        "18b: above)",
         SIDE_KERNELS)
     print(f"phase 18 alone: kernel launches {tri_n10k}")
     print_precision()
@@ -3750,6 +4385,10 @@ def main() -> int:
                         o["launches"][name] for o in sharded],
                     "launches_sharded_chains_per_rank": [
                         o["launches"][name] for o in chains],
+                    "launches_sharded_batched_per_rank": [
+                        o["launches"][name] for o in sharded_batched],
+                    "launches_lockstep_chains_per_rank": [
+                        o["launches"][name] for o in lockstep],
                     "max_abs_err": err[name],
                     "max_abs_err_backward": err_bwd.get(name),
                     **times[(name, b, p)],

@@ -2,9 +2,13 @@
 ``pymra_tpu/parallel/chains.py``).
 
 HMC and NUTS chains are independent: each rank of the ``"chain"`` axis
-runs its share of the chains (with a ``"data"`` axis beside it, each chain
-on a sharded log-density, :func:`pymra_torch.parallel.sharded.
-sharded_loglik_fn`), and the draws are gathered at the end. A rank's
+runs its share of the chains (with a ``"data"`` axis beside it on a
+sharded log-density, :func:`pymra_torch.parallel.sharded.
+sharded_loglik_fn`: one chain after another, or, with ``batched=True``
+there and in the sampler, all of the rank's chains in lockstep through one
+batched sharded sweep a step, the JAX package's ``vmap`` over chains
+inside ``shard_map`` over the data), and the draws are gathered at the
+end. A rank's
 chains draw what the same chains draw in one process: the samplers derive
 one generator per chain from the caller's
 (``pymra_torch.infer._flat.chain_generators``), and

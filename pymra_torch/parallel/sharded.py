@@ -249,7 +249,9 @@ def sharded_sweep(
     The posterior comes back in location order on every rank: each rank's
     slot segments are placed in a zero buffer, summed over the ranks
     (exact: every slot has one owner, and ``x + 0 = x``) and gathered
-    through ``post_inv``.
+    through ``post_inv``. A covariance with a ``[C]`` batch of parameter
+    sets gives ``[C]`` objectives and ``[C, N]`` moments, every set in the
+    same collectives.
     """
     group, index, n = _group(mesh, axis)
     dplan_p = (dplan if dplan.shard_groups == n
@@ -262,13 +264,14 @@ def sharded_sweep(
                     compute_posterior=compute_posterior, jitter=jitter,
                     prep=prep, axis_name=group, posterior_segments=segments)
     if segments:
-        slots = res.mean.shape[0]
-        buf = res.mean.new_zeros(2, n * slots)
-        buf[:, index * slots:(index + 1) * slots] = torch.stack(
+        # [(C,) slots] per rank; the sets of a batch ride along
+        slots = res.mean.shape[-1]
+        buf = res.mean.new_zeros((2,) + res.mean.shape[:-1] + (n * slots,))
+        buf[..., index * slots:(index + 1) * slots] = torch.stack(
             [res.mean, res.var])
         buf = _sweep._all_reduce(buf, group, "posterior")
-        res = res._replace(mean=buf[0][local.post_inv],
-                           var=buf[1][local.post_inv])
+        res = res._replace(mean=buf[0][..., local.post_inv],
+                           var=buf[1][..., local.post_inv])
     return res
 
 
@@ -301,7 +304,8 @@ def mean_grad(x: torch.Tensor, group) -> torch.Tensor:
 
 def sharded_loglik_fn(dplan: DevicePlan, y, r_diag, mesh: Mesh,
                       axis: str = "data", jitter: float = 0.0,
-                      kernel_builder: Callable | None = None) -> Callable:
+                      kernel_builder: Callable | None = None,
+                      batched: bool = False) -> Callable:
     """``theta -> loglik`` with leaf-sharded evaluation, for gradient-based
     inference on domains too large for one card; every rank of the axis
     calls it with the same ``theta`` and gets the same loglik and, after
@@ -312,6 +316,16 @@ def sharded_loglik_fn(dplan: DevicePlan, y, r_diag, mesh: Mesh,
     no builder, a :class:`pymra_torch.kernels.Kernel` whose parameter
     buffers receive the gradient. The padded plan, this rank's slice and
     its observation tensors are prepared once, here.
+
+    ``batched``: ``theta`` holds ``C`` parameter sets (leaves or Kernel
+    parameters with a leading ``[C]`` axis) and the function returns
+    ``[C]``, all sets through one sharded sweep, as ``MRAModel.loglik_fn``
+    takes it: on a chain x data mesh a rank of the chain axis runs its
+    chains in lockstep (``nuts(..., batched=True)`` with the generators of
+    :func:`pymra_torch.parallel.chains.shard_generators`), the port's form
+    of the JAX package's ``vmap`` over chains inside ``shard_map`` over the
+    data. Every rank of the data axis must call it with the same number of
+    sets.
     """
     from pymra_torch.kernels import Kernel
 
@@ -335,7 +349,17 @@ def sharded_loglik_fn(dplan: DevicePlan, y, r_diag, mesh: Mesh,
             raise TypeError(
                 "theta: a dict of tensors with a kernel_builder, or a Kernel "
                 f"without one; got {type(theta).__name__}")
-        return mra_sweep(local, cov, None, None, compute_posterior=False,
-                         jitter=jitter, prep=prep, axis_name=group).loglik
+        if batched and not getattr(cov, "batch_shape", ()):
+            raise NotImplementedError(
+                f"a batched sharded_loglik_fn needs a covariance with a [C] "
+                f"batch of hyper-parameters; {type(cov).__name__} has none "
+                "(a MatrixKernel has no hyper-parameter to batch)")
+        out = mra_sweep(local, cov, None, None, compute_posterior=False,
+                        jitter=jitter, prep=prep, axis_name=group).loglik
+        if not batched and out.dim():
+            raise ValueError(
+                f"sharded_loglik_fn: the covariance carries a batch "
+                f"{tuple(out.shape)} of parameter sets; pass batched=True")
+        return out
 
     return fn

@@ -60,6 +60,14 @@ def basis_matrix(model, cov, y=None, R=1.0, distr: str = "prior",
     """
     from pymra_torch.tree.sweep import mra_sweep
 
+    batch = tuple(getattr(cov, "batch_shape", ()))
+    if batch:
+        raise NotImplementedError(
+            f"basis_matrix: the covariance carries a batch {batch} of "
+            "parameter sets; the basis matrix is assembled on the host for "
+            "one set (as the JAX package's, which is not vmapped): pass one "
+            "set's Kernel, or read the batched stashes of "
+            "mra_sweep(..., keep_internals=True)")
     if distr not in ("prior", "posterior"):
         raise ValueError("distr must be 'prior' or 'posterior'")
     if order not in ("root", "leaves"):

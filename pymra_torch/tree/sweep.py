@@ -84,9 +84,12 @@ and the likelihood comes out ``[C]``. The plan, the points, ``y``, ``R`` and
 :func:`prepare_obs`'s tensors stay shared and unbatched. Each
 factorization and solve sees ``C`` times the level's batch in one call, so
 each level's kernels launch once for all ``C`` sets; the jitter scale stays
-per member, hence per set. The batch runs the likelihood passes only: the
-posterior, a dense R, ``keep_internals`` and sharding raise under it
-(later work), and no path loops over the sets.
+per member, hence per set. Every pass takes the batch: the posterior
+comes out ``[C, N]``; a dense R's blocks are factored and ``y`` whitened
+once for all sets (only the basis is whitened per set, the sets riding as
+columns of one solve); ``keep_internals`` returns every stash with the
+``[C]`` axis in front (``jax.vmap``'s output); a sharded sweep sums the
+sets' partial sums in the same collectives. No path loops over the sets.
 
 Sharding (``axis_name``: the data axis's ``torch.distributed`` process
 group, where the JAX package names a ``shard_map`` axis): each rank runs
@@ -411,19 +414,36 @@ class _CholCascade(torch.autograd.Function):
 
 
 def _tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False,
-               kernel: bool = False) -> torch.Tensor:
+               kernel: bool = False, q: int | None = None) -> torch.Tensor:
     """Solve ``L x = B`` (or ``L^T x = B``) for a batch of lower factors.
     With ``kernel`` (the kernel structure) factors of width 16 to 64 with
     ``P + Q <= 112`` go through K5, as the JAX package's ``_tri_solve``
-    takes its Pallas kernel there; everything else is ``torch.linalg``."""
+    takes its Pallas kernel there; everything else is ``torch.linalg``.
+    ``q`` is the width the route is decided on (default ``B``'s: one
+    parameter set's, where the sets of a batch ride as columns)."""
     p = L.shape[-1]
+    q = B.shape[-1] if q is None else q
     if (kernel and LEAF_FUSED_MIN_P <= p <= LEAF_FUSED_MAX_P
-            and p + B.shape[-1] <= SOLVE_KERNEL_MAX_PQ):
+            and p + q <= SOLVE_KERNEL_MAX_PQ):
         return solve_triangular_batched(L.contiguous(), B.contiguous(), trans)
     if trans:
         return torch.linalg.solve_triangular(L.transpose(-1, -2), B,
                                              upper=True)
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def _shared_solve(L: torch.Tensor, B: torch.Tensor, nd: int,
+                  kernel: bool) -> torch.Tensor:
+    """``L^-1 B`` for factors ``L [n, P, P]`` shared by the sets of ``B
+    [(C,) n, P, Q]``: the sets ride as the columns of one solve (``L`` is
+    not copied), the route decided on one set's ``Q``, as ``jax.vmap``
+    batches a triangular solve whose factor is unbatched."""
+    if not nd:
+        return _tri_solve(L, B, kernel=kernel)
+    C, n, P, Q = B.shape
+    X = _tri_solve(L, B.permute(1, 2, 0, 3).reshape(n, P, C * Q),
+                   kernel=kernel, q=Q)
+    return X.reshape(n, P, C, Q).permute(2, 0, 1, 3)
 
 
 def _use_inverse_solves(p: int, kernel_structure: bool) -> bool:
@@ -481,14 +501,17 @@ def _jitter_lift(C_raw, C_own, jitter):
     return C_own + lift[..., :, None] * eye
 
 
-def _window(stash: torch.Tensor, start: int, length: int) -> torch.Tensor:
-    """Rows ``[start, start + length)`` of ``stash``, zero rows past its
-    end (a rank's window that covers padding groups)."""
-    short = start + length - stash.shape[0]
+def _window(stash: torch.Tensor, start: int, length: int,
+            axis: int = -3) -> torch.Tensor:
+    """Rows ``[start, start + length)`` of ``stash`` along its node axis
+    ``axis`` (a stash's third from the end, behind a batch), zero rows past
+    its end (a rank's window that covers padding groups)."""
+    short = start + length - stash.shape[axis]
     if short > 0:
-        stash = torch.cat([stash, stash.new_zeros((short,)
-                                                  + stash.shape[1:])])
-    return stash[start:start + length]
+        pad = list(stash.shape)
+        pad[axis] = short
+        stash = torch.cat([stash, stash.new_zeros(pad)], dim=axis)
+    return stash.narrow(axis, start, length)
 
 
 def _chain_cond(covfn, X, parent, chain_Q, chain_GG, jitter,
@@ -662,22 +685,13 @@ def mra_sweep(
 
     A ``covfn`` with a ``batch_shape`` of ``(C,)`` (a
     :class:`pymra_torch.kernels.Kernel` with ``[C]`` hyper-parameters) runs
-    ``C`` parameter sets through one sweep: ``objective`` and ``loglik``
-    come out ``[C]``. It needs ``compute_posterior=False`` and takes no
-    ``r_dense``, ``keep_internals`` or ``axis_name``.
+    ``C`` parameter sets through one sweep, on every path: ``objective``
+    and ``loglik`` come out ``[C]``, ``mean`` and ``var`` ``[C, N]`` (a
+    rank's segments ``[C, slots]``) and every stash of ``keep_internals``
+    has the ``[C]`` axis in front, as ``jax.vmap`` of the sweep returns
+    them. One batch axis only.
     """
     batch = _batch_of(covfn)
-    if batch:
-        for asked, what in ((compute_posterior, "compute_posterior=True"),
-                            (r_dense is not None, "a dense R (r_dense)"),
-                            (keep_internals, "keep_internals"),
-                            (axis_name is not None, "sharding (axis_name)")):
-            if asked:
-                raise NotImplementedError(
-                    f"mra_sweep: a batch of {batch[0]} parameter sets runs "
-                    f"the likelihood passes only; {what} under a batch is "
-                    "later work (queued in ROADMAP.md); call it once per "
-                    "set")
     group = axis_name
     if group is not None and not isinstance(group, dist.ProcessGroup):
         raise TypeError(
@@ -830,7 +844,7 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 # the parent stash is local (a sharded level over sharded
                 # parents) or whole with certified iota grouping
                 iota_i = chain_GG[m - 1] is not None and (
-                    chain_GG[m - 1].shape[0] * grp_i == n_int)
+                    chain_GG[m - 1].shape[-3] * grp_i == n_int)
         pgrp = grp_i if (iota_i or shard_i) else 0
         pstart = _window_start(shard_idx, crit, m, n_int, pgrp)
         if m == 0:
@@ -919,12 +933,14 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         B_own = C_own * kmask_f[:, None, :]
         if dense is not None:
             # correlated measurement error: whiten y and the basis against
-            # this leaf's own R block
+            # this leaf's own R block. R's factor and the whitened y are the
+            # data's, shared by the sets of a batch; only the basis is
+            # whitened per set
             dn = dense[m]
             L_R = _chol(dn["R_m"], jitter)
             Bstack = torch.cat([W, B_own], dim=-1) if S else B_own
-            Bw = _tri_solve(L_R, Bstack * dn["o"][:, :, None],
-                            kernel=kernel_structure)
+            Bw = _shared_solve(L_R, Bstack * dn["o"][:, :, None], nd,
+                               kernel_structure)
             yw = _tri_solve(L_R, dn["y0"][..., None],
                             kernel=kernel_structure)
             Bw_h, Bw_o = Bw[..., :S], Bw[..., S:]
@@ -1058,13 +1074,14 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             if pp is None:
                 # this rank's window of parents: zeros elsewhere (and past
                 # the last parent, where padding groups land)
-                start = shard_idx * pa.shape[0]
-                pa_s = _window(torch.cat([pa.new_zeros((start,)
-                                                       + pa.shape[1:]), pa]),
-                               0, n_int)
-                po_s = _window(torch.cat([po.new_zeros((start,)
-                                                       + po.shape[1:]), po]),
-                               0, n_int)
+                start = shard_idx * pa.shape[nd]
+
+                def placed(t):
+                    lead = t.new_zeros(batch + (start,) + t.shape[nd + 1:])
+                    return _window(torch.cat([lead, t], dim=nd), 0, n_int,
+                                   nd)
+
+                pa_s, po_s = placed(pa), placed(po)
             elif grp and pa.shape[nd] == grp * n_int:
                 pa_s = pa.reshape(batch + (n_int, grp) + pa.shape[nd + 1:]
                                   ).sum(nd + 1)
@@ -1112,8 +1129,9 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 # send one window message, summed over the ranks in Pass C
                 n_par = n_int // c_int
                 children[m].append((
-                    ATil.reshape(n_par, c_int, S, S).sum(1),
-                    omgTil.reshape(n_par, c_int, S).sum(1), None, True, 1))
+                    ATil.reshape(batch + (n_par, c_int, S, S)).sum(nd + 1),
+                    omgTil.reshape(batch + (n_par, c_int, S)).sum(nd + 1),
+                    None, True, 1))
             else:
                 children[m].append((ATil, omgTil, lvl.int_parent, False,
                                     c_int))
@@ -1135,9 +1153,13 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
     if compute_posterior:
         mean, var = _posterior(dplan, leaf_stash, int_stash, kernel_structure,
                                keep_internals, group, shard_idx, crit,
-                               posterior_segments)
+                               posterior_segments, batch)
     result = SweepResult(objective, loglik, mean, var)
     if keep_internals:
+        # the knot chains are points, shared by the sets: broadcast (a
+        # view), as jax.vmap broadcasts an unbatched output
+        chain_Q = [q if q is None else q.expand(batch + q.shape)
+                   for q in chain_Q]
         return result, {"prior_L": prior_L, "chain_Q": chain_Q,
                         "chain_GG": chain_GG, "leaf": leaf_stash,
                         "interior": int_stash}
@@ -1146,14 +1168,17 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
 
 def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
                keep_internals, group=None, shard_idx=None, crit=10 ** 9,
-               posterior_segments=False):
+               posterior_segments=False, batch=()):
     """Pass D: the posterior mean and variance at every location. With
     ``keep_internals`` each leaf replays its per-ancestor downdates and
     stashes the posterior basis blocks (``post_blocks``) instead of the
     chain contraction against ``U``. On a rank of a sharded sweep the
     chain rows follow Pass A's windows; with
     ``posterior_segments`` the rank's slot segments are returned, else its
-    scattered moments are summed over the ranks."""
+    scattered moments are summed over the ranks. Under a batch ``(C,)``
+    every stash and moment has the ``[C]`` axis in front of its nodes and
+    the moments come out ``[C, N]`` (segments ``[C, slots]``)."""
+    nd = len(batch)
     levels = dplan.levels
     M, N, r = dplan.M, dplan.n_locs, dplan.r
     fl = dict(dtype=dplan.dtype, device=dplan.device)
@@ -1170,14 +1195,14 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
         if m == 0:
             post_U[0] = torch.cat([LinvT, st["g"][..., None]], dim=-1)
             continue
-        G = st["G"]  # [n, r, S]
-        n_i = G.shape[0]
+        G = st["G"]  # [(C,) n, r, S]
+        n_i = G.shape[-3]
         c_i = _int_group(dplan, m, n_i)
         Up = _parent_rows(post_U[m - 1], levels[m].int_parent, c_i, n_i,
                           _window_start(shard_idx, crit, m, n_i, c_i))
-        GU = G @ Up  # [n, r, S+1]
+        GU = G @ Up  # [(C,) n, r, S+1]
         S = m * r
-        top = torch.cat([Up[..., :S], torch.zeros(n_i, S, r, **fl),
+        top = torch.cat([Up[..., :S], torch.zeros(batch + (n_i, S, r), **fl),
                          Up[..., S:]], dim=-1)
         bot = torch.cat([-GU[..., :S], LinvT,
                          (st["g"] - GU[..., S])[..., None]], dim=-1)
@@ -1189,7 +1214,7 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
         st = leaf_stash[m]
         if st is None:
             continue
-        T_own = st["B_own"]  # [n, P, P]
+        T_own = st["B_own"]  # [(C,) n, P, P]
         S = m * r
         if keep_internals:
             # posterior basis blocks (the reference's BTil): T's block k
@@ -1208,19 +1233,20 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
             for j in range(m - 1, -1, -1):
                 anc = lvl.leaf_path[:, j]
                 stj = int_stash[j]
-                blk = T[:, :, j * r:(j + 1) * r]
+                blk = T[..., j * r:(j + 1) * r]
                 st["post_blocks"][j] = blk
-                mean_l = mean_l + (blk @ stj["g"][anc][..., None])[..., 0]
-                halfj = _tri_solve(stj["L_post"][anc], blk.transpose(-1, -2))
+                mean_l = mean_l + (blk @ stj["g"][..., anc, :, None])[..., 0]
+                halfj = _tri_solve(_rows(stj["L_post"], anc),
+                                   blk.transpose(-1, -2))
                 var_l = var_l + (halfj * halfj).sum(-2)
                 if j:
-                    T = T[:, :, :j * r] - blk @ stj["G"][anc]
+                    T = T[..., :j * r] - blk @ _rows(stj["G"], anc)
         elif S:
             # one per-parent chain contraction against U = [V | w] gives the
             # ancestor levels' mean and variance contributions together
             h = st["W"] - T_own @ st["G"]
             grp = st["grp"]
-            n_l, P_l = h.shape[0], h.shape[1]
+            n_l, P_l = h.shape[-3], h.shape[-2]
             if grp:
                 Upar = post_U[m - 1]
                 if shard_idx is not None and m - 1 >= crit:
@@ -1231,37 +1257,38 @@ def _posterior(dplan, leaf_stash, int_stash, kernel_structure,
                     psg = n_l // grp
                     Upar = _window(Upar, shard_idx * psg, psg)
                 elif not (dplan.iota_groups and group is None):
-                    Upar = Upar[lvl.leaf_parent[::grp]]
-                hU = h.reshape(n_l // grp, grp * P_l, S) @ Upar
-                mean_l = mean_l + hU[..., S].reshape(n_l, P_l)
+                    Upar = _rows(Upar, lvl.leaf_parent[::grp])
+                hU = h.reshape(batch + (n_l // grp, grp * P_l, S)) @ Upar
+                mean_l = mean_l + hU[..., S].reshape(batch + (n_l, P_l))
                 var_l = var_l + (hU[..., :S] * hU[..., :S]).sum(-1).reshape(
-                    n_l, P_l)
+                    batch + (n_l, P_l))
             else:
-                hU = h @ post_U[m - 1][lvl.leaf_parent]
+                hU = h @ _rows(post_U[m - 1], lvl.leaf_parent)
                 mean_l = mean_l + hU[..., S]
                 var_l = var_l + (hU[..., :S] * hU[..., :S]).sum(-1)
         mean_parts.append((lvl, mean_l))
         var_parts.append((lvl, var_l))
 
+    def slots(parts):
+        """The leaf levels' moments in slot order: ``[(C,) slots]``."""
+        return torch.cat([p.reshape(batch + (-1,)) for _, p in parts], dim=-1)
+
     if posterior_segments:
-        return (torch.cat([p.reshape(-1) for _, p in mean_parts]),
-                torch.cat([p.reshape(-1) for _, p in var_parts]))
+        return slots(mean_parts), slots(var_parts)
     if dplan.post_inv is not None and group is None:
-        mean_out = torch.cat([p.reshape(-1) for _, p in mean_parts])[
-            dplan.post_inv]
-        var_out = torch.cat([p.reshape(-1) for _, p in var_parts])[
-            dplan.post_inv]
+        mean_out = slots(mean_parts)[..., dplan.post_inv]
+        var_out = slots(var_parts)[..., dplan.post_inv]
     else:
-        mean_out = torch.zeros(N + 1, **fl)
-        var_out = torch.zeros(N + 1, **fl)
+        mean_out = torch.zeros(batch + (N + 1,), **fl)
+        var_out = torch.zeros(batch + (N + 1,), **fl)
         for (lvl, ml), (_, vl) in zip(mean_parts, var_parts):
             gidx = lvl.leaf_loc_gidx.reshape(-1)
             zero = torch.zeros((), **fl)
-            mean_out = mean_out.index_add(
-                0, gidx, torch.where(lvl.leaf_loc_mask, ml, zero).reshape(-1))
-            var_out = var_out.index_add(
-                0, gidx, torch.where(lvl.leaf_loc_mask, vl, zero).reshape(-1))
-        mean_out, var_out = mean_out[:N], var_out[:N]
+            mean_out = mean_out.index_add(nd, gidx, torch.where(
+                lvl.leaf_loc_mask, ml, zero).reshape(batch + (-1,)))
+            var_out = var_out.index_add(nd, gidx, torch.where(
+                lvl.leaf_loc_mask, vl, zero).reshape(batch + (-1,)))
+        mean_out, var_out = mean_out[..., :N], var_out[..., :N]
         if group is not None:
             # each location's moments came from its owner rank only
             mean_out, var_out = _all_reduce_packed((mean_out, var_out), group,

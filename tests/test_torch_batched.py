@@ -20,7 +20,8 @@ counterpart of the JAX package's ``jax.vmap``).
 * HMC, NUTS, SMC and ADVI batched against their serial runs with the same
   generators, on a Gaussian and on the tiny MRA loglik: identical tree
   depths, acceptance, divergences; draws within 1e-9.
-* Every unsupported batched combination raises.
+* What a batch still refuses raises: a second batch axis, the host basis
+  matrix, a ``MatrixKernel``.
 """
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from pymra_tpu.tree.model import MRAModel as JaxMRAModel
 from pymra_torch import Kernel, MRAModel, MatrixKernel
 from pymra_torch.infer import advi, hmc, nuts, smc
 from pymra_torch.ops import linalg as tl
+from pymra_torch.tree.basis import basis_matrix
 from pymra_torch.tree.sweep import mra_sweep
 from pymra_torch.utils import gen_locations_2d
 
@@ -435,17 +437,24 @@ def test_batched_samplers_refuse_a_scalar_log_prob():
 # ---------------------------------------------------------------------------
 
 def test_unsupported_batched_calls_raise():
+    # every path takes a batch of sets (tests/test_torch_batched_paths.py);
+    # what a batch still refuses: more than one batch axis, the host basis
+    # matrix, a MatrixKernel, and (tests/test_torch_sharded.py, in a gloo
+    # world) keep_internals with sharded interior levels
     model, y = _model("p8")
     kern = Kernel("exponential", l=torch.tensor([0.2, 0.3], dtype=F64))
-    for kw in (dict(compute_posterior=True),
-               dict(compute_posterior=False, keep_internals=True),
-               dict(compute_posterior=False, axis_name="data"),
-               dict(compute_posterior=False,
-                    r_dense=R * np.eye(model.dplan.n_locs))):
-        with pytest.raises(NotImplementedError, match="later work"):
-            mra_sweep(model.dplan, kern, y, R, **kw)
-    with pytest.raises(NotImplementedError, match="later work"):
-        model.sweep(kern, y, R)  # the posterior by default
+
+    class TwoAxes(torch.nn.Module):
+        batch_shape = (2, 3)
+
+        def forward(self, x, z=None):
+            raise AssertionError("never evaluated")
+
+    for kw in (dict(compute_posterior=True), dict(keep_internals=True)):
+        with pytest.raises(ValueError, match="one batch axis"):
+            mra_sweep(model.dplan, TwoAxes(), y, R, **kw)
+    with pytest.raises(NotImplementedError, match="one set"):
+        basis_matrix(model, kern, y=y, R=R)
     # a MatrixKernel has no hyper-parameter to batch
     n = model.dplan.n_locs
     with pytest.raises(NotImplementedError, match="MatrixKernel"):

@@ -1035,3 +1035,141 @@ def test_batched_sampler_phase_rejects_a_drifting_log_prob(batched_inputs):
         chip_smoke.phase_samplers_batched(batched_inputs[1], "cpu",
                                           runs=TINY_RUNS,
                                           wrap=_drifting_value)
+
+
+# ---------------------------------------------------------------------------
+# phases 13f, 10b, 17b, 20c: the posterior, dense R, keep_internals and the
+# sharded sweep under a batch of parameter sets
+# ---------------------------------------------------------------------------
+
+def _set0_posterior(monkeypatch):
+    """Fault: the batched posterior of set 0 written into every set."""
+    real = sweep._posterior
+
+    def set0(*a, **k):
+        mean, var = real(*a, **k)
+        if mean.dim() > 1:
+            mean, var = mean[:1].expand_as(mean), var[:1].expand_as(var)
+        return mean, var
+
+    monkeypatch.setattr(sweep, "_posterior", set0)
+
+
+def _phase_13f(n1m):
+    return chip_smoke.phase_batched_posterior(
+        n1m, "cpu", timer=_host_timer, dev_timer=_no_device_timer,
+        data="small", M=-1, n_evals=1,
+        golden_n10k=_small_side_goldens()["tri"],
+        golden_n1m=_flagship_golden(40))
+
+
+def test_batched_posterior_phase_passes_on_small_inputs(batched_inputs):
+    out = _phase_13f(batched_inputs[0])
+    for tree in ("n10k", "n1m"):
+        run = out[tree]
+        assert run["objective"] <= chip_smoke.BATCH_OBJ_RTOL
+        assert run["mean"].shape[0] == len(chip_smoke.POST_BATCH_N10K["l"])
+        # on the CPU no kernel launches, batched or not
+        assert set(run["launches"].values()) == {0}
+
+
+def test_batched_posterior_phase_rejects_set_0_in_every_set(
+        batched_inputs, monkeypatch):
+    _set0_posterior(monkeypatch)
+    with pytest.raises(SystemExit, match="posterior (mean|var) off"):
+        _phase_13f(batched_inputs[0])
+
+
+def _small_dense():
+    """Phase 10 on the bundled small tree (its grid spacing 1/9 as the
+    correlation length) against the port's float64 objective and gradient
+    there, standing in for the frozen goldens."""
+    locs, y = load_data("small")
+    model = MRAModel(locs, r=4, dtype=torch.float64, device="cpu",
+                     config=PlanConfig(r=4, kmeans_impl="native"))
+    R = chip_smoke.correlated_r(locs, "cpu", rho=1 / 9).double()
+    g = chip_smoke.sweep_value_and_grad(model, y, R, 2.0, 1.0)
+    return chip_smoke.phase_dense_r(
+        "cpu", timer=_host_timer, n_evals=1, data="small", M=-1, rho=1 / 9,
+        golden_diag=float(model.objective(Kernel("exponential", l=2.0), y,
+                                          1e-4)),
+        golden={k: g[k] for k in ("objective", "l", "sig")}), g
+
+
+def test_dense_r_batched_phase_passes_on_small_inputs():
+    dense, g = _small_dense()
+    out = chip_smoke.phase_dense_r_batched(
+        dense, "cpu", timer=_host_timer, n_evals=1,
+        golden={k: g[k] for k in ("objective", "l", "sig")})
+    assert out["worst"]["loglik"] <= chip_smoke.BATCH_OBJ_RTOL
+    assert set(out["launches"].values()) == {0}
+
+
+def test_dense_r_batched_phase_rejects_set_0s_whitened_basis(monkeypatch):
+    dense, g = _small_dense()
+    real = sweep._shared_solve
+
+    def set0(L, B, nd, kernel):
+        X = real(L, B, nd, kernel)
+        return X[:1].expand_as(X) if nd else X
+
+    monkeypatch.setattr(sweep, "_shared_solve", set0)
+    # set 0's gradient takes the other sets' share: off its golden
+    with pytest.raises(SystemExit, match="off (its golden|float64)"):
+        chip_smoke.phase_dense_r_batched(
+            dense, "cpu", timer=_host_timer, n_evals=1,
+            golden={k: g[k] for k in ("objective", "l", "sig")})
+
+
+def _phase_17b():
+    from tests.test_golden_anchors import BUNDLED_SMALL_OBJECTIVE
+
+    return chip_smoke.phase_keep_internals_batched(
+        "cpu", timer=_host_timer, n_evals=1, golden=BUNDLED_SMALL_OBJECTIVE,
+        **SMALL)
+
+
+def test_keep_internals_batched_phase_passes_on_small_inputs():
+    out = _phase_17b()
+    assert out["objective"] <= chip_smoke.BATCH_OBJ_RTOL
+    assert out["stash"] <= 1e-6
+
+
+def test_keep_internals_batched_phase_rejects_set_0_in_every_set(
+        monkeypatch):
+    _set0_posterior(monkeypatch)
+    with pytest.raises(SystemExit, match="off the single sweeps"):
+        _phase_17b()
+
+
+def _batch13c(n1m):
+    """Phase 13c's N=10^6 serial batch, on the rehearsal's grid."""
+    f = n1m["model"].loglik_fn(n1m["y"], chip_smoke.SAMPLER_R,
+                               kernel_builder=chip_smoke.exponential_builder,
+                               batched=True)
+    values, grads = chip_smoke.batched_value_and_grad(f, chip_smoke.BATCH_N1M)
+    return {"values": values.tolist(),
+            "grads": {k: v.tolist() for k, v in grads.items()}}
+
+
+def test_sharded_batched_phase_passes_on_small_inputs(sharded_inputs):
+    n1m = sharded_inputs[0]
+    ranks = chip_smoke.phase_sharded_batched(n1m, _batch13c(n1m), "cpu",
+                                             n_evals=1)
+    assert len(ranks) == chip_smoke.SHARD_RANKS
+    assert ranks[0]["worst"]["grad"] <= chip_smoke.SHARD_GRAD_RTOL
+    chains = chip_smoke.phase_chains({"l": 2.0, "sig": 1.0}, "cpu",
+                                     data="small", M=-1,
+                                     lockstep=chip_smoke.LOCKSTEP_CHAINS)
+    for o in chains:
+        assert len(o["accept"]) == chip_smoke.LOCKSTEP_CHAINS
+        # lockstep: one batched call a step for both chains of the rank
+        assert o["rows"] > o["evals"] >= chip_smoke.CHAIN_RUN["num_warmup"]
+
+
+def test_sharded_batched_phase_rejects_a_dropped_set(sharded_inputs):
+    # rank 1 leaves set 1 of the batch out of its partial sums
+    n1m = sharded_inputs[0]
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.phase_sharded_batched(n1m, _batch13c(n1m), "cpu",
+                                         n_evals=1, fault="set1")

@@ -31,8 +31,9 @@ from tests import torch_sharded_worker as W
 from tests.torch_fixtures import jax_native_planner  # noqa: F401
 
 WORLD2 = ["matern256", "pad30", "crit4096", "grad:grad144", "kgrad:grad144",
-          "grad:crit4096", "f32", "chains", "refuse"]
-WORLD4 = ["crit4096", "grad:crit4096", "mesh"]
+          "grad:crit4096", "f32", "chains", "refuse", "batch:crit4096",
+          "bgrad:crit4096"]
+WORLD4 = ["crit4096", "grad:crit4096", "mesh", "lockstep"]
 #: the float32 kernel structure (the card's sequence of operations, here
 #: on the kernels' plain twins) of the critDepth case, sharded against
 #: serial: the objective and the posterior (relative to its largest
@@ -195,4 +196,77 @@ def test_chain_by_data_mesh_matches_serial(world4):
 
 def test_keep_internals_refused_with_sharded_interiors(world2):
     for o in world2:
-        assert "keep_internals is not supported" in o["refuse"]["error"]
+        for key in ("error", "batch_error"):
+            assert "keep_internals is not supported" in o["refuse"][key]
+
+
+def _batch_kernel(kern):
+    return Kernel(kern, **W.batch_theta(W.BATCH))
+
+
+def test_sharded_batch_matches_serial_batch(world2):
+    # the sets through one sharded sweep: each set bit for bit the sharded
+    # sweep of that set alone, the batch within the unbatched case's
+    # limits of the serial batched sweep (the cross-rank sums reorder)
+    m, y = W.model("crit4096")
+    kern = W.case_data("crit4096")[5]
+    serial = m.sweep(_batch_kernel(kern), y, W.R)
+    for o in world2:
+        got = o["batch:crit4096"]
+        assert got["mean"].shape == (len(W.BATCH["l"]), m.dplan.n_locs)
+        for c, one in enumerate(got["single"]):
+            for k in ("objective", "mean", "var"):
+                assert torch.equal(got[k][c], one[k]), (c, k)
+        np.testing.assert_allclose(got["objective"].numpy(),
+                                   serial.objective.numpy(), rtol=1e-12)
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(got[k].numpy(),
+                                       getattr(serial, k).numpy(), atol=1e-11)
+
+
+def test_sharded_batched_loglik_fn_matches_serial_batch(world2):
+    # batched=True: [C] values and gradients, each set's as the sharded
+    # function of that set alone and the serial batched gradient's
+    m, y = W.model("crit4096")
+    kern = W.case_data("crit4096")[5]
+    f = m.loglik_fn(y, W.R, kernel_builder=W.builder(kern), batched=True)
+    th = W.batch_theta(W.BATCH, grad=True)
+    value = f(th)
+    value.sum().backward()
+    for o in world2:
+        (got,), singles = (o["bgrad:crit4096"]["batched"],
+                           o["bgrad:crit4096"]["single"])
+        np.testing.assert_allclose(got["value"].numpy(),
+                                   value.detach().numpy(), rtol=1e-12)
+        for c, one in enumerate(singles):
+            assert float(got["value"][c]) == float(one["value"])
+            for p in th:
+                np.testing.assert_allclose(float(got["grad"][p][c]),
+                                           float(one["grad"][p]), rtol=1e-12)
+        for p in th:
+            np.testing.assert_allclose(got["grad"][p].numpy(),
+                                       th[p].grad.numpy(), rtol=1e-9)
+
+
+def test_chain_by_data_mesh_lockstep_matches_serial(world4):
+    # each chain rank runs its chains as one batch in lockstep over its
+    # data group: data partners bit-identical, every chain as the serial
+    # lockstep run of all chains draws it
+    m, y = W.model("grad144")
+    f = m.loglik_fn(y, W.R, kernel_builder=W.builder("matern32"),
+                    batched=True)
+    k = W.LOCKSTEP_CHAINS
+    serial = hmc(W.mesh_logp(f), W.mesh_init(2 * k),
+                 torch.Generator().manual_seed(3), batched=True, **W.MESH_RUN)
+    for r, o in enumerate(world4):
+        got = o["lockstep"]
+        partner = world4[r - r % 2]["lockstep"]
+        assert got["calls"] == partner["calls"] and max(got["calls"]) == k
+        rows = slice(k * (r // 2), k * (r // 2 + 1))
+        for p in got["local"]:
+            assert torch.equal(got["local"][p], partner["local"][p])
+            np.testing.assert_allclose(got["local"][p].numpy(),
+                                       serial.samples[p][rows].numpy(),
+                                       atol=1e-8)
+        np.testing.assert_allclose(got["log_prob"].numpy(),
+                                   serial.log_prob[rows].numpy(), rtol=1e-10)

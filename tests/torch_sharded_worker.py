@@ -32,6 +32,15 @@ F32_JITTER = 1e-6
 #: tests/test_aux.py::TestChainSharding) and of the chain x data mesh
 CHAIN_RUN = {"num_warmup": 50, "num_samples": 50, "num_leapfrog": 4}
 MESH_RUN = {"num_warmup": 5, "num_samples": 5, "num_leapfrog": 3}
+#: the batched cases' parameter sets, through one sharded sweep
+BATCH = {"l": (0.3, 0.45), "sig": (1.1, 0.9)}
+#: chains a rank of the chain axis runs in lockstep (the batched mesh case)
+LOCKSTEP_CHAINS = 2
+
+
+def batch_theta(values, grad=False):
+    return {k: torch.tensor(v, dtype=torch.float64, requires_grad=grad)
+            for k, v in values.items()}
 
 
 def case_data(name):
@@ -128,6 +137,51 @@ def _grad_case(name, mesh, dtype=torch.float64, jitter=None,
     return {"value": value.detach(), "grad": {p: th[p].grad for p in th}}
 
 
+def _batch_sweep_case(name, mesh):
+    """The sharded sweep of the sets ``BATCH`` batched, and of each set
+    alone on the same ranks."""
+    from pymra_torch import Kernel
+    from pymra_torch.parallel import sharded_sweep
+
+    m, y = model(name)
+    kern = case_data(name)[5]
+
+    def run(values):
+        res = sharded_sweep(m.dplan, Kernel(kern, **batch_theta(values)), y,
+                            R, mesh, jitter=m.jitter)
+        return {"objective": res.objective, "mean": res.mean,
+                "var": res.var}
+
+    return {**run(BATCH), "single": [
+        run({k: v[c] for k, v in BATCH.items()})
+        for c in range(len(BATCH["l"]))]}
+
+
+def _batch_grad_case(name, mesh):
+    """``sharded_loglik_fn(..., batched=True)``: the sets' values and the
+    gradient of their sum, and each set alone."""
+    from pymra_torch.parallel import sharded_loglik_fn
+
+    m, y = model(name)
+    kern = case_data(name)[5]
+    out = {}
+    for batched in (True, False):
+        f = sharded_loglik_fn(m.dplan, y, R, mesh, jitter=m.jitter,
+                              kernel_builder=builder(kern), batched=batched)
+        sets = ([BATCH] if batched else
+                [{k: v[c] for k, v in BATCH.items()}
+                 for c in range(len(BATCH["l"]))])
+        runs = []
+        for values in sets:
+            th = batch_theta(values, grad=True)
+            value = f(th)
+            value.sum().backward()
+            runs.append({"value": value.detach(),
+                         "grad": {k: t.grad for k, t in th.items()}})
+        out["batched" if batched else "single"] = runs
+    return out
+
+
 def _chains_case(mesh, n_chains=8):
     from pymra_torch.infer import hmc
     from pymra_torch.parallel.chains import (
@@ -168,9 +222,35 @@ def _mesh_case(mesh, name="grad144"):
             "samples": gather_chains(res.samples, mesh, "chain")}
 
 
+def _mesh_lockstep_case(mesh, name="grad144"):
+    """The chain x data mesh with each chain rank's chains in lockstep:
+    one batched sharded evaluation of all of them a leapfrog step."""
+    from pymra_torch.infer import hmc
+    from pymra_torch.parallel.chains import shard_chains, shard_generators
+    from pymra_torch.parallel.sharded import sharded_loglik_fn
+
+    m, y = model(name)
+    kern = case_data(name)[5]
+    f = sharded_loglik_fn(m.dplan, y, R, mesh, axis="data", jitter=m.jitter,
+                          kernel_builder=builder(kern), batched=True)
+    calls = []
+
+    def logp(th):
+        calls.append(th["log_l"].shape[0])
+        return mesh_logp(f)(th)
+
+    chains = LOCKSTEP_CHAINS * mesh.size(0)
+    gen = torch.Generator().manual_seed(3)
+    res = hmc(logp, shard_chains(mesh_init(chains), mesh, "chain"),
+              shard_generators(gen, chains, mesh, "chain"), batched=True,
+              **MESH_RUN)
+    return {"local": res.samples, "log_prob": res.log_prob, "calls": calls}
+
+
 def _refuse_case(mesh):
     """keep_internals on a rank's slice with sharded interior levels: the
-    JAX package's refusal, raised before any collective."""
+    JAX package's refusal, raised before any collective, with one set and
+    with a batch of them."""
     from pymra_torch import Kernel
     from pymra_torch.parallel.sharded import local_plan, pad_plan_for_sharding
     from pymra_torch.tree.sweep import mra_sweep
@@ -180,12 +260,16 @@ def _refuse_case(mesh):
     n = mesh.size()
     local = local_plan(pad_plan_for_sharding(m.dplan, n),
                        torch.distributed.get_rank(group), n)
-    try:
-        mra_sweep(local, Kernel("matern32", l=0.3), y, R, axis_name=group,
-                  keep_internals=True)
-    except ValueError as e:
-        return {"error": str(e)}
-    return {"error": None}
+    out = {}
+    batch = torch.tensor([0.3, 0.4], dtype=torch.float64)
+    for key, l in (("error", 0.3), ("batch_error", batch)):
+        try:
+            mra_sweep(local, Kernel("matern32", l=l), y, R, axis_name=group,
+                      keep_internals=True)
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
 
 
 def _rank_main(rank, n_ranks, tmp, cases):
@@ -217,11 +301,16 @@ def _rank_main(rank, n_ranks, tmp, cases):
         elif case == "chains":
             out[case] = _chains_case(make_mesh({"chain": n_ranks},
                                                device_type="cpu"))
+        elif case.startswith("batch:"):
+            out[case] = _batch_sweep_case(case[6:], data)
+        elif case.startswith("bgrad:"):
+            out[case] = _batch_grad_case(case[6:], data)
         elif case == "refuse":
             out[case] = _refuse_case(data)
-        elif case == "mesh":
-            out[case] = _mesh_case(make_mesh(
-                {"chain": 2, "data": n_ranks // 2}, device_type="cpu"))
+        elif case in ("mesh", "lockstep"):
+            run = _mesh_case if case == "mesh" else _mesh_lockstep_case
+            out[case] = run(make_mesh({"chain": 2, "data": n_ranks // 2},
+                                      device_type="cpu"))
         else:
             raise ValueError(f"unknown case {case!r}")
         out[case]["seconds"] = time.perf_counter() - t0
