@@ -23,6 +23,7 @@ import types
 from concurrent.futures import ThreadPoolExecutor
 
 from pymra_torch.ops import build_shared_library
+from pymra_torch.utils import profiling
 
 __all__ = ["load_library", "nvcc_path", "NVCC_FLAGS"]
 
@@ -112,7 +113,9 @@ def _build_one(src: str) -> tuple[ctypes.CDLL, str]:
 def load_library() -> types.SimpleNamespace:
     """Build (once per source digest) and load the kernel libraries.
 
-    Returns a namespace holding every entry point of ``_SIGNATURES``.
+    Returns a namespace holding every entry point of ``_SIGNATURES``. The
+    build (or the look-up of built libraries) and the loads are the set-up
+    span ``pymra.setup.kernels``.
     Raises ``RuntimeError`` when nvcc is missing or a build or load fails:
     a caller that holds a CUDA tensor gets an error, never a fallback.
     """
@@ -124,7 +127,8 @@ def load_library() -> types.SimpleNamespace:
             return _LIB
         nvcc_path()  # fail before starting any build
         srcs = _sources()
-        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        with profiling.setup_span("pymra.setup.kernels"), \
+                ThreadPoolExecutor(max_workers=len(srcs)) as pool:
             built = list(pool.map(_build_one, srcs))
         build_log = "".join(log for _, log in built)
         fns = {}

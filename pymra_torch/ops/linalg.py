@@ -83,6 +83,10 @@ last, NaN, result and reports the last factor. The backward linearizes each
 member at its selected factor, so a discarded attempt never reaches a
 gradient, and an all-fail member's NaN stays in that member. The jitter
 scale is structural: no gradient flows into it through ``jit`` of K1.
+While a traced call is open (:mod:`pymra_torch.utils.profiling`) these
+five hand their selected factors to its innermost span, which counts the
+escalated members when read; :func:`launch_count` sums the launch
+counters for its spans.
 """
 from __future__ import annotations
 
@@ -92,6 +96,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from pymra_torch.ops.cuda import build
+from pymra_torch.utils import profiling as _prof
 
 __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
            "jittered_tier", "solve_cols",
@@ -103,7 +108,7 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
            "leaf_factor_ref", "cholesky_logdet", "cholesky_logdet_ref",
            "cholesky_inv_logdet", "cholesky_inv_logdet_ref",
            "WIDE_MAX_P", "cholesky_blocked", "cholesky_blocked_ref",
-           "cholesky_cascade", "cholesky_cascade_ref"]
+           "cholesky_cascade", "cholesky_cascade_ref", "launch_count"]
 
 FACTORS = (1.0, 1e2, 1e4)
 #: widest block the single-block kernels take; wider goes through the wide
@@ -1227,8 +1232,11 @@ def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     ``mat`` and ``jit`` (``jitbar = f trace(matbar)``) at the selected
     factor; ``f`` is not differentiable.
     """
-    return _apply(_CholeskyJittered, _cholesky_jittered_fwd, mat, jit,
-                  tuple(factors))
+    out = _apply(_CholeskyJittered, _cholesky_jittered_fwd, mat, jit,
+                 tuple(factors))
+    if _prof.ON:
+        _prof.escalations("K2", out[2])
+    return out
 
 
 cholesky_jittered.launches = 0
@@ -1255,8 +1263,11 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     posterior pullback from ``Li`` in float64 products.
     """
     kmask = kmask.expand(c_own.shape[:-1]).contiguous()
-    return _apply(_LeafFactor, _leaf_factor_fwd, c_own, kmask, a_oo,
-                  float(jitter), tuple(factors))
+    out = _apply(_LeafFactor, _leaf_factor_fwd, c_own, kmask, a_oo,
+                 float(jitter), tuple(factors))
+    if _prof.ON:
+        _prof.escalations("K1", out[3], out[4])
+    return out
 
 
 leaf_factor.launches = 0
@@ -1273,8 +1284,11 @@ def cholesky_logdet(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     K_sel^-1`` with ``K_sel`` refactored at ``f`` (K4) and inverted (K3),
     ``jitbar = f trace(matbar)``.
     """
-    return _apply(_CholeskyLogdet, _cholesky_logdet_fwd, mat, jit,
-                  tuple(factors))
+    out = _apply(_CholeskyLogdet, _cholesky_logdet_fwd, mat, jit,
+                 tuple(factors))
+    if _prof.ON:
+        _prof.escalations("K6", out[1])
+    return out
 
 
 cholesky_logdet.launches = 0
@@ -1298,8 +1312,11 @@ def cholesky_inv_logdet(mat: torch.Tensor, jit: torch.Tensor,
     (:func:`_leaf_posterior_pullback`). In float32 those products put that
     gradient 2.1e-3 off its float64 golden, over the 2e-3 budget.
     """
-    return _apply(_CholeskyInvLogdet, _cholesky_inv_logdet_fwd, mat, jit,
-                  tuple(factors))
+    out = _apply(_CholeskyInvLogdet, _cholesky_inv_logdet_fwd, mat, jit,
+                 tuple(factors))
+    if _prof.ON:
+        _prof.escalations("K7", out[2])
+    return out
 
 
 cholesky_inv_logdet.launches = 0
@@ -1342,9 +1359,26 @@ def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     Returns ``(L, ld, f)`` as :func:`cholesky_jittered` does; differentiable
     in ``mat`` and ``jit`` at the selected factor.
     """
-    return _apply(_CholeskyCascade, _cholesky_cascade_fwd, mat, jit,
-                  tuple(factors))
+    out = _apply(_CholeskyCascade, _cholesky_cascade_fwd, mat, jit,
+                 tuple(factors))
+    if _prof.ON:
+        _prof.escalations("KC", out[2])
+    return out
 
 
 cholesky_cascade.launches = 0
 cholesky_cascade.composed = 0
+
+
+def launch_count() -> int:
+    """The kernel launches every wrapper has counted so far (each one's
+    ``.launches``, K3's ``.wide_launches`` and KP's ``.tile_launches``; the
+    compositions' ``.composed`` counts calls, not launches): what a span of
+    :mod:`pymra_torch.utils.profiling` reads at its ends."""
+    return (cholesky.launches + triangular_inverse_lower.launches
+            + triangular_inverse_lower.wide_launches
+            + solve_triangular_batched.launches + cholesky_pullback.launches
+            + cholesky_pullback.tile_launches + cholesky_jittered.launches
+            + leaf_factor.launches + cholesky_logdet.launches
+            + cholesky_inv_logdet.launches + cholesky_blocked.launches
+            + cholesky_cascade.launches)

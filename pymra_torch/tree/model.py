@@ -23,6 +23,7 @@ from pymra_torch.tree.sweep import (
     mra_sweep,
     prepare_obs,
 )
+from pymra_torch.utils import profiling as _tr
 
 __all__ = ["MRAModel", "MRATree"]
 
@@ -55,16 +56,19 @@ class MRAModel:
                  index_mode: bool = False):
         self.device = _device(device)
         if plan is None:
-            plan = build_plan(locs, r, M=M, J=J, seed=seed, config=config)
+            with _tr.setup_span("pymra.setup.plan"):
+                plan = build_plan(locs, r, M=M, J=J, seed=seed,
+                                  config=config)
         self.plan = plan
         self.dtype = dtype if dtype is not None else torch.get_default_dtype()
         if jitter is None:
             jitter = 0.0 if self.dtype == torch.float64 else 1e-6
         self.jitter = float(jitter)
         self.index_mode = bool(index_mode)
-        self.dplan: DevicePlan = make_device_plan(
-            plan, dtype=self.dtype, device=self.device,
-            index_points=self.index_mode)
+        with _tr.setup_span("pymra.setup.upload"):
+            self.dplan: DevicePlan = make_device_plan(
+                plan, dtype=self.dtype, device=self.device,
+                index_points=self.index_mode)
 
     def sweep(self, cov, y, R, compute_posterior: bool = True) -> SweepResult:
         """Run the full batched sweep (likelihood + posterior moments).
@@ -76,14 +80,19 @@ class MRAModel:
         differentiable: with a kernel whose parameters require gradients,
         ``sweep(...).loglik.backward()`` is the gradient path for a dense
         R (``loglik_fn`` takes a diagonal R only).
+
+        While a ``torch.profiler`` records (or inside
+        :func:`pymra_torch.utils.profiling.tracing`) the call is traced:
+        the span ``pymra.call`` and the sweep's spans inside it.
         """
-        if _ndim(R) == 2:
-            return mra_sweep(self.dplan, cov, y, None,
+        with _tr.facade(self.device):
+            if _ndim(R) == 2:
+                return mra_sweep(self.dplan, cov, y, None,
+                                 compute_posterior=compute_posterior,
+                                 jitter=self.jitter, r_dense=R)
+            return mra_sweep(self.dplan, cov, y, R,
                              compute_posterior=compute_posterior,
-                             jitter=self.jitter, r_dense=R)
-        return mra_sweep(self.dplan, cov, y, R,
-                         compute_posterior=compute_posterior,
-                         jitter=self.jitter)
+                             jitter=self.jitter)
 
     def objective(self, cov, y, R) -> torch.Tensor:
         """The reference's ``getLikelihood()`` value: ``logdet + quadratic``
@@ -126,6 +135,10 @@ class MRAModel:
         The builder must carry the axis into the covariance (a
         :class:`pymra_torch.kernels.Kernel` built from ``[C]`` leaves); one
         without it (a ``MatrixKernel``) raises.
+
+        Each call is a facade call, traced as :meth:`sweep` is; its
+        backward then records ``pymra.bwd``, closed by a marker on the
+        parameters of a dict ``theta``.
         """
         if _ndim(R) == 2:
             raise NotImplementedError(
@@ -135,24 +148,30 @@ class MRAModel:
         prep = prepare_obs(self.dplan, y, R)
 
         def fn(theta):
-            if isinstance(theta, dict):
-                theta = {k: v.to(self.device) if torch.is_tensor(v) else v
-                         for k, v in theta.items()}
-            cov = kernel_builder(theta) if kernel_builder else theta
-            if batched and not getattr(cov, "batch_shape", ()):
-                raise NotImplementedError(
-                    f"a batched loglik_fn needs a covariance with a [C] "
-                    f"batch of hyper-parameters; {type(cov).__name__} has "
-                    "none (a MatrixKernel has no hyper-parameter to batch)")
-            out = mra_sweep(self.dplan, cov, None, None,
-                            compute_posterior=False, jitter=self.jitter,
-                            prep=prep).loglik
-            if not batched and out.dim():
-                raise ValueError(
-                    f"loglik_fn: the covariance carries a batch "
-                    f"{tuple(out.shape)} of parameter sets; pass "
-                    "batched=True")
-            return out
+            with _tr.facade(self.device):
+                if isinstance(theta, dict):
+                    if _tr.ON:
+                        # traced: the backward's last boundary, closing it
+                        theta = dict(zip(theta, _tr.mark(None,
+                                                         *theta.values())))
+                    theta = {k: v.to(self.device) if torch.is_tensor(v)
+                             else v for k, v in theta.items()}
+                cov = kernel_builder(theta) if kernel_builder else theta
+                if batched and not getattr(cov, "batch_shape", ()):
+                    raise NotImplementedError(
+                        f"a batched loglik_fn needs a covariance with a [C] "
+                        f"batch of hyper-parameters; {type(cov).__name__} "
+                        "has none (a MatrixKernel has no hyper-parameter "
+                        "to batch)")
+                out = mra_sweep(self.dplan, cov, None, None,
+                                compute_posterior=False, jitter=self.jitter,
+                                prep=prep).loglik
+                if not batched and out.dim():
+                    raise ValueError(
+                        f"loglik_fn: the covariance carries a batch "
+                        f"{tuple(out.shape)} of parameter sets; pass "
+                        "batched=True")
+                return out
 
         return fn
 

@@ -91,6 +91,13 @@ columns of one solve); ``keep_internals`` returns every stash with the
 ``[C]`` axis in front (``jax.vmap``'s output); a sharded sweep sums the
 sets' partial sums in the same collectives. No path loops over the sets.
 
+Tracing (:mod:`pymra_torch.utils.profiling`): inside a traced facade call
+each pass is a span (``pymra.pass.A`` to ``D``, ``pymra.prep`` where the
+observations are prepared per call) and each level of passes A, B and C a
+child span; at the end of each pass an identity marker on a tensor the pass
+hands on puts the pass's boundary into the backward. Untraced, each span
+site tests one boolean.
+
 Sharding (``axis_name``: the data axis's ``torch.distributed`` process
 group, where the JAX package names a ``shard_map`` axis): each rank runs
 the sweep on its slice of a plan padded by
@@ -127,6 +134,8 @@ from pymra_torch.ops.linalg import (
     triangular_inverse_lower,
 )
 from pymra_torch.tree.plan import TreePlan
+from pymra_torch.utils import profiling as _tr
+from pymra_torch.utils.config import flag
 
 __all__ = ["DeviceLevel", "DevicePlan", "SweepResult", "make_device_plan",
            "mra_sweep", "prepare_obs", "LOG2PI", "set_matmul_precision"]
@@ -452,10 +461,6 @@ def _use_inverse_solves(p: int, kernel_structure: bool) -> bool:
     with the factor. ``PYMRA_LEAF_SOLVE=inv|tri`` chooses; ``auto`` inverts
     in the kernel structure from P = 16 on, where the JAX package inverts
     on the TPU."""
-    # imported here: pymra_torch.utils imports the model, which imports
-    # this module
-    from pymra_torch.utils.config import flag
-
     mode = flag("PYMRA_LEAF_SOLVE")
     if mode == "auto":
         return kernel_structure and p >= LEAF_FUSED_MIN_P
@@ -703,10 +708,14 @@ def mra_sweep(
                          "(axis_name): they are one rank's segments")
     set_matmul_precision()
     dense = None
-    if r_dense is not None:
-        dense = _dense_obs(dplan, y, r_dense)
-    elif prep is None:
-        prep = prepare_obs(dplan, y, r_diag)
+    if r_dense is not None or prep is None:
+        sp = _tr.begin("pymra.prep") if _tr.ON else None
+        if r_dense is not None:
+            dense = _dense_obs(dplan, y, r_dense)
+        else:
+            prep = prepare_obs(dplan, y, r_diag)
+        if sp is not None:
+            _tr.end(sp)
     return _mra_sweep_impl(dplan, covfn, compute_posterior, float(jitter),
                            prep, dense, keep_internals, group,
                            posterior_segments, batch)
@@ -829,10 +838,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
     prior_L: list = [None] * (M + 1)
     chain_Q: list = [None] * (M + 1)
     chain_GG: list = [None] * (M + 1)
+    sp = _tr.begin("pymra.pass.A") if _tr.ON else None
     for m, lvl in enumerate(levels):
         n_int = lvl.int_knots.shape[0]
         if n_int == 0:
             continue
+        lsp = _tr.begin("pymra.pass.A.level", m) if _tr.ON else None
         Q = lvl.int_knots
         grp_i = _int_group(dplan, m, n_int)
         shard_i = None
@@ -876,6 +887,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                 _parent_rows(chain_Q[m - 1], lvl.int_parent, pgrp, n_int,
                              pstart), Q,
             ], dim=-2)
+        if lsp is not None:
+            _tr.end(lsp)
+    if sp is not None:
+        # traced: the backward's boundary between passes B and A
+        prior_L = list(_tr.mark("A", *prior_L))
+        _tr.end(sp)
 
     # ---------------- Pass B: leaf groups — A, omega, own downdate ---------
     leaf_stash: list = [None] * (M + 1)
@@ -896,10 +913,12 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
 
     n_obs_total = torch.zeros((), **fl)
 
+    sp = _tr.begin("pymra.pass.B") if _tr.ON else None
     for m, lvl in enumerate(levels):
         n_leaf = lvl.leaf_locs.shape[0]
         if n_leaf == 0:
             continue
+        lsp = _tr.begin("pymra.pass.B.level", m) if _tr.ON else None
         P = lvl.leaf_locs.shape[1]
         S = m * r
         X = lvl.leaf_locs
@@ -1058,14 +1077,23 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             # prior basis blocks, with or without the posterior
             leaf_stash[m]["Bstack"] = (torch.cat([W, B_own], dim=-1) if S
                                        else B_own)
+        if lsp is not None:
+            _tr.end(lsp)
+    if sp is not None:
+        # the boundary between passes C and B: the likelihood increments
+        # and what the posterior reads of the leaves
+        _mark_with_stash("B", tot[leaf_key], leaf_stash)
+        _tr.end(sp)
 
     # ---------------- Pass C: upward interior levels -----------------------
     int_stash: list = [None] * (M + 1)
+    sp = _tr.begin("pymra.pass.C") if _tr.ON else None
     for m in range(M, -1, -1):
         lvl = levels[m]
         n_int = lvl.int_knots.shape[0]
         if n_int == 0:
             continue
+        lsp = _tr.begin("pymra.pass.C.level", m) if _tr.ON else None
         S = m * r
         # children's messages per parent; leaf-origin parts are this rank's
         # partial sums, summed over the ranks in one collective
@@ -1140,6 +1168,8 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
             G = torch.zeros(batch + (n_int, r, 0), **fl)
         g = _tri_solve(L_post, v[..., None], trans=True)[..., 0]
         int_stash[m] = {"L_post": L_post, "G": G, "g": g}
+        if lsp is not None:
+            _tr.end(lsp)
 
     d_total, u_total = tot["rep"]
     if group is not None:
@@ -1149,11 +1179,21 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
         u_total = u_total + u_sh
     objective = d_total + u_total
     loglik = -0.5 * (objective + n_obs_total * LOG2PI)
+    if sp is not None:
+        # the boundary between passes D (or the caller) and C
+        out = [objective, loglik]
+        _mark_with_stash("C", out, int_stash)
+        objective, loglik = out
+        _tr.end(sp)
     mean = var = None
     if compute_posterior:
+        sp = _tr.begin("pymra.pass.D") if _tr.ON else None
         mean, var = _posterior(dplan, leaf_stash, int_stash, kernel_structure,
                                keep_internals, group, shard_idx, crit,
                                posterior_segments, batch)
+        if sp is not None:
+            mean, var = _tr.mark("D", mean, var)
+            _tr.end(sp)
     result = SweepResult(objective, loglik, mean, var)
     if keep_internals:
         # the knot chains are points, shared by the sets: broadcast (a
@@ -1164,6 +1204,17 @@ def _mra_sweep_impl(dplan, covfn, compute_posterior, jitter, prep, dense,
                         "chain_GG": chain_GG, "leaf": leaf_stash,
                         "interior": int_stash}
     return result
+
+
+def _mark_with_stash(label: str, values: list, stash: list) -> None:
+    """A traced sweep's pass boundary (:func:`pymra_torch.utils.profiling.mark`)
+    on ``values`` and the stashes' ``g``, which the posterior reads, through
+    one marker; replaced in place."""
+    rows = [st for st in stash if st is not None]
+    marked = _tr.mark(label, *values, *(st["g"] for st in rows))
+    values[:] = marked[:len(values)]
+    for st, g in zip(rows, marked[len(values):]):
+        st["g"] = g
 
 
 def _posterior(dplan, leaf_stash, int_stash, kernel_structure,

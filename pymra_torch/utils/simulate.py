@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from pymra_torch.tree.model import _device
-
 __all__ = ["simulate_grf", "simulate_grf_grid", "make_observations"]
 
 
@@ -30,6 +28,10 @@ def simulate_grf(generator: torch.Generator, locs, covfn, mean=0.0,
 
     Returns a ``[n]`` vector on ``device``.
     """
+    # imported here: the sweep imports this package (its profiling), and
+    # the model imports the sweep
+    from pymra_torch.tree.model import _device
+
     dev = _device(device)
     if isinstance(covfn, tuple) and covfn[0] == "chol":
         chol = torch.as_tensor(covfn[1], device=dev)

@@ -146,14 +146,27 @@ def test_phase_timer_and_chained_throughput_on_the_cpu():
 
 
 def test_trace_annotation_and_profile_to_write_a_trace(tmp_path):
+    profiling.clear()
     with profiling.profile_to(str(tmp_path / "trace")) as prof:
         with profiling.trace_annotation("pymra-test-region"):
             (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as fh:
-        assert "pymra-test-region" in fh.read()
-    assert any(e.key == "pymra-test-region" for e in prof.key_averages())
+        trace = json.load(fh)
+    # the span is merged into the Chrome trace, at its anchor's place; it
+    # is not a profiler range (only the empty anchor is)
+    events = trace["traceEvents"]
+    clock, = [e for e in events if e.get("name") == profiling.CLOCK]
+    span, = [e for e in events if e.get("name") == "pymra-test-region"]
+    assert span["cat"] == "pymra" and span["ph"] == "X"
+    assert span["ts"] >= float(clock["ts"]) - 1.0
+    mm, = [e for e in events if e.get("name") == "aten::mm"]
+    assert span["ts"] <= float(mm["ts"]) <= span["ts"] + span["dur"]
+    keys = {e.key for e in prof.key_averages()}
+    assert "pymra-test-region" not in keys and profiling.CLOCK in keys
+    assert [s["name"] for s in profiling.spans()] == ["pymra-test-region"]
+    profiling.clear()
 
 
 # ---------------------------------------------------------------------------
