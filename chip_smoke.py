@@ -39,6 +39,16 @@ non-zero exit code and no result line:
    ``cholesky_cascade`` and ``cholesky_blocked`` on the card against the
    same Functions on CPU copies (the twins), at the paths' shapes with
    random cotangents;
+3c. K1's backward: ``leaf_pullback`` (one launch of
+   ``leaf_pullback.cu``) against its twin ``leaf_pullback_ref`` on the
+   card (the composition the backward ran before the kernel: float64 and
+   float32 GEMMs, elementwise kernels, K4 and K3), member by member with
+   identical NaN patterns, at ``LEAF_PULLBACK_MAIN`` (grid1m.grad4's
+   65,536 leaves of 64, one set's 16,384 and the N=10^4 tree's 256 of 49)
+   on K1's forward of ``leaf_case``'s members (masked slots, a fully
+   masked leaf, factors 1e2 and 1e4, an all-fail member) with random
+   cotangents; kernel and twin timed as in phase 3, the twin's device
+   time too, beside the bound;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
 5. the N=10^6 flagship (1000^2 grid, r=8, M=7): likelihood-only objective
@@ -53,8 +63,13 @@ non-zero exit code and no result line:
    five-point difference of the card's own float32 loglik, ms per
    value-and-gradient evaluation, its ratio to the forward, peak memory
    with autograd, then a 3-step L-BFGS ``fit_mle``;
-9. launch counters over phases 7-8: K1-K4 and the pullback launched, no
-   twin ran on a CUDA tensor;
+9. launch counters over phases 7-8: K1, its backward, K2 and the
+   pullback launched, no twin ran on a CUDA tensor;
+9b. phase 13c's four N=10^6 parameter sets through one batched value and
+   gradient on phase 5's plan and data, with K1's backward the kernel and
+   then the twin (the backward before the kernel): loglik equal (1e-5),
+   gradient within phase 13c's 1e-4 of the twin's; ms per evaluation and
+   peak memory of both, in alternating turns;
 10. dense measurement error at N=10^4 (bundled ``large``, r=4, M=4):
    (a) R = 1e-4 I passed as a dense matrix against the float64 golden and
    the diagonal path's own objective; (b) a correlated R against a frozen
@@ -268,6 +283,11 @@ RAGGED_BATCH = 1000
 #: and N=10^6 (r=8, leaves P=64)
 CHOL_MAIN = ((64, 4), (4096, 8))
 LEAF_MAIN = ((256, 49), (16384, 64))
+#: K1's backward (phase 3c): grid1m.grad4's leaves (4 parameter sets of
+#: the N=10^6 tree's 16,384 leaves of 64; the first shape repeats the
+#: second's leaves LEAF_PULLBACK_SETS times), one set's, the N=10^4 tree's
+LEAF_PULLBACK_MAIN = ((65536, 64), (16384, 64), (256, 49))
+LEAF_PULLBACK_SETS = 4
 #: (batch, P) of K3 and K4 in the leaf backward (the leaf shapes)
 TRI_MAIN = LEAF_MAIN
 #: (batch, P, Q, transpose) K5 is timed at: the dense-R path's one call
@@ -352,7 +372,8 @@ def _spin():
 
 #: the kernels the wrappers launch, by the names of their ``__global__``
 #: functions in ``pymra_torch/ops/cuda/csrc``
-KERNEL_SYMBOLS = ("leaf_factor_kernel", "chol_jittered_", "cholesky_kernel",
+KERNEL_SYMBOLS = ("leaf_factor_kernel", "leaf_pullback_kernel",
+                  "chol_jittered_", "cholesky_kernel",
                   "tri_inv_kernel", "tri_inv_wide_kernel", "tri_solve_kernel",
                   "chol_pullback_", "chol_logdet_kernel",
                   "chol_inv_logdet_kernel", "chol_wide_kernel")
@@ -706,13 +727,13 @@ def work(name, inputs, outputs) -> tuple[float, float, float]:
     one (K3's and K5's L) only the lower triangle, P(P+1)/2 entries of
     each matrix, has to be read;
     outputs are written whole; the Cholesky pullback's phi(L^T Lbar) needs
-    only Lbar's lower triangle too. Cholesky and a triangular inverse are
+    only Lbar's lower triangle too, and K1's backward only Xbar's. Cholesky and a triangular inverse are
     P^3/3 flops each, a solve with Q columns P^2 Q; K8's and KC's are split
     by :func:`wide_flops`."""
     b, p = inputs[0].shape[0], inputs[0].shape[-1]
     if name == "cholesky_pullback_tile":  # KP's pullback mode: the same work
         name = "cholesky_pullback"
-    triangular = {"leaf_factor": (0, 2),
+    triangular = {"leaf_factor": (0, 2), "leaf_pullback": (0, 2, 4),
                   "cholesky_pullback": (0, 1)}.get(name, (0,))
     nbytes = 4.0 * (sum(t.numel() for t in outputs) + sum(
         b * p * (p + 1) // 2 if i in triangular else t.numel()
@@ -733,6 +754,11 @@ def work(name, inputs, outputs) -> tuple[float, float, float]:
         # prior log-determinant P^3/3, posterior factor + inverse 2 P^3/3
         flops = (_attempts(outputs[3]) + 2 * _attempts(outputs[4])) \
             * p ** 3 / 3
+    elif name == "leaf_pullback":
+        # float64: the triangular products G, V (P^3 / 3 each) and S (2 P^3
+        # / 3); float32: the prior's factor and inverse (2 P^3 / 3) and
+        # Y^T Y on the lower triangle (P^3 / 3)
+        flops, flops64 = b * p ** 3, b * 4 * p ** 3 / 3
     elif name == "solve_triangular_batched":
         flops = b * p * p * inputs[1].shape[-1]
     elif name == "cholesky_pullback":
@@ -1336,6 +1362,102 @@ def phase_backward(device="cuda", chol_main=CHOL_MAIN, leaf_main=LEAF_MAIN,
     return err, times
 
 
+def leaf_pullback_case(rng, b, p, device, sets=1):
+    """K1's backward's arguments after ``jitter``: ``leaf_case``'s members
+    (escalated and hard: masked slots, a fully masked leaf, factors 1e2 and
+    1e4, an all-fail member; ``b // sets`` of them, repeated ``sets``
+    times, as the sets of a batched sweep repeat its nodes), K1's forward
+    on them on ``device`` at jitter 1e-3, and random cotangents of its
+    three differentiable outputs: ``(c, kmask, li, fp, libar, ldpbar,
+    ldqbar)``."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+
+    c, k, a = (np.concatenate([x] * sets) for x in leaf_case(
+        rng, b // sets, p, escalate=True, hard=True))
+    c, k, a = (torch.as_tensor(x, device=device) for x in (c, k, a))
+    li, _, _, fp, _ = tl.leaf_factor(c, k, a, 1e-3)
+    del a
+    bars = [torch.as_tensor(rng.standard_normal(s, dtype=np.float32),
+                            device=device) for s in ((b, p, p), (b,), (b,))]
+    return [c, k, li, fp] + bars
+
+
+def phase_leaf_pullback(device="cuda", shapes=LEAF_PULLBACK_MAIN,
+                        sets=LEAF_PULLBACK_SETS, timer=time_ms,
+                        dev_timer=device_ms):
+    """Phase 3c: K1's backward against its twin on the same tensors at
+    ``shapes`` (the first of them ``sets`` copies of its leaves), timed;
+    returns ``(err, times)`` under the record ``leaf_pullback``."""
+    import torch
+
+    from pymra_torch.ops import linalg as tl
+    from pymra_torch.ops.cuda import build
+
+    print("== phase 3c: K1's backward (leaf_pullback) against its twin on "
+          f"the same tensors (tolerance |diff| <= {ATOL} + {RTOL} max|twin| "
+          "of each member)")
+    log = build.build_log.splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "leaf_pullback_kernel" in line:
+            tier = line.split("leaf_pullback_kernelILi")[1].split("E")[0]
+            print(f"  ptxas, tier {8 * int(tier)}:",
+                  " ".join(x.split(":", 1)[-1].strip() for x in log[i + 1:i + 4]
+                           if "Used" in x or "spill" in x))
+    err, times = {"leaf_pullback": 0.0}, {}
+    rng = np.random.default_rng(13)
+    for i, (b, p) in enumerate(shapes):
+        args = leaf_pullback_case(rng, b, p, device, sets if i == 0 else 1)
+        f = args[3].cpu()
+        n_esc = {fac: int((f == fac).sum()) for fac in (1e2, 1e4)}
+
+        def run(args=args):
+            return tl.leaf_pullback(*args, 1e-3)
+
+        def plain(args=args):
+            return tl.leaf_pullback_ref(*args, 1e-3)
+
+        got, want = run(), plain()
+        e = compare(f"leaf_pullback {b}x{p}", got, want, per_member=True)
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            check(torch.equal(torch.isnan(g), torch.isnan(w)),
+                  f"leaf_pullback {b}x{p}: NaN pattern differs from the "
+                  "twin's")
+        check(bool(torch.isnan(got[0][3]).all()),
+              f"leaf_pullback {b}x{p}: the all-fail member is not NaN")
+        del got, want
+        err["leaf_pullback"] = max(err["leaf_pullback"], e)
+        line = (f"leaf_pullback B={b} P={p} (prior factors 1e2, 1e4: "
+                f"{n_esc[1e2]}, {n_esc[1e4]} members): max|diff| {e:.3g}")
+        line += timed(times, ("leaf_pullback", b, p), timer, dev_timer, run,
+                      plain, None, args)
+        twin_dev, twin_n = dev_timer(plain)
+        times["leaf_pullback", b, p]["plain_device_ms"] = twin_dev
+        times["leaf_pullback", b, p]["plain_device_launches"] = twin_n
+        print(line + f"; twin on the device {_ms(twin_dev)} ({twin_n:g} "
+              "launches)")
+        del args
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return err, times
+
+
+@contextlib.contextmanager
+def leaf_pullback_twin():
+    """K1's backward as it ran before its kernel: ``leaf_pullback`` is its
+    twin ``leaf_pullback_ref`` for the block."""
+    from pymra_torch.ops import linalg as tl
+
+    kernel = tl.leaf_pullback
+    tl.leaf_pullback = tl.leaf_pullback_ref
+    try:
+        yield
+    finally:
+        tl.leaf_pullback = kernel
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the main path
 # ---------------------------------------------------------------------------
@@ -1572,6 +1694,68 @@ def phase_grad_n1m(n1m, ms_forward, device="cuda", timer=time_ms,
           f"N={n} fit_mle did not raise the loglik ({start} -> "
           f"{res['loglik']})")
     return {"ms": ms, "peak": peak, "fd": fd, "ad": ad, "theta": res["theta"]}
+
+
+def phase_leaf_pullback_n1m(n1m, device="cuda", timer=time_ms, n_evals=5,
+                            sets=None, R=None):
+    """Phase 9b: the batched value and gradient on phase 5's plan and data
+    at phase 13c's N=10^6 sets, K1's backward the kernel and then its twin
+    (:func:`leaf_pullback_twin`): loglik and gradient of each set against
+    the twin's; ms per evaluation in turns (kernel, twin, twin, kernel) and
+    peak memory of both."""
+    sets = BATCH_N1M if sets is None else sets
+    R = SAMPLER_R if R is None else R
+    model, y = n1m["model"], n1m["y"]
+    n, C = model.dplan.n_locs, len(sets["l"])
+    print(f"== phase 9b: K1's backward at N={n}, {C} parameter sets "
+          f"batched (R={R}): the kernel against its twin")
+    fb = model.loglik_fn(y, R, kernel_builder=exponential_builder,
+                         batched=True)
+    batched_value_and_grad(fb, sets)  # warm-up
+    _reset_peak(device)
+    values, grads = batched_value_and_grad(fb, sets)
+    peak = _peak_gib(device)
+    with leaf_pullback_twin():
+        batched_value_and_grad(fb, sets)
+        _reset_peak(device)
+        values_t, grads_t = batched_value_and_grad(fb, sets)
+        peak_t = _peak_gib(device)
+    worst = {"value": float(np.max(np.abs(values - values_t)
+                                   / np.abs(values_t))),
+             "grad": max(float(np.max(np.abs(grads[k] - grads_t[k])
+                                      / np.abs(grads_t[k])))
+                         for k in ("l", "sig"))}
+    print(f"N={n} C={C} kernel against twin: loglik rel diff "
+          f"{worst['value']:.3g} (limit {BATCH_OBJ_RTOL}), gradient "
+          f"{worst['grad']:.3g} (limit {BATCH_GRAD_RTOL}); gradient "
+          f"{ {k: v.tolist() for k, v in grads.items()} }, twin's "
+          f"{ {k: v.tolist() for k, v in grads_t.items()} }")
+    check(worst["value"] <= BATCH_OBJ_RTOL,
+          f"N={n}: loglik with K1's backward kernel off the twin's by "
+          f"{worst['value']:.3g}")
+    check(worst["grad"] <= BATCH_GRAD_RTOL,
+          f"N={n}: gradient with K1's backward kernel off the twin's by "
+          f"{worst['grad']:.3g}")
+    shifts = np.exp(np.linspace(-0.01, 0.01, n_evals + 1))
+
+    def call():
+        it = iter(shifts)
+
+        def one():
+            t = next(it)
+            batched_value_and_grad(fb, {"l": [l * t for l in sets["l"]],
+                                        "sig": sets["sig"]})
+        return one
+
+    ms = {"kernel": [], "twin": []}
+    for turn in ("kernel", "twin", "twin", "kernel"):
+        with (leaf_pullback_twin() if turn == "twin"
+              else contextlib.nullcontext()):
+            ms[turn].append(timer(call(), reps=n_evals))
+    print(f"N={n} C={C} value and gradient, ms per batched evaluation in "
+          f"turns: kernel {ms['kernel']}, twin {ms['twin']}; peak device "
+          f"memory {peak:.2f} GiB (twin {peak_t:.2f} GiB)")
+    return {"worst": worst, "ms": ms, "peak": peak, "peak_twin": peak_t}
 
 
 # ---------------------------------------------------------------------------
@@ -4171,6 +4355,9 @@ KERNELS = (
      "pymra_tpu/ops/pallas/linalg.py:1097", WIDE_MAIN[-1]),
     ("cholesky_cascade", "chol_wide.cu", "pymra_tpu/ops/pallas/linalg.py:976",
      WIDE_MAIN[-1]),
+    ("leaf_pullback", "leaf_pullback.cu",
+     "pymra_tpu/ops/pallas/linalg.py:932 (_leaf_factor_bwd: XLA, no Pallas "
+     "kernel)", LEAF_PULLBACK_MAIN[0]),
 )
 KERNEL_NAMES = tuple(n for n, *_ in KERNELS)
 #: the two wrappers of the wide kernel (64 < P <= 256); other widths
@@ -4179,21 +4366,24 @@ WIDE = ("cholesky_blocked", "cholesky_cascade")
 #: the wrappers that count their calls that compose other kernels in
 #: ``.composed`` (K3 wider than 256 too)
 COMPOSING = WIDE + ("triangular_inverse_lower",)
-#: kernels that run only in backward passes (checked in phase 3b)
-BACKWARD_KERNELS = ("cholesky_pullback", "cholesky_pullback_tile")
+#: kernels that run only in backward passes (checked in phases 3b-3c)
+BACKWARD_KERNELS = ("cholesky_pullback", "cholesky_pullback_tile",
+                    "leaf_pullback")
 FORWARD_KERNELS = ("leaf_factor", "cholesky_jittered")
 #: the pullback does the Cholesky backward's solves, so K5 runs only on the
-#: dense-R path (phase 10's whitening)
-GRADIENT_KERNELS = FORWARD_KERNELS + ("triangular_inverse_lower", "cholesky",
-                                      "cholesky_pullback")
+#: dense-R path (phase 10's whitening); K1's backward refactors and inverts
+#: the prior block itself, so K4 and K3 run on the dense-R path only (K6's
+#: backward)
+GRADIENT_KERNELS = FORWARD_KERNELS + ("leaf_pullback", "cholesky_pullback")
 #: the dense-R and wide-leaf paths (phases 10-11) leave K1; the wide kernel
 #: runs there as KC (the sweep's escalated factorizations), K8 being its
 #: one-factor entry point; no gradient there reaches a factor 9 to 64 wide
 #: (the dense-R blocks of 49 are free of the parameters), so neither does
-#: KP's pullback mode
+#: KP's pullback mode; nor K1's backward (no K1 there)
 SLICE3_KERNELS = tuple(n for n in KERNEL_NAMES[1:]
                        if n not in ("cholesky_blocked",
-                                    "cholesky_pullback_tile"))
+                                    "cholesky_pullback_tile",
+                                    "leaf_pullback"))
 
 
 def reset_counters(tl):
@@ -4240,6 +4430,9 @@ def main() -> int:
     err, times = phase_kernels(chol_side=CHOL_SIDE, solve_side=SOLVE_SIDE,
                                logdet_side=LOGDET_SIDE)
     err_bwd, bwd_times = phase_backward(pullback_side=CHOL_SIDE)
+    err_leaf, leaf_times = phase_leaf_pullback()
+    err_bwd.update(err_leaf)
+    bwd_times.update(leaf_times)
     for name in BACKWARD_KERNELS:
         err[name] = err_bwd[name]
     times.update(bwd_times)
@@ -4255,6 +4448,7 @@ def main() -> int:
     grad_n1m = phase_grad_n1m(n1m, n1m["ms_lik"])
     gradient = read_counters(
         tl, "phase 9: launch counters over phases 7-8", GRADIENT_KERNELS)
+    phase_leaf_pullback_n1m(n1m)
 
     reset_counters(tl)
     samplers = phase_samplers(ms_grad)

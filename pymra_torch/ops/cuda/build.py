@@ -47,6 +47,10 @@ _SIGNATURES = {
     # f2, device, stream
     "pymra_leaf_factor": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _F, _F, _I, _P],
+    # c, kmask, li, libar, ldpbar, ldqbar (each of the three or null), fp,
+    # jitter, cbar, abar, batch, p, tier, device, stream
+    "pymra_leaf_pullback": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I,
+                            _I, _I, _P],
     # a, l, batch, p, tier, device, stream
     "pymra_cholesky": [_P, _P, _I, _I, _I, _I, _P],
     # l, x, batch, p, tier, device, stream

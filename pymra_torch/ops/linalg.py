@@ -35,7 +35,11 @@ custom VJP, or a composition of such):
 * :func:`leaf_factor` — the fused leaf stage: prior log-determinant and
   posterior inverse factor + log-determinant (replaces K1,
   ``_kleaf_logdet_kernel`` + ``_kleaf_inv_logdet_kernel``);
-  ``ops/cuda/csrc/leaf_factor.cu``, on ``chol_tile.cuh``.
+  ``ops/cuda/csrc/leaf_factor.cu``, on ``chol_tile.cuh``. Its backward,
+  :func:`leaf_pullback` (the JAX package's ``_leaf_factor_bwd``, which has
+  no Pallas kernel), is one launch of ``ops/cuda/csrc/leaf_pullback.cu``:
+  the posterior pullback's float64 products on the triangles and the
+  prior block refactored and inverted on ``chol_tile.cuh``.
 * :func:`cholesky_logdet` — jittered log-determinant with escalation, no
   factor formed (replaces K6, ``_chol_logdet_kernel``);
   ``ops/cuda/csrc/chol_logdet.cu``, on ``chol_tile.cuh`` (K1's prior half
@@ -105,7 +109,8 @@ __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
            "solve_triangular_batched_ref", "cholesky_pullback",
            "cholesky_pullback_ref",
            "cholesky_jittered", "cholesky_jittered_ref", "leaf_factor",
-           "leaf_factor_ref", "cholesky_logdet", "cholesky_logdet_ref",
+           "leaf_factor_ref", "leaf_pullback", "leaf_pullback_ref",
+           "cholesky_logdet", "cholesky_logdet_ref",
            "cholesky_inv_logdet", "cholesky_inv_logdet_ref",
            "WIDE_MAX_P", "cholesky_blocked", "cholesky_blocked_ref",
            "cholesky_cascade", "cholesky_cascade_ref", "launch_count"]
@@ -351,6 +356,33 @@ def leaf_factor_ref(c_own: torch.Tensor, kmask: torch.Tensor,
 
 
 leaf_factor_ref.cuda_calls = 0
+
+
+def leaf_pullback_ref(c_own, kmask, li, fp, libar, ldpbar, ldqbar,
+                      jitter: float):
+    """Plain twin of :func:`leaf_pullback`: the composition of
+    :func:`_leaf_posterior_pullback` (float64 products, rounded once) and
+    :func:`_leaf_prior_pullback` (the prior block refactored at ``fp`` by
+    :func:`cholesky` and inverted by :func:`triangular_inverse_lower`);
+    any width. On a CUDA tensor those two wrappers launch K4 and K3."""
+    if c_own.is_cuda:
+        leaf_pullback_ref.cuda_calls += 1
+    shape, p = c_own.shape, c_own.shape[-1]
+    c = c_own.reshape(-1, p, p)
+    k_leaf, pair, _, s = _leaf_parts(c, kmask.reshape(-1, p).to(c.dtype))
+    kbar_q = _leaf_posterior_pullback(
+        li.reshape(-1, p, p),
+        None if libar is None else libar.reshape(-1, p, p),
+        None if ldqbar is None else ldqbar.reshape(-1))
+    kbar = kbar_q
+    if ldpbar is not None:
+        kbar = kbar + _leaf_prior_pullback(
+            k_leaf, fp.reshape(-1) * (jitter * s), ldpbar.reshape(-1))
+    # A_oo enters only through the pair-masked posterior assembly
+    return (kbar * pair).reshape(shape), (kbar_q * pair).reshape(shape)
+
+
+leaf_pullback_ref.cuda_calls = 0
 
 
 def _flat_jit(mat: torch.Tensor, jit) -> torch.Tensor:
@@ -765,6 +797,55 @@ def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
     return li, ldp, ldq, fp, fq
 
 
+def leaf_pullback(c_own: torch.Tensor, kmask: torch.Tensor, li: torch.Tensor,
+                  fp: torch.Tensor, libar: torch.Tensor | None,
+                  ldpbar: torch.Tensor | None, ldqbar: torch.Tensor | None,
+                  jitter: float):
+    """K1's backward: ``(Cbar, Abar)``, the cotangents of
+    :func:`leaf_factor`'s ``c_own`` and ``a_oo`` from its saved ``c_own``,
+    ``kmask`` (broadcast to ``c_own``'s batch), inverse factor ``li`` and
+    selected prior factor ``fp``, and the cotangents ``libar`` of ``li``,
+    ``ldpbar`` of the prior and ``ldqbar`` of the posterior
+    log-determinant (each None where absent). With ``X = li``, ``Kbar_q =
+    sym(X^T (1/2 ldqbar I + phi(-libar X^T)) X)`` in float64 products
+    rounded once, ``Abar = Kbar_q * kk^T`` and ``Cbar = (Kbar_q + 1/2
+    ldpbar K_p^-1) * kk^T``, ``K_p`` the prior block at ``fp``.
+
+    On the card one launch of ``ops/cuda/csrc/leaf_pullback.cu`` (counted
+    in ``.launches``; it refactors and inverts the prior block itself, so
+    K4 and K3 do not run); on the CPU the twin :func:`leaf_pullback_ref`.
+    Not differentiable itself."""
+    if c_own.device.type == "cpu":
+        return leaf_pullback_ref(c_own, kmask, li, fp, libar, ldpbar,
+                                 ldqbar, jitter)
+    lib = build.load_library()
+    p = _check_square("leaf_pullback: c_own", c_own)
+    batch = c_own.shape[:-2]
+    _check("leaf_pullback: c_own", c_own, c_own.shape, c_own.device)
+    _check("leaf_pullback: kmask", kmask, batch + (p,), c_own.device)
+    _check("leaf_pullback: li", li, c_own.shape, c_own.device)
+    _check("leaf_pullback: fp", fp, batch, c_own.device)
+    if libar is not None:
+        _check("leaf_pullback: libar", libar, c_own.shape, c_own.device)
+    for name, t in (("ldpbar", ldpbar), ("ldqbar", ldqbar)):
+        if t is not None:
+            _check(f"leaf_pullback: {name}", t, batch, c_own.device)
+    cbar, abar = torch.empty_like(c_own), torch.empty_like(c_own)
+    n = cbar.numel() // (p * p)
+    _fits_int32("leaf_pullback", n)
+    if n:
+        _launched("leaf_pullback", lib.pymra_leaf_pullback(
+            c_own.data_ptr(), kmask.data_ptr(), li.data_ptr(), _ptr(libar),
+            _ptr(ldpbar), _ptr(ldqbar), fp.data_ptr(), float(jitter),
+            cbar.data_ptr(), abar.data_ptr(), n, p, tile_tier(p),
+            *_where(c_own)))
+        leaf_pullback.launches += 1
+    return cbar, abar
+
+
+leaf_pullback.launches = 0
+
+
 def _jittered_args(name: str, mat: torch.Tensor, jit: torch.Tensor,
                    factors) -> tuple:
     """Checks of a jittered kernel's inputs on the card: ``(P, batch
@@ -1093,23 +1174,14 @@ class _LeafFactor(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, libar, ldpbar, ldqbar, _fpbar, _fqbar):
         set_matmul_precision()
-        c_own, kmask, li, fp, fq = ctx.saved_tensors
-        shape, p = c_own.shape, c_own.shape[-1]
-        c = c_own.reshape(-1, p, p)
-        k_leaf, pair, _, s = _leaf_parts(c, kmask.reshape(-1, p).to(c.dtype))
-
-        kbar_q = _leaf_posterior_pullback(
-            li.reshape(-1, p, p),
-            None if libar is None else libar.reshape(-1, p, p),
-            None if ldqbar is None else ldqbar.reshape(-1))
-        kbar = kbar_q
-        if ldpbar is not None:
-            kbar = kbar + _leaf_prior_pullback(
-                k_leaf, fp.reshape(-1) * (ctx.jitter * s), ldpbar.reshape(-1))
-        # A_oo enters only through the pair-masked posterior assembly;
+        c_own, kmask, li, fp, _ = ctx.saved_tensors
+        cbar, abar = leaf_pullback(
+            c_own, kmask, li, fp,
+            None if libar is None else libar.contiguous(),
+            None if ldpbar is None else ldpbar.contiguous(),
+            None if ldqbar is None else ldqbar.contiguous(), ctx.jitter)
         # no gradient to the mask or the structural jitter scale
-        return ((kbar * pair).reshape(shape), None,
-                (kbar_q * pair).reshape(shape), None, None)
+        return cbar, None, abar, None, None
 
 
 class _CholeskyLogdet(torch.autograd.Function):
@@ -1258,9 +1330,9 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     + 1``, returns ``(Li, ld_prior, ld_post, fp, fq)``: ``Li = chol(K_leaf
     + A_oo + fq*jitter*s*I)^-1``, the prior and posterior Cholesky
     log-diagonal sums and the selected prior/posterior factors.
-    Differentiable in ``c_own`` and ``a_oo``; the backward refactors the
-    prior block at ``fp`` (K4) and inverts that factor (K3), and takes the
-    posterior pullback from ``Li`` in float64 products.
+    Differentiable in ``c_own`` and ``a_oo`` by :func:`leaf_pullback`,
+    which refactors the prior block at ``fp`` and inverts that factor, and
+    takes the posterior pullback from ``Li`` in float64 products.
     """
     kmask = kmask.expand(c_own.shape[:-1]).contiguous()
     out = _apply(_LeafFactor, _leaf_factor_fwd, c_own, kmask, a_oo,
@@ -1372,13 +1444,15 @@ cholesky_cascade.composed = 0
 
 def launch_count() -> int:
     """The kernel launches every wrapper has counted so far (each one's
-    ``.launches``, K3's ``.wide_launches`` and KP's ``.tile_launches``; the
-    compositions' ``.composed`` counts calls, not launches): what a span of
-    :mod:`pymra_torch.utils.profiling` reads at its ends."""
+    ``.launches``, K1's backward's among them, K3's ``.wide_launches`` and
+    KP's ``.tile_launches``; the compositions' ``.composed`` counts calls,
+    not launches): what a span of :mod:`pymra_torch.utils.profiling` reads
+    at its ends."""
     return (cholesky.launches + triangular_inverse_lower.launches
             + triangular_inverse_lower.wide_launches
             + solve_triangular_batched.launches + cholesky_pullback.launches
             + cholesky_pullback.tile_launches + cholesky_jittered.launches
-            + leaf_factor.launches + cholesky_logdet.launches
+            + leaf_factor.launches + leaf_pullback.launches
+            + cholesky_logdet.launches
             + cholesky_inv_logdet.launches + cholesky_blocked.launches
             + cholesky_cascade.launches)

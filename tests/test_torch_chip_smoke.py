@@ -393,6 +393,28 @@ def test_backward_phase_passes_with_twins():
     assert times["cholesky_pullback", 8, 4]["library_ms"] is None
 
 
+def test_leaf_pullback_phase_passes_with_twins():
+    # K1's backward: on the CPU kernel and twin are the same function; the
+    # first shape is two copies of leaf_case's members
+    err, times = chip_smoke.phase_leaf_pullback(
+        "cpu", shapes=((8, 17), (6, 49)), sets=2, timer=_host_timer,
+        dev_timer=_no_device_timer)
+    assert err == {"leaf_pullback": 0.0}
+    assert set(times) == {("leaf_pullback", 8, 17), ("leaf_pullback", 6, 49)}
+    rec = times["leaf_pullback", 8, 17]
+    assert rec["ms"] > 0 and rec["plain_ms"] > 0 and rec["bound_ms"] > 0
+    assert rec["library_ms"] is None and rec["plain_device_ms"] is None
+    # bytes: C, li and Xbar's lower triangles, the mask, fp and two
+    # cotangents read; two squares written
+    nbytes, flops, flops64 = chip_smoke.work(
+        "leaf_pullback", chip_smoke.leaf_pullback_case(
+            np.random.default_rng(0), 8, 17, "cpu", sets=2),
+        [torch.zeros(8, 17, 17)] * 2)
+    assert nbytes == 4 * (3 * 8 * 17 * 18 // 2 + 8 * 17 + 3 * 8
+                          + 2 * 8 * 17 * 17)
+    assert flops == 8 * 17 ** 3 and flops64 == 8 * 4 * 17 ** 3 / 3
+
+
 def _fake_profile(recorded, other=0):
     """A ``torch.profiler.profile`` stand-in whose profiles recorded
     ``recorded`` launches of a port kernel (2 us each) and ``other`` of a
@@ -991,6 +1013,45 @@ def test_batched_phase_passes_on_small_inputs(batched_inputs):
         assert run["ms_batch"] > 0 and run["ms_single"] > 0
         # on the CPU no kernel launches, batched or not
         assert set(run["launches"].values()) == {0}
+
+
+@pytest.fixture(scope="module")
+def n1m_64():
+    """Phase 5 at a 64^2 grid: 64 leaves of 64 (K1's route)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as one_torch_thread, for the module's setup
+    try:
+        return chip_smoke.phase_n1m("cpu", timer=_host_timer, side=64,
+                                    golden=_flagship_golden(64), n_evals=1)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_leaf_pullback_n1m_phase_passes_on_small_inputs(n1m_64,
+                                                        monkeypatch):
+    calls = []
+    real = tl.leaf_pullback
+    monkeypatch.setattr(tl, "leaf_pullback",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    out = chip_smoke.phase_leaf_pullback_n1m(n1m_64, "cpu",
+                                             timer=_host_timer, n_evals=1)
+    assert out["worst"] == {"value": 0.0, "grad": 0.0}
+    assert [len(v) for v in out["ms"].values()] == [2, 2]
+    # the batched backward reached K1's backward once an evaluation, at
+    # the four sets' leaves of 64
+    assert calls and set(calls) == {(4, 64, 64, 64)}
+
+
+def test_leaf_pullback_n1m_phase_rejects_a_wrong_backward(n1m_64,
+                                                          monkeypatch):
+    # K1's backward with A_oo's cotangent halved: the gradient leaves the
+    # twin's
+    real = tl.leaf_pullback
+    monkeypatch.setattr(tl, "leaf_pullback", lambda *a: (
+        lambda cbar, abar: (cbar, 0.5 * abar))(*real(*a)))
+    with pytest.raises(SystemExit, match="off the twin's"):
+        chip_smoke.phase_leaf_pullback_n1m(n1m_64, "cpu",
+                                           timer=_host_timer, n_evals=1)
 
 
 def test_batched_phase_rejects_a_batch_out_of_order(batched_inputs,
