@@ -49,6 +49,15 @@ non-zero exit code and no result line:
    masked leaf, factors 1e2 and 1e4, an all-fail member) with random
    cotangents; kernel and twin timed as in phase 3, the twin's device
    time too, beside the bound;
+3d. the general-nu Matern kernel (``matern_cuda``: ``matern.cu``'s
+   covariance and pullback) at the grid1m tree's leaf shape under 4 sets
+   (4 x 16384 leaves x 64 locations x 120 columns: 56 ancestor knots and
+   the leaf's own 64) on points laid out as that tree's: against its float32
+   twin ``matern_general`` (chip_smoke's tolerance, NaN patterns
+   identical), against the float64 twin on a slice of the leaves, the
+   pullback against the float64 twin's autograd on a smaller slice; one
+   launch each way a call, ms and device ms of each beside its bound
+   (``matern_work``), the twin's device time and launches;
 4. the N=10^4 main path (bundled ``large``, r=4, M=4): objective against
    the float64 golden, posterior finite, ms per evaluation;
 5. the N=10^6 flagship (1000^2 grid, r=8, M=7): likelihood-only objective
@@ -132,11 +141,12 @@ non-zero exit code and no result line:
    objective, ``setPrior(2 Sigma)`` against a tree built with 2 Sigma
    (and, reported, the kernel at sig=2), ms per evaluation beside phase
    4's, peak memory;
-16. general-nu Matern (nu=0.8, Bessel K by ``kv_frac``) at N=10^4:
-   objective and gradient in (l, sig) against frozen float64 goldens at
-   R=1e-2 (R=1e-4 reported), ms per forward and per value-and-gradient
-   evaluation, device launches per covariance call and per sweep beside
-   the exponential's;
+16. general-nu Matern (nu=0.8; on the card the kernel of phase 3d) at
+   N=10^4: objective and gradient in (l, sig) against frozen float64
+   goldens at R=1e-2 (R=1e-4 reported), ms per forward and per
+   value-and-gradient evaluation beside the exponential's, device
+   launches per covariance call and per sweep beside the exponential's,
+   the kernel's launches counted and the twins never on a CUDA tensor;
 17. ``keep_internals`` at N=10^4 (K2 and K3 at the leaves): objective
    against the golden, posterior against the default sweep's; the
    posterior basis matrix's row sums of squares against the sweep's
@@ -376,7 +386,8 @@ KERNEL_SYMBOLS = ("leaf_factor_kernel", "leaf_pullback_kernel",
                   "chol_jittered_", "cholesky_kernel",
                   "tri_inv_kernel", "tri_inv_wide_kernel", "tri_solve_kernel",
                   "chol_pullback_", "chol_logdet_kernel",
-                  "chol_inv_logdet_kernel", "chol_wide_kernel")
+                  "chol_inv_logdet_kernel", "chol_wide_kernel",
+                  "matern_kernel", "matern_pullback_kernel")
 #: a kernel record whose wrapper launches two kernels: (wrapper, the
 #: counter of its launches of this one); every other record is named by
 #: its wrapper, whose ``.launches`` counts its kernel's launches (K8's and
@@ -401,8 +412,18 @@ def launches_of(tl, name: str) -> int:
 
 def _wrapper_launches() -> int:
     from pymra_torch.ops import linalg as tl
+    from pymra_torch.ops import special
 
-    return sum(launches_of(tl, n) for n in KERNEL_NAMES)
+    return (sum(launches_of(tl, n) for n in KERNEL_NAMES)
+            + _matern_launches(special))
+
+
+def _matern_launches(special) -> int:
+    """The general-nu Matern kernel's launches, forward and pullback (0 on
+    an older tree, which has no such kernel)."""
+    fn = getattr(special, "matern_cuda", None)
+    return (getattr(fn, "launches", 0)
+            + getattr(fn, "pullback_launches", 0)) if fn else 0
 
 
 def device_ms(fn, reps: int = 10,
@@ -1442,6 +1463,169 @@ def phase_leaf_pullback(device="cuda", shapes=LEAF_PULLBACK_MAIN,
         if device == "cuda":
             torch.cuda.empty_cache()
     return err, times
+
+
+#: phase 3d: grid1m's leaves under 4 parameter sets: sets, leaves of the
+#: 128 x 128 boxes, locations a leaf, ancestor knots (8 at each of 7
+#: levels) plus the leaf's own locations
+MATERN_SHAPE = (4, 16384, 64, 56 + 64)
+#: phase 3d's slices: leaves held to the float64 twin, and to its
+#: gradient
+MATERN_F64_LEAVES, MATERN_GRAD_LEAVES = 512, 64
+
+
+def matern_case(rng, shape, device):
+    """Points laid out as grid1m's tree lays them out: each leaf's
+    locations uniform in its box of the 128 x 128 boxes of the unit square,
+    its ancestors' knots (8 at each of the 7 coarser levels) uniform in the
+    ancestor's box, then the leaf's own locations; the sets' ``l`` around
+    0.05 and ``sig`` around 1 (grid1m.grad4's draws)."""
+    import torch
+
+    C, n, p, q = shape
+    side = int(round(n ** 0.5))
+    ix, iy = np.divmod(np.arange(n), side)
+    corner = np.stack([ix, iy], -1)[:, None, :] / side
+    own = corner + rng.random((n, p, 2)) / side
+    anc = []
+    for k in range(7):  # level k's boxes have side 2^-k
+        box = np.floor(corner * 2 ** k) / 2 ** k
+        anc.append(box + rng.random((n, 8, 2)) / 2 ** k)
+    b = np.concatenate(anc + [own], 1)[:, :q]
+    f32 = dict(dtype=torch.float32, device=device)
+    l = torch.as_tensor(np.exp(rng.normal(np.log(0.05), 0.15, C)), **f32)
+    sig = torch.as_tensor(np.exp(rng.normal(0.0, 0.1, C)), **f32)
+    return (torch.as_tensor(own, **f32), torch.as_tensor(b, **f32), l, sig)
+
+
+#: operations per entry and set the general-nu Matern needs at the least:
+#: half of what a float32-accurate rational approximation of s^nu K_nu(s)
+#: takes (degree 6: 24 operations and a division; s^nu e^-s: a logarithm
+#: and an exponential, ~16 fused multiply-adds; the distance and its
+#: scaling: 7), and 48 for the pullback, which adds K_(nu-1) and two sums
+MATERN_FWD_OPS, MATERN_PULLBACK_OPS = 32.0, 48.0
+
+
+def matern_work(sets, b, p, q, pullback=False) -> tuple[float, float]:
+    """(bytes, float32 operations) of one launch of the Matern kernel on
+    ``sets`` parameter sets of a ``[b, p, q]`` block of 2-D points: the
+    points, ``l`` and ``sig`` read once, the covariance written once (the
+    pullback reads its cotangent instead and writes two sums a set)."""
+    entries = float(sets) * b * p * q
+    nbytes = 4.0 * (entries + 2 * b * (p + q) + 2 * sets
+                    + (2 * sets if pullback else 0))
+    return nbytes, entries * (MATERN_PULLBACK_OPS if pullback
+                              else MATERN_FWD_OPS)
+
+
+def phase_matern_kernel(device="cuda", shape=MATERN_SHAPE, nu=0.8,
+                        timer=time_ms, dev_timer=device_ms):
+    """Phase 3d: the general-nu Matern kernel against its twins at
+    ``shape``, timed; returns its record."""
+    import torch
+
+    from pymra_torch.ops import special
+    from pymra_torch.ops.cuda import build
+
+    C, n, p, q = shape
+    print(f"== phase 3d: the general-nu Matern kernel (nu={nu}) at {C} sets"
+          f" x {n} x {p} x {q} against its twin (tolerance |diff| <= {ATOL}"
+          f" + {RTOL} max|twin|) and the float64 twin")
+    log = build.build_log.splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "matern" in line:
+            print("  ptxas:", line.split("'")[1] if "'" in line else line,
+                  " ".join(x.split(":", 1)[-1].strip()
+                           for x in log[i + 1:i + 4]
+                           if "Used" in x or "spill" in x))
+    a, b, l, sig = matern_case(np.random.default_rng(31), shape, device)
+    lb, sb = l.reshape(-1, 1, 1, 1), sig.reshape(-1, 1, 1, 1)
+    before = special.matern_cuda.launches
+    with torch.no_grad():
+        got = special.matern_cuda(a, b, lb, sb, nu)
+    check(special.matern_cuda.launches - before == 1,
+          "matern: a call is not one launch")
+    d = torch.sqrt(((a[:, :, None] - b[:, None]) ** 2).sum(-1))
+    err = 0.0
+    for c in range(C):  # the twin a set at a time (its temporaries)
+        want = special.matern_general(d, l[c], sig[c], nu)
+        err = max(err, compare(f"matern set {c}", [got[c]], [want]))
+        check(torch.equal(torch.isnan(got[c]), torch.isnan(want)),
+              f"matern set {c}: NaN pattern differs from the twin's")
+        del want
+    k = MATERN_F64_LEAVES
+    want64 = special.matern_general(d[:k].double(), lb.double(),
+                                    sb.double(), nu)
+    rel64 = float(((got[:, :k].double() - want64).abs()
+                   / want64.abs().clamp_min(1e-30)).max())
+    top64 = float((got[:, :k].double() - want64).abs().max()
+                  / want64.abs().max())
+    del want64
+    # the pullback against the float64 twin's autograd on a slice
+    k = min(MATERN_GRAD_LEAVES, n)
+    g = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (C, k, p, q)), dtype=torch.float32, device=device)
+    lt, st = l.clone().requires_grad_(), sig.clone().requires_grad_()
+    (special.matern_cuda(a[:k], b[:k], lt.reshape(-1, 1, 1, 1),
+                         st.reshape(-1, 1, 1, 1), nu) * g).sum().backward()
+    l64, s64 = (t.double().requires_grad_() for t in (l, sig))
+    (special.matern_general(d[:k].double(), l64.reshape(-1, 1, 1, 1),
+                            s64.reshape(-1, 1, 1, 1), nu)
+     * g.double()).sum().backward()
+    grad_rel = max(float(((x.grad.double() - y.grad).abs()
+                          / y.grad.abs()).max())
+                   for x, y in ((lt, l64), (st, s64)))
+    check(grad_rel <= 1e-5, f"matern pullback: {grad_rel:.3g} off the "
+          "float64 twin's gradient (limit 1e-5)")
+    del d, g
+    print(f"matern {C}x{n}x{p}x{q}: max|diff| against the float32 twin "
+          f"{err:.3g}; against float64 (first {MATERN_F64_LEAVES} leaves) "
+          f"{rel64:.3g} relative, {top64:.3g} of the largest; pullback "
+          f"against the float64 twin's gradient (first {MATERN_GRAD_LEAVES} "
+          f"leaves) {grad_rel:.3g} relative")
+
+    def forward():
+        with torch.no_grad():
+            return special.matern_cuda(a, b, lb, sb, nu)
+
+    gout = torch.ones_like(got)
+    del got
+
+    def pullback():
+        return special._matern_pullback(a, b, None, l, sig, gout, nu)
+
+    rec = {"max_abs_err": err, "f64_rel_err": rel64, "f64_err": top64,
+           "grad_rel_err": grad_rel}
+    for name, fn, pb in (("forward", forward, False),
+                         ("pullback", pullback, True)):
+        ms = timer(fn)
+        dev, n_dev = dev_timer(fn)
+        before = _matern_launches(special)
+        fn()
+        launches = _matern_launches(special) - before
+        bound = bound_ms(*matern_work(C, n, p, q, pullback=pb))[0]
+        share = None if dev is None else 100.0 * bound / dev
+        rec[name] = {"ms": ms, "device_ms": dev, "device_launches": n_dev,
+                     "launches_per_call": launches, "bound_ms": bound,
+                     "roofline_pct": share}
+        print(f"matern {name}: {ms:.3f} ms (device {_ms(dev)}, {n_dev:g} "
+              f"launches), {launches:g} launches a call; bound {bound:.4f} "
+              f"ms (bytes), "
+              + ("roofline not measured" if share is None else
+                 f"{share:.2f}% of its roofline"))
+    del gout
+    # the twin's device time and launches at one set of 1024 leaves
+    k = 1024
+    dk = torch.sqrt(((a[:k, :, None] - b[:k, None]) ** 2).sum(-1))
+    twin_dev, twin_n = dev_timer(
+        lambda: special.matern_general(dk, l[0], sig[0], nu), reps=2)
+    print(f"the twin at 1 set x {k} leaves: device {_ms(twin_dev)}, "
+          f"{twin_n:g} launches a covariance call")
+    rec["twin_1024_leaves"] = {"device_ms": twin_dev, "launches": twin_n}
+    del a, b, dk
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return rec
 
 
 @contextlib.contextmanager
@@ -3246,10 +3430,24 @@ def matern_builder(theta):
     return Kernel("matern", l=theta["l"], sig=theta["sig"], nu=MATERN_NU)
 
 
+def _recorded(device, dev_timer, fn, reps, what, takes=3):
+    """``dev_timer(fn, reps)``, taken up to ``takes`` times on the card
+    until a profile recorded every launch of the port's kernels that the
+    wrappers counted (``device_ms`` returns no time otherwise); fails where
+    none did. On the CPU the one reading as it is."""
+    for _ in range(takes if device != "cpu" else 1):
+        ms, n = dev_timer(fn, reps)
+        if ms is not None or device == "cpu":
+            return ms, n
+    fail(f"{what}: every one of {takes} profiles missed some of the port's "
+         f"kernel launches (the last recorded {n:g} device operations a "
+         "call)")
+
+
 def phase_matern(device="cuda", timer=time_ms, dev_timer=device_ms,
                  n_evals=10, data="large", r=4, M=4, R=MATERN_R,
                  golden=GOLDEN_MATERN_N10K):
-    """General-nu Matern (Bessel K by ``kv_frac``) on the N=10^4 tree:
+    """General-nu Matern (on the card ``matern.cu``) on the N=10^4 tree:
     objective and gradient against their float64 goldens at ``R``, the
     other goldens' R reported; ms per forward and per value and gradient;
     device launches per covariance call and per sweep, beside the
@@ -3260,6 +3458,11 @@ def phase_matern(device="cuda", timer=time_ms, dev_timer=device_ms,
     from pymra_torch.tree.sweep import mra_sweep, prepare_obs
 
     t_phase = time.perf_counter()
+    if device != "cpu":
+        from pymra_torch.ops import special
+
+        # phase 3d ran the twins on the card on purpose
+        special.kv_frac.cuda_calls = special.matern_general.cuda_calls = 0
     locs, y_obs = load_data(data)
     tag = f"Matern nu={MATERN_NU} N={len(locs)}"
     print(f"== phase 16: general-nu Matern at N={len(locs)} (bundled {data}"
@@ -3295,26 +3498,53 @@ def phase_matern(device="cuda", timer=time_ms, dev_timer=device_ms,
     ms_fwd = _sweep_timer(evaluate, ls, timer)
     f = model.loglik_fn(y, R, kernel_builder=matern_builder)
     ms_grad = _grad_timer(f, ls, timer)
+    ms_fwd_exp = _sweep_timer(lambda l: evaluate(l, "exponential"), ls,
+                              timer)
+    ms_grad_exp = _grad_timer(model.loglik_fn(y, R, kernel_builder=lambda th:
+                                              Kernel("exponential",
+                                                     l=th["l"],
+                                                     sig=th["sig"])),
+                              ls, timer)
     # device launches: one covariance call at the leaves' self-covariance
-    # shape, and one sweep, the Matern's beside the exponential's
+    # shape, and one sweep, the Matern's beside the exponential's; on the
+    # card a profile that missed some of the port's launches is taken
+    # again, and the phase fails where every one did
     x = [lvl.leaf_locs for lvl in dplan.levels if lvl.leaf_locs.shape[0]][-1]
     launches = {}
     for name in ("matern", "exponential"):
         kern = Kernel(name, l=2.0, **({"nu": MATERN_NU}
                                       if name == "matern" else {}))
-        # (two sweeps a profile: a Matern sweep is ~1.6e4 launches)
-        launches[name] = {"covariance": dev_timer(lambda: kern(x, x)),
-                          "sweep": dev_timer(lambda: evaluate(2.0, name), 2)}
-    print(f"{tag} full likelihood+posterior: {ms_fwd:.3f} ms/eval; value "
-          f"and gradient: {ms_grad:.3f} ms/eval ({n_evals} evals each, l "
-          f"in [1.5, 2.5])")
+        launches[name] = {
+            "covariance": _recorded(device, dev_timer, lambda: kern(x, x),
+                                    10, f"{name} covariance call"),
+            "sweep": _recorded(device, dev_timer,
+                               lambda: evaluate(2.0, name), 2,
+                               f"{name} sweep")}
+    print(f"{tag} full likelihood+posterior: {ms_fwd:.3f} ms/eval (the "
+          f"exponential's {ms_fwd_exp:.3f}); value and gradient: "
+          f"{ms_grad:.3f} ms/eval (the exponential's {ms_grad_exp:.3f}) "
+          f"({n_evals} evals each, l in [1.5, 2.5])")
     for name, d in launches.items():
         (c_ms, c_n), (s_ms, s_n) = d["covariance"], d["sweep"]
         print(f"{name}: a covariance call at {tuple(x.shape)} x "
               f"{tuple(x.shape)}: {c_n:g} launches (device {_ms(c_ms)}); "
               f"a full sweep {s_n:g} launches (device {_ms(s_ms)})")
+    if device != "cpu":
+        from pymra_torch.ops import special
+
+        twins = {"kv_frac": special.kv_frac.cuda_calls,
+                 "matern_general": special.matern_general.cuda_calls}
+        print(f"{tag}: Matern kernel launches {special.matern_cuda.launches}"
+              f" forward, {special.matern_cuda.pullback_launches} pullback; "
+              f"twin calls on CUDA tensors {twins}")
+        check(special.matern_cuda.launches > 0
+              and special.matern_cuda.pullback_launches > 0,
+              f"{tag}: the Matern kernel never launched")
+        check(not any(twins.values()),
+              f"{tag}: a Matern twin ran on a CUDA tensor")
     print(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s")
-    return {"ms_fwd": ms_fwd, "ms_grad": ms_grad, "launches": launches}
+    return {"ms_fwd": ms_fwd, "ms_grad": ms_grad, "ms_fwd_exp": ms_fwd_exp,
+            "ms_grad_exp": ms_grad_exp, "launches": launches}
 
 
 def phase_keep_internals(device="cuda", timer=time_ms, n_evals=5,
@@ -4431,6 +4661,7 @@ def main() -> int:
                                logdet_side=LOGDET_SIDE)
     err_bwd, bwd_times = phase_backward(pullback_side=CHOL_SIDE)
     err_leaf, leaf_times = phase_leaf_pullback()
+    matern_rec = phase_matern_kernel()
     err_bwd.update(err_leaf)
     bwd_times.update(leaf_times)
     for name in BACKWARD_KERNELS:
@@ -4588,6 +4819,11 @@ def main() -> int:
                     **times[(name, b, p)],
                     "shape": "x".join(map(str, (shape + (p,))[:3])),
                     **extra})
+    rec.append({"name": "matern_cuda", "route": "cuda",
+                "source": "pymra_torch/ops/cuda/csrc/matern.cu",
+                "replaces": "none: the JAX package's matern_general is XLA "
+                            "elementwise arithmetic",
+                "shape": "x".join(map(str, MATERN_SHAPE)), **matern_rec})
     print(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

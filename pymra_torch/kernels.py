@@ -24,7 +24,8 @@ import torch
 from torch import nn
 
 from pymra_torch.ops.distances import dist, sqdist
-from pymra_torch.ops.special import matern_general
+from pymra_torch.ops.special import matern_cuda, matern_general
+from pymra_torch.utils import profiling as _prof
 
 __all__ = [
     "identity",
@@ -83,10 +84,15 @@ def gaussian(locs1, locs2=None, l=1.0, sig=1.0, circular=False):
 
 def matern(locs1, locs2=None, l=1.0, sig=1.0, nu=1.5, circular=False):
     """Matern family: the closed forms for ``nu in {0.5, 1.5, 2.5, inf}``,
-    any other smoothness through the Bessel K of
-    :func:`pymra_torch.ops.special.matern_general`, differentiable in
+    any other smoothness through the Bessel K: on the card one launch of
+    the kernel :func:`pymra_torch.ops.special.matern_cuda` for every
+    parameter set, on the CPU its twin
+    :func:`pymra_torch.ops.special.matern_general`; differentiable in
     ``l`` and ``sig``. ``nu`` must be a Python number: it fixes the Bessel
-    recurrence's depth."""
+    recurrence's depth. Inside a traced call
+    (:mod:`pymra_torch.utils.profiling`) each Bessel-K evaluation is a span
+    ``pymra.cov`` with its entries times sets in the counter
+    ``cov_entries``."""
     if isinstance(nu, torch.Tensor):
         raise TypeError(
             "matern: nu must be a static Python float — it fixes the Bessel "
@@ -99,8 +105,16 @@ def matern(locs1, locs2=None, l=1.0, sig=1.0, nu=1.5, circular=False):
         return matern52(locs1, locs2, l=l, sig=sig, circular=circular)
     if nu == math.inf:
         return gaussian(locs1, locs2, l=l, sig=sig, circular=circular)
-    d = dist(locs1, locs2, circular=circular)
-    return matern_general(d, l, sig, float(nu))
+    sp = _prof.begin("pymra.cov") if _prof.ON else None
+    if torch.as_tensor(locs1).is_cuda:
+        out = matern_cuda(locs1, locs2, l, sig, float(nu), circular)
+    else:
+        out = matern_general(dist(locs1, locs2, circular=circular), l, sig,
+                             float(nu))
+    if sp is not None:
+        _prof.count("cov_entries", out.numel())
+        _prof.end(sp)
+    return out
 
 
 def kanter(locs1, locs2=None, radius=1.0, circular=False):
@@ -219,6 +233,21 @@ def _as_param(v) -> torch.Tensor:
     return torch.tensor(float(v), dtype=torch.float64)
 
 
+def _split_name(name: str) -> tuple[str, dict]:
+    """``'matern(nu=0.8)'`` -> ``('matern', {'nu': 0.8})``: a family with
+    its smoothness written after it; a plain family name comes back with
+    nothing."""
+    family, sep, rest = name.partition("(")
+    if not sep:
+        return name, {}
+    key, eq, value = (x.strip() for x in rest.removesuffix(")").partition(
+        "="))
+    if not rest.endswith(")") or key != "nu" or not eq:
+        raise ValueError(f"Kernel name {name!r}: expected "
+                         "'family(nu=<number>)'")
+    return family.strip(), {"nu": float(value)}
+
+
 class Kernel(nn.Module):
     """A kernel family bound to its hyper-parameters.
 
@@ -226,7 +255,10 @@ class Kernel(nn.Module):
     ``(locs1 [..., p, d], locs2 [..., q, d]) -> [..., p, q]``. ``nu`` and
     ``circular`` select code structure and stay plain Python values; every
     other parameter is a tensor buffer (int ``radius`` of ``kanter`` stays
-    an int: it is an ensemble size, not a length).
+    an int: it is an ensemble size, not a length). The smoothness may also
+    be written in the name, so that one string names a covariance (as a
+    configuration file does): ``Kernel('matern(nu=0.8)', l=0.3)`` is
+    ``Kernel('matern', nu=0.8, l=0.3)``.
 
     A parameter of shape ``[C]`` makes the kernel batched
     (:attr:`batch_shape` ``(C,)``): the call returns ``[C, ..., p, q]``,
@@ -237,10 +269,16 @@ class Kernel(nn.Module):
 
     def __init__(self, name: str, **params):
         super().__init__()
+        name, named = _split_name(name)
         self.name = name
         self._fn = get_kernel(name)
         self.static = {k: params.pop(k) for k in list(params)
                        if k in self.STATIC_PARAMS}
+        both = set(named) & set(self.static)
+        if both:
+            raise ValueError(f"Kernel {name!r}: {sorted(both)} given both in "
+                             "the name and as arguments")
+        self.static.update(named)
         if name == "kanter" and isinstance(params.get("radius"),
                                            (int, np.integer)):
             self.static["radius"] = params.pop("radius")

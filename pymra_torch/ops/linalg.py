@@ -89,8 +89,9 @@ gradient, and an all-fail member's NaN stays in that member. The jitter
 scale is structural: no gradient flows into it through ``jit`` of K1.
 While a traced call is open (:mod:`pymra_torch.utils.profiling`) these
 five hand their selected factors to its innermost span, which counts the
-escalated members when read; :func:`launch_count` sums the launch
-counters for its spans.
+escalated members when read; :func:`launch_count`
+(:mod:`pymra_torch.ops.cuda.launch`) sums every wrapper's launch counters
+for its spans.
 """
 from __future__ import annotations
 
@@ -100,6 +101,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from pymra_torch.ops.cuda import build
+from pymra_torch.ops.cuda.launch import counter as _counter
+from pymra_torch.ops.cuda.launch import launch_count
+from pymra_torch.ops.cuda.launch import launched as _launched
+from pymra_torch.ops.cuda.launch import ptr as _ptr
+from pymra_torch.ops.cuda.launch import where as _where
 from pymra_torch.utils import profiling as _prof
 
 __all__ = ["FACTORS", "MAX_P", "set_matmul_precision", "tile_tier",
@@ -536,11 +542,6 @@ def _factors(factors) -> tuple[float, float, float]:
     return tuple(float(f) for f in factors)
 
 
-def _launched(name: str, rc: int) -> None:
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 #: members (and lanes) past this overflow the kernels' 32-bit indices
 _INT32_LIMIT = 2 ** 31
 #: threads of one block of the lane kernels (``subwarp::kThreads``): the
@@ -559,14 +560,6 @@ def _fits_int32(name: str, n: int, per_member: int = 1) -> None:
         raise ValueError(
             f"{name}: {n} members of {per_member} blocks or lanes each "
             "pass the kernel's 32-bit indices; split the batch")
-
-
-def _where(t: torch.Tensor) -> tuple[int, int]:
-    """``(device index, current stream)`` arguments of a launch: the raw
-    handle of the device's current stream, without building a
-    ``torch.cuda.Stream`` object for it."""
-    index = t.get_device()
-    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def tile_tier(p: int) -> int:
@@ -720,10 +713,6 @@ def _cholesky_jittered_fwd(mat: torch.Tensor, jit: torch.Tensor, factors):
     return out, ld, f
 
 
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
 def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
                       ldbar: torch.Tensor | None = None,
                       f: torch.Tensor | None = None):
@@ -767,8 +756,7 @@ def cholesky_pullback(l: torch.Tensor, lbar: torch.Tensor,
     return abar, jbar
 
 
-cholesky_pullback.launches = 0
-cholesky_pullback.tile_launches = 0
+_counter(cholesky_pullback, "launches", "tile_launches")
 
 
 def _leaf_factor_fwd(c_own, kmask, a_oo, jitter, factors):
@@ -843,7 +831,7 @@ def leaf_pullback(c_own: torch.Tensor, kmask: torch.Tensor, li: torch.Tensor,
     return cbar, abar
 
 
-leaf_pullback.launches = 0
+_counter(leaf_pullback, "launches")
 
 
 def _jittered_args(name: str, mat: torch.Tensor, jit: torch.Tensor,
@@ -1255,7 +1243,7 @@ def cholesky(mat: torch.Tensor) -> torch.Tensor:
     return _apply(_Cholesky, _cholesky_fwd, mat)
 
 
-cholesky.launches = 0
+_counter(cholesky, "launches")
 
 
 def triangular_inverse_lower(l: torch.Tensor) -> torch.Tensor:
@@ -1275,8 +1263,7 @@ def triangular_inverse_lower(l: torch.Tensor) -> torch.Tensor:
     return _apply(_TriInv, _tri_inv_fwd, l)
 
 
-triangular_inverse_lower.launches = 0
-triangular_inverse_lower.wide_launches = 0
+_counter(triangular_inverse_lower, "launches", "wide_launches")
 triangular_inverse_lower.composed = 0
 
 
@@ -1292,7 +1279,7 @@ def solve_triangular_batched(l: torch.Tensor, b: torch.Tensor,
     return _apply(_TriSolve, _tri_solve_fwd, l, b, bool(transpose))
 
 
-solve_triangular_batched.launches = 0
+_counter(solve_triangular_batched, "launches")
 
 
 def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
@@ -1311,7 +1298,7 @@ def cholesky_jittered(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     return out
 
 
-cholesky_jittered.launches = 0
+_counter(cholesky_jittered, "launches")
 
 
 def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
@@ -1342,7 +1329,7 @@ def leaf_factor(c_own: torch.Tensor, kmask: torch.Tensor, a_oo: torch.Tensor,
     return out
 
 
-leaf_factor.launches = 0
+_counter(leaf_factor, "launches")
 
 
 def cholesky_logdet(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
@@ -1363,7 +1350,7 @@ def cholesky_logdet(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     return out
 
 
-cholesky_logdet.launches = 0
+_counter(cholesky_logdet, "launches")
 
 
 def cholesky_inv_logdet(mat: torch.Tensor, jit: torch.Tensor,
@@ -1391,7 +1378,7 @@ def cholesky_inv_logdet(mat: torch.Tensor, jit: torch.Tensor,
     return out
 
 
-cholesky_inv_logdet.launches = 0
+_counter(cholesky_inv_logdet, "launches")
 
 
 def cholesky_blocked(mat: torch.Tensor, block: int = MAX_P) -> torch.Tensor:
@@ -1410,7 +1397,7 @@ def cholesky_blocked(mat: torch.Tensor, block: int = MAX_P) -> torch.Tensor:
     return _apply(_CholeskyBlocked, _cholesky_blocked_fwd, mat, int(block))
 
 
-cholesky_blocked.launches = 0
+_counter(cholesky_blocked, "launches")
 cholesky_blocked.composed = 0
 
 
@@ -1438,21 +1425,5 @@ def cholesky_cascade(mat: torch.Tensor, jit: torch.Tensor, factors=FACTORS):
     return out
 
 
-cholesky_cascade.launches = 0
+_counter(cholesky_cascade, "launches")
 cholesky_cascade.composed = 0
-
-
-def launch_count() -> int:
-    """The kernel launches every wrapper has counted so far (each one's
-    ``.launches``, K1's backward's among them, K3's ``.wide_launches`` and
-    KP's ``.tile_launches``; the compositions' ``.composed`` counts calls,
-    not launches): what a span of :mod:`pymra_torch.utils.profiling` reads
-    at its ends."""
-    return (cholesky.launches + triangular_inverse_lower.launches
-            + triangular_inverse_lower.wide_launches
-            + solve_triangular_batched.launches + cholesky_pullback.launches
-            + cholesky_pullback.tile_launches + cholesky_jittered.launches
-            + leaf_factor.launches + leaf_pullback.launches
-            + cholesky_logdet.launches
-            + cholesky_inv_logdet.launches + cholesky_blocked.launches
-            + cholesky_cascade.launches)

@@ -1,6 +1,13 @@
 """Bessel K of fractional order and the general-smoothness Matern
 (counterpart of ``pymra_tpu/ops/special.py``).
 
+On the card the general-nu Matern is one launch of
+``ops/cuda/csrc/matern.cu`` (:func:`matern_cuda`: the covariance of ``C``
+parameter sets from the points, forward and backward, counted in
+``.launches`` and ``.pullback_launches``); on the CPU its plain twin,
+:func:`matern_general` over :func:`kv_frac`, below. The twins count the
+calls they get with CUDA tensors in ``.cuda_calls``.
+
 ``kv_frac`` — the modified Bessel function of the second kind ``K_nu(x)``
 for a *static* real order ``nu`` and a tensor argument ``x`` — by the
 classic two-regime scheme: Temme's series for ``x <= 2``, Steed's continued
@@ -17,7 +24,15 @@ import math
 
 import torch
 
-__all__ = ["kv_frac", "matern_general"]
+from pymra_torch.ops.cuda import build
+from pymra_torch.ops.distances import _as2d, dist
+from pymra_torch.ops.cuda.launch import counter as _counter
+from pymra_torch.ops.cuda.launch import launched as _launched
+from pymra_torch.ops.cuda.launch import ptr as _ptr
+from pymra_torch.ops.cuda.launch import where as _where
+from pymra_torch.utils import profiling as _prof
+
+__all__ = ["kv_frac", "matern_general", "matern_cuda"]
 
 _SERIES_ITERS = 40  # Temme series terms (x <= 2); converges ~geometrically
 _CF2_ITERS = 64  # Steed CF2 iterations (x > 2)
@@ -129,6 +144,8 @@ def kv_frac(nu: float, x: torch.Tensor) -> torch.Tensor:
     ``nu`` by the stable upward recurrence
     K_{m+1} = K_{m-1} + (2 m / x) K_m.
     """
+    if torch.is_tensor(x) and x.is_cuda:
+        kv_frac.cuda_calls += 1
     nu = abs(float(nu))  # K_{-nu} = K_nu
     n_up = int(nu + 0.5)  # recurrence steps; mu in [-0.5, 0.5)
     mu = nu - n_up
@@ -154,17 +171,176 @@ def kv_frac(nu: float, x: torch.Tensor) -> torch.Tensor:
     return k_cur
 
 
+kv_frac.cuda_calls = 0
+
+
 def matern_general(d: torch.Tensor, l, sig, nu: float) -> torch.Tensor:
     """Matern covariance for an arbitrary static smoothness ``nu``.
 
     ``sig * 2^(1-nu)/Gamma(nu) * s^nu K_nu(s)``, ``s = sqrt(2 nu) d / l``,
     with the removable singularity at d=0 taken exactly (value ``sig``).
-    Differentiable in ``l``, ``sig`` and ``d``.
+    Differentiable in ``l``, ``sig`` and ``d``. Below float64, as the
+    kernel does: ``l`` and ``sig`` rounded to ``d``'s precision, the rest
+    in float64, the result rounded once (the series and the continued
+    fraction in float32 move by ~1e-6 relative with the last bit of ``s``,
+    so a batched and an unbatched call could disagree that much).
     """
+    if d.is_cuda:
+        matern_general.cuda_calls += 1
     nu = float(nu)
+    dtype = d.dtype
+    if dtype != torch.float64:
+        l, sig = (torch.as_tensor(v, dtype=dtype, device=d.device).double()
+                  for v in (l, sig))
+        d = d.double()
     coef = 2.0 ** (1.0 - nu) / math.gamma(nu)
     s = math.sqrt(2.0 * nu) * d / l
     zero = s <= 0.0
     s_safe = torch.where(zero, torch.ones_like(s), s)
     val = coef * s_safe ** nu * kv_frac(nu, s_safe)
-    return sig * torch.where(zero, torch.ones_like(val), val)
+    return (sig * torch.where(zero, torch.ones_like(val), val)).to(dtype)
+
+
+matern_general.cuda_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel on the card
+# ---------------------------------------------------------------------------
+
+#: threads of a block of ``matern.cu`` (``kThreads``) and the most blocks
+#: its pullback sums into partial sums (a grid-stride loop past that)
+_THREADS = 256
+_PULLBACK_BLOCKS = 2048
+#: widest points the kernel takes; wider go through ``dist`` first, as
+#: ``sqdist`` expands the product there
+_MAX_DIM = 4
+
+
+def _matern_launch(a, b, d, l, sig, nu):
+    """``[C, B, p, q]`` from the points ``a [B, p, dim]``, ``b [B, q,
+    dim]`` (or the distances ``d [B, p, q]``) and ``l``, ``sig [C]``."""
+    lib = build.load_library()
+    src = d if d is not None else a
+    C = l.shape[0]
+    B, p = src.shape[0], src.shape[1]
+    q = d.shape[2] if d is not None else b.shape[1]
+    dim = 0 if d is not None else a.shape[2]
+    out = torch.empty((C, B, p, q), dtype=src.dtype, device=src.device)
+    pairs = B * p * q
+    if pairs:
+        _launched("matern", lib.pymra_matern(
+            _ptr(a), _ptr(b), _ptr(d), l.data_ptr(), sig.data_ptr(),
+            out.data_ptr(), src.dtype == torch.float64, float(nu), C, pairs,
+            p, q, dim, *_where(src)))
+        matern_cuda.launches += 1
+    return out
+
+
+def _matern_pullback(a, b, d, l, sig, g, nu):
+    """``(sum g d out / d l, sum g d out / d sig)``, each ``[C]`` in
+    ``l``'s type: the kernel's float64 partial sums of its blocks, added
+    here."""
+    lib = build.load_library()
+    src = d if d is not None else a
+    C, pairs = g.shape[0], g[0].numel()
+    p, q = g.shape[-2], g.shape[-1]
+    dim = 0 if d is not None else a.shape[2]
+    blocks = max(1, min(_PULLBACK_BLOCKS, -(-pairs // _THREADS)))
+    partial = torch.zeros((2, C, blocks), dtype=torch.float64,
+                          device=src.device)
+    if pairs:
+        _launched("matern_pullback", lib.pymra_matern_pullback(
+            _ptr(a), _ptr(b), _ptr(d), l.data_ptr(), sig.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), blocks,
+            src.dtype == torch.float64, float(nu), C, pairs, p, q, dim,
+            *_where(src)))
+        matern_cuda.pullback_launches += 1
+    sums = partial.sum(-1).to(l.dtype)
+    return sums[0], sums[1]
+
+
+class _Matern(torch.autograd.Function):
+    """The kernel's covariance, differentiable in ``l`` and ``sig``; its
+    backward is the pullback launch (span ``pymra.bwd.cov`` in a traced
+    call's backward), which recomputes each entry from the points."""
+
+    @staticmethod
+    def forward(ctx, l, sig, a, b, d, nu):
+        ctx.nu = nu
+        ctx.call = _prof.current_call()
+        ctx.save_for_backward(l, sig, a, b, d)
+        return _matern_launch(a, b, d, l, sig, nu)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        l, sig, a, b, d = ctx.saved_tensors
+        sp = _prof.backward_span(ctx.call, "pymra.bwd.cov")
+        gl, gsig = _matern_pullback(a, b, d, l, sig, g.contiguous(), ctx.nu)
+        if sp is not None:
+            sp.close()
+        return gl, gsig, None, None, None, None
+
+
+def _on_card(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matern_cuda: points on {a.device} and "
+                         f"{b.device}, expected one CUDA device")
+
+
+def matern_cuda(locs1, locs2, l, sig, nu: float, circular: bool = False):
+    """The general-nu Matern of :func:`matern_general` on the card: one
+    launch of ``ops/cuda/csrc/matern.cu`` for every parameter set, from the
+    points ``locs1 [..., p, dim]`` and ``locs2 [..., q, dim]`` (None: locs1
+    again), float32 or float64 on a CUDA device, and ``l``, ``sig`` each a
+    number, a 0-dim tensor or ``C`` sets as ``[C, 1, ..., 1]`` (a batched
+    :class:`pymra_torch.kernels.Kernel`'s). Returns ``[C, ..., p, q]`` (no
+    ``C`` axis without a batched parameter), bit for bit the twin's
+    distances, the Bessel functions in float64 rounded once.
+
+    Differentiable in ``l`` and ``sig`` (one pullback launch, no tensor of
+    the output's size saved), not in the points. Circular distances and
+    points wider than four coordinates are formed by ``dist`` first and
+    handed to the kernel as distances."""
+    a = _as2d(torch.as_tensor(locs1))
+    b = a if locs2 is None else _as2d(torch.as_tensor(locs2))
+    _on_card(a, b)
+    if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
+        raise TypeError(f"matern_cuda: the kernel takes float32 or float64 "
+                        f"points, got {a.dtype} and {b.dtype}")
+    if a.requires_grad or b.requires_grad:
+        raise NotImplementedError(
+            "matern_cuda: no gradient in the locations on the card")
+    fl = dict(dtype=a.dtype, device=a.device)
+    l, sig = (v if torch.is_tensor(v)
+              else torch.tensor(float(v), dtype=torch.float64)
+              for v in (l, sig))
+    batched = l.dim() > 0 or sig.dim() > 0
+    C = max(l.numel(), sig.numel())
+    for name, v in (("l", l), ("sig", sig)):
+        if v.numel() not in (1, C):
+            raise ValueError(f"matern_cuda: {name} of shape "
+                             f"{tuple(v.shape)} against {C} sets")
+    lc = l.to(**fl).reshape(-1).expand(C).contiguous()
+    sc = sig.to(**fl).reshape(-1).expand(C).contiguous()
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    p, q = a.shape[-2], b.shape[-2]
+    if circular or a.shape[-1] > _MAX_DIM:
+        d = dist(a, None if locs2 is None else b, circular=circular)
+        d = d.expand(lead + (p, q)).reshape(-1, p, q).contiguous()
+        pa = pb = None
+    else:
+        d = None
+        pa = a.expand(lead + a.shape[-2:]).reshape(-1, p, a.shape[-1])
+        pb = b.expand(lead + b.shape[-2:]).reshape(-1, q, b.shape[-1])
+        pa, pb = pa.contiguous(), pb.contiguous()
+    args = (lc, sc, pa, pb, d, float(nu))
+    if torch.is_grad_enabled() and (lc.requires_grad or sc.requires_grad):
+        out = _Matern.apply(*args)
+    else:
+        out = _matern_launch(pa, pb, d, lc, sc, float(nu))
+    return out.reshape(((C,) if batched else ()) + lead + (p, q))
+
+
+_counter(matern_cuda, "launches", "pullback_launches")

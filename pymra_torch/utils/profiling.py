@@ -17,7 +17,10 @@ tracing():``. A facade call (``MRAModel.sweep``, the function of
 for the call: it opens ``pymra.call``, inside which the sweep opens
 ``pymra.prep`` (where the observations are prepared per call),
 ``pymra.pass.A`` to ``pymra.pass.D`` and, inside A, B and C, one
-``pymra.pass.<X>.level`` a level (``level`` in the record). The backward
+``pymra.pass.<X>.level`` a level (``level`` in the record), inside which
+each evaluation of a covariance with no closed form (the general-nu
+Matern's Bessel K, :func:`pymra_torch.kernels.matern`) is a ``pymra.cov``
+span with its counter ``cov_entries`` (entries times sets). The backward
 of a traced call records ``pymra.bwd`` with ``pymra.bwd.C``,
 ``pymra.bwd.B`` and ``pymra.bwd.A`` (and ``pymra.bwd.D`` where a posterior
 is differentiated) on autograd's thread, under the forward's call id:
@@ -25,17 +28,19 @@ while tracing, an identity autograd Function (:func:`mark`) takes a tensor
 each pass hands on, and since autograd runs nodes in falling sequence
 number its backward runs exactly between the later pass's backward and its
 own. One on the parameters of ``loglik_fn`` closes ``pymra.bwd``; else the
-end of the backward pass does. The set-up spans ``pymra.setup.plan``,
+end of the backward pass does. A kernel's backward may open a span of its
+own inside the open one (:func:`backward_span`: the general-nu Matern's
+``pymra.bwd.cov``). The set-up spans ``pymra.setup.plan``,
 ``pymra.setup.upload`` and ``pymra.setup.kernels`` record always: they
 happen once a model.
 
 A span keeps its name, parent, call id and host ends (``time.time_ns``);
 on a call on the card a timing event recorded on the current stream at
 each end; the port's kernel launches at its ends
-(:func:`pymra_torch.ops.linalg.launch_count`); and the escalation factors
-``f`` its jittered kernels returned, reduced to the members with ``f > 1``
-only when read. Off, a span site costs the test of :data:`ON`: no event,
-no marker, the autograd graph unchanged.
+(:func:`pymra_torch.ops.cuda.launch.launch_count`); and the escalation
+factors ``f`` its jittered kernels returned, reduced to the members with
+``f > 1`` only when read. Off, a span site costs the test of :data:`ON`:
+no event, no marker, the autograd graph unchanged.
 
 The spans are not profiler ranges: a ``record_function`` that encloses
 kernels lands on the profiler's device timeline too, where a reader of the
@@ -55,6 +60,8 @@ import time
 from collections import deque, defaultdict
 
 import torch
+
+from pymra_torch.ops.cuda.launch import launch_count as _launches
 
 __all__ = ["PhaseTimer", "trace_annotation", "profile_to",
            "chained_throughput", "tracing", "spans", "report", "clear",
@@ -234,18 +241,7 @@ _calls: deque = deque(maxlen=RING)
 _setup: deque = deque(maxlen=RING)
 _call_ids = itertools.count(1)
 _span_ids = itertools.count(1)
-_state = {"forced": 0, "open": 0, "last_call": 0, "launch_count": None}
-
-
-def _launches() -> int:
-    """The port's kernel launches so far (every wrapper's counters)."""
-    count = _state["launch_count"]
-    if count is None:
-        # bound on first use: the kernels' module imports this one
-        from pymra_torch.ops.linalg import launch_count as count
-
-        _state["launch_count"] = count
-    return count()
+_state = {"forced": 0, "open": 0, "last_call": 0}
 
 
 class _Call:
@@ -273,13 +269,14 @@ class _Span:
     while it was the innermost open span."""
 
     __slots__ = ("id", "name", "parent", "call", "level", "t0", "t1", "e0",
-                 "e1", "l0", "l1", "esc", "device_ms", "own_esc")
+                 "e1", "l0", "l1", "esc", "device_ms", "own_esc", "counts")
 
     def __init__(self, name, parent, call, level=None, counters=True):
         self.id = next(_span_ids)
         self.name, self.parent, self.call, self.level = (name, parent, call,
                                                          level)
         self.esc: list = []
+        self.counts: dict = {}
         self.t1 = self.e0 = self.e1 = self.l0 = self.l1 = None
         self.device_ms = self.own_esc = None
         if counters:
@@ -375,6 +372,34 @@ def end(sp) -> None:
         top.close()
         if top is sp:
             return
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of this thread's innermost open
+    span (``cov_entries``: entries times sets of a general-nu Matern
+    evaluation, kept with its ``pymra.cov`` span)."""
+    stack = getattr(_tls, "open", None)
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + int(n)
+
+
+def current_call():
+    """This thread's open traced call, or None: what a backward that opens
+    a span of its own (:func:`backward_span`) keeps from its forward."""
+    stack = getattr(_tls, "open", None)
+    return stack[0].call if stack else None
+
+
+def backward_span(call, name: str):
+    """A span ``name`` opened on autograd's thread inside ``call``'s open
+    backward span (``pymra.bwd.<X>``, else ``pymra.bwd``): a kernel's
+    backward, such as the Matern's ``pymra.bwd.cov``. None where ``call``
+    is None; the caller closes it (``.close()``)."""
+    if call is None:
+        return None
+    with _lock:
+        return _Span(name, call.bwd_child or call.bwd, call)
 
 
 def escalations(kernel: str, *fs) -> None:
@@ -535,7 +560,8 @@ def spans() -> list[dict]:
     included; on the CPU the host's; None while open or for a set-up
     span), ``launches`` (the port's kernel launches inside), ``escalated``
     and ``escalated_by`` (members of the jittered kernels inside that
-    selected ``f > 1``, in all and by kernel), ``anchor_ns`` (the call's
+    selected ``f > 1``, in all and by kernel), ``counts`` (the span's own
+    counters, :func:`count`), ``anchor_ns`` (the call's
     clock anchor, None unless a profiler recorded). Synchronizes the cards
     the calls ran on to read their events."""
     with _lock:
@@ -573,7 +599,7 @@ def _record(sp: _Span, esc: dict, anchor_ns) -> dict:
         "launches": (sp.l1 - sp.l0 if closed and sp.l0 is not None
                      else None),
         "escalated": sum(esc.values()), "escalated_by": dict(esc),
-        "anchor_ns": anchor_ns,
+        "counts": dict(sp.counts), "anchor_ns": anchor_ns,
     }
 
 
