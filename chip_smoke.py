@@ -208,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1518,6 +1519,26 @@ def matern_work(sets, b, p, q, pullback=False) -> tuple[float, float]:
                               else MATERN_FWD_OPS)
 
 
+def _matern_fallback_count(special, a, b, nu):
+    """The forward's counter of entries outside its table under a traced
+    annotation, at l = 1e-4 (far points: s above 2^10), 500 (near points:
+    s below 2^-12) and 0.05, against the count from the distances."""
+    import torch
+
+    from pymra_torch.utils import profiling
+
+    l = torch.tensor([1e-4, 500.0, 0.05], dtype=a.dtype, device=a.device)
+    name = "chip_smoke.matern_fallback"
+    with profiling.tracing(), profiling.trace_annotation(name), \
+            torch.no_grad():
+        special.matern_cuda(a, b, l.reshape(-1, 1, 1, 1), 1.0, nu)
+    rec = [r for r in profiling.spans() if r["name"] == name][-1]
+    d = torch.sqrt(((a[:, :, None] - b[:, None]) ** 2).sum(-1)).double()
+    x = math.sqrt(2.0 * nu) * d / l.double().reshape(-1, 1, 1, 1)
+    want = int(((x > 0) & ((x < 2.0 ** -12) | (x >= 2.0 ** 10))).sum())
+    return rec["counts"].get("cov_fallback_entries"), want
+
+
 def phase_matern_kernel(device="cuda", shape=MATERN_SHAPE, nu=0.8,
                         timer=time_ms, dev_timer=device_ms):
     """Phase 3d: the general-nu Matern kernel against its twins at
@@ -1583,6 +1604,21 @@ def phase_matern_kernel(device="cuda", shape=MATERN_SHAPE, nu=0.8,
           f"{rel64:.3g} relative, {top64:.3g} of the largest; pullback "
           f"against the float64 twin's gradient (first {MATERN_GRAD_LEAVES} "
           f"leaves) {grad_rel:.3g} relative")
+    tables = {}
+    for v in sorted({nu, 0.3, 1.3, 2.2}):
+        tab = special.matern_table(v, device)
+        nbytes = 0 if tab.table is None else tab.table.numel() * 8
+        tables[v] = {"bytes": nbytes, "build_ms": 1e3 * tab.build_s,
+                     "max_err": tab.max_err}
+        print(f"matern table nu={v}: {nbytes} bytes, built and uploaded in "
+              f"{1e3 * tab.build_s:.3f} ms, the table's largest relative "
+              f"error {tab.max_err:.3g}"
+              + ("" if nbytes else " (no table: the series and CF2)"))
+    fell, want = _matern_fallback_count(special, a[:64], b[:64], nu)
+    check(fell == want > 0, f"matern: the forward counted {fell} entries "
+          f"outside its table, {want} lie there")
+    print(f"matern fallback counter: {fell} entries outside the table, as "
+          f"expected")
 
     def forward():
         with torch.no_grad():
@@ -1595,7 +1631,8 @@ def phase_matern_kernel(device="cuda", shape=MATERN_SHAPE, nu=0.8,
         return special._matern_pullback(a, b, None, l, sig, gout, nu)
 
     rec = {"max_abs_err": err, "f64_rel_err": rel64, "f64_err": top64,
-           "grad_rel_err": grad_rel}
+           "grad_rel_err": grad_rel, "tables": tables,
+           "fallback_entries": fell}
     for name, fn, pb in (("forward", forward, False),
                          ("pullback", pullback, True)):
         ms = timer(fn)

@@ -92,7 +92,9 @@ def matern(locs1, locs2=None, l=1.0, sig=1.0, nu=1.5, circular=False):
     recurrence's depth. Inside a traced call
     (:mod:`pymra_torch.utils.profiling`) each Bessel-K evaluation is a span
     ``pymra.cov`` with its entries times sets in the counter
-    ``cov_entries``."""
+    ``cov_entries``, and those whose Bessel pair took the series or the
+    continued fraction in ``cov_fallback_entries`` (on the card those the
+    kernel's table did not cover, on the CPU every one with ``s > 0``)."""
     if isinstance(nu, torch.Tensor):
         raise TypeError(
             "matern: nu must be a static Python float — it fixes the Bessel "

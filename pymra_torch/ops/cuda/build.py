@@ -43,13 +43,16 @@ _D = ctypes.c_double
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # a, b, dist (the points or the distances; the others null), l, sig,
-    # out, f64, nu, sets, pairs, p, q, dim, device, stream
-    "pymra_matern": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _LL, _I, _I, _I,
-                     _I, _P],
-    # a, b, dist, l, sig, g, partial, blocks, f64, nu, sets, pairs, p, q,
+    # out, table (or null), fallback (or null), f64, nu, sets, pairs, p, q,
     # dim, device, stream
-    "pymra_matern_pullback": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I,
-                              _LL, _I, _I, _I, _I, _P],
+    "pymra_matern": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _LL, _I,
+                     _I, _I, _I, _P],
+    # a, b, dist, l, sig, g, table (or null), partial, blocks, f64, nu,
+    # sets, pairs, p, q, dim, device, stream
+    "pymra_matern_pullback": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D,
+                              _I, _LL, _I, _I, _I, _I, _P],
+    # nu, table (null: its size), capacity, err
+    "pymra_matern_table": [_D, _P, _I, _P],
     # a, jit, l, ld, f, batch, p, tier, f0, f1, f2, device, stream
     "pymra_cholesky_jittered": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _I, _P],

@@ -4,7 +4,9 @@
 On the card the general-nu Matern is one launch of
 ``ops/cuda/csrc/matern.cu`` (:func:`matern_cuda`: the covariance of ``C``
 parameter sets from the points, forward and backward, counted in
-``.launches`` and ``.pullback_launches``); on the CPU its plain twin,
+``.launches`` and ``.pullback_launches``), which reads the Bessel pair from
+a table built once per smoothness (:func:`matern_table`); on the CPU its
+plain twin,
 :func:`matern_general` over :func:`kv_frac`, below. The twins count the
 calls they get with CUDA tensors in ``.cuda_calls``.
 
@@ -21,6 +23,8 @@ Python number, as the reference bakes ``nu`` into its sklearn kernel.
 from __future__ import annotations
 
 import math
+import time
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +36,8 @@ from pymra_torch.ops.cuda.launch import ptr as _ptr
 from pymra_torch.ops.cuda.launch import where as _where
 from pymra_torch.utils import profiling as _prof
 
-__all__ = ["kv_frac", "matern_general", "matern_cuda"]
+__all__ = ["kv_frac", "matern_general", "matern_cuda", "matern_table",
+           "MaternTable"]
 
 _SERIES_ITERS = 40  # Temme series terms (x <= 2); converges ~geometrically
 _CF2_ITERS = 64  # Steed CF2 iterations (x > 2)
@@ -183,7 +188,11 @@ def matern_general(d: torch.Tensor, l, sig, nu: float) -> torch.Tensor:
     kernel does: ``l`` and ``sig`` rounded to ``d``'s precision, the rest
     in float64, the result rounded once (the series and the continued
     fraction in float32 move by ~1e-6 relative with the last bit of ``s``,
-    so a batched and an unbatched call could disagree that much).
+    so a batched and an unbatched call could disagree that much). Inside a
+    traced call it adds the entries with ``s > 0`` to the counter
+    ``cov_fallback_entries`` of the innermost open span, as the kernel
+    counts those its table did not cover: the twin has no table, so the
+    series or the continued fraction evaluates every one of them.
     """
     if d.is_cuda:
         matern_general.cuda_calls += 1
@@ -196,6 +205,8 @@ def matern_general(d: torch.Tensor, l, sig, nu: float) -> torch.Tensor:
     coef = 2.0 ** (1.0 - nu) / math.gamma(nu)
     s = math.sqrt(2.0 * nu) * d / l
     zero = s <= 0.0
+    if _prof.ON and _prof.current_call() is not None:
+        _prof.count("cov_fallback_entries", (s > 0.0).sum())
     s_safe = torch.where(zero, torch.ones_like(s), s)
     val = coef * s_safe ** nu * kv_frac(nu, s_safe)
     return (sig * torch.where(zero, torch.ones_like(val), val)).to(dtype)
@@ -217,9 +228,52 @@ _PULLBACK_BLOCKS = 2048
 _MAX_DIM = 4
 
 
+class MaternTable(NamedTuple):
+    """The table ``matern.cu`` reads at one smoothness on one device."""
+
+    #: float64, the exponentially scaled pair's polynomials (None where no
+    #: table holds 1e-10 at this smoothness: the kernels then take the
+    #: series or the continued fraction for every entry)
+    table: torch.Tensor | None
+    #: the table's largest relative error, against the series and CF2
+    max_err: float
+    #: host seconds to build it and hand it to the device
+    build_s: float
+
+
+_TABLES: dict = {}
+
+
+def matern_table(nu: float, device) -> MaternTable:
+    """The table of ``matern.cu`` for the smoothness ``nu`` on ``device``
+    (``pymra_matern_table``: e^x x^nu K_nu(x) and e^x x^nu K_(nu-1)(x) as
+    piecewise polynomials from 2^-12 to 2^10), built on the host at the
+    first call for ``(nu, device)`` and kept: no launch refits it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (float(nu), device)
+    rec = _TABLES.get(key)
+    if rec is None:
+        lib = build.load_library()
+        t0 = time.perf_counter()
+        n = lib.pymra_matern_table(float(nu), None, 0, None)
+        host = torch.empty(n, dtype=torch.float64)
+        err = torch.zeros(1, dtype=torch.float64)
+        ok = lib.pymra_matern_table(float(nu), host.data_ptr(), n,
+                                    err.data_ptr()) == n
+        table = host.to(device) if ok else None
+        rec = _TABLES[key] = MaternTable(table, float(err),
+                                         time.perf_counter() - t0)
+    return rec
+
+
 def _matern_launch(a, b, d, l, sig, nu):
     """``[C, B, p, q]`` from the points ``a [B, p, dim]``, ``b [B, q,
-    dim]`` (or the distances ``d [B, p, q]``) and ``l``, ``sig [C]``."""
+    dim]`` (or the distances ``d [B, p, q]``) and ``l``, ``sig [C]``.
+    Inside a traced call the kernel counts the entries times sets whose
+    Bessel pair the table did not cover into a tensor kept as the span's
+    counter ``cov_fallback_entries`` (read with the spans)."""
     lib = build.load_library()
     src = d if d is not None else a
     C = l.shape[0]
@@ -229,10 +283,16 @@ def _matern_launch(a, b, d, l, sig, nu):
     out = torch.empty((C, B, p, q), dtype=src.dtype, device=src.device)
     pairs = B * p * q
     if pairs:
+        table = matern_table(nu, src.device).table
+        fallback = None
+        if _prof.ON and _prof.current_call() is not None:
+            fallback = torch.zeros((), dtype=torch.int64, device=src.device)
+            _prof.count("cov_fallback_entries", fallback)
         _launched("matern", lib.pymra_matern(
             _ptr(a), _ptr(b), _ptr(d), l.data_ptr(), sig.data_ptr(),
-            out.data_ptr(), src.dtype == torch.float64, float(nu), C, pairs,
-            p, q, dim, *_where(src)))
+            out.data_ptr(), _ptr(table), _ptr(fallback),
+            src.dtype == torch.float64, float(nu), C, pairs, p, q, dim,
+            *_where(src)))
         matern_cuda.launches += 1
     return out
 
@@ -252,9 +312,9 @@ def _matern_pullback(a, b, d, l, sig, g, nu):
     if pairs:
         _launched("matern_pullback", lib.pymra_matern_pullback(
             _ptr(a), _ptr(b), _ptr(d), l.data_ptr(), sig.data_ptr(),
-            g.data_ptr(), partial.data_ptr(), blocks,
-            src.dtype == torch.float64, float(nu), C, pairs, p, q, dim,
-            *_where(src)))
+            g.data_ptr(), _ptr(matern_table(nu, src.device).table),
+            partial.data_ptr(), blocks, src.dtype == torch.float64,
+            float(nu), C, pairs, p, q, dim, *_where(src)))
         matern_cuda.pullback_launches += 1
     sums = partial.sum(-1).to(l.dtype)
     return sums[0], sums[1]

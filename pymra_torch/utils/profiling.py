@@ -20,8 +20,12 @@ for the call: it opens ``pymra.call``, inside which the sweep opens
 ``pymra.pass.<X>.level`` a level (``level`` in the record), inside which
 each evaluation of a covariance with no closed form (the general-nu
 Matern's Bessel K, :func:`pymra_torch.kernels.matern`) is a ``pymra.cov``
-span with its counter ``cov_entries`` (entries times sets). The backward
-of a traced call records ``pymra.bwd`` with ``pymra.bwd.C``,
+span with its counters ``cov_entries`` (entries times sets) and
+``cov_fallback_entries`` (those of them with a positive scaled distance
+whose Bessel pair took the series or the continued fraction: on the card
+those the kernel's table did not cover, counted by the kernel into a tensor
+read with the spans; on the CPU, where the twin has no table, all of them).
+The backward of a traced call records ``pymra.bwd`` with ``pymra.bwd.C``,
 ``pymra.bwd.B`` and ``pymra.bwd.A`` (and ``pymra.bwd.D`` where a posterior
 is differentiated) on autograd's thread, under the forward's call id:
 while tracing, an identity autograd Function (:func:`mark`) takes a tensor
@@ -269,7 +273,8 @@ class _Span:
     while it was the innermost open span."""
 
     __slots__ = ("id", "name", "parent", "call", "level", "t0", "t1", "e0",
-                 "e1", "l0", "l1", "esc", "device_ms", "own_esc", "counts")
+                 "e1", "l0", "l1", "esc", "device_ms", "own_esc", "counts",
+                 "pending")
 
     def __init__(self, name, parent, call, level=None, counters=True):
         self.id = next(_span_ids)
@@ -277,6 +282,7 @@ class _Span:
                                                          level)
         self.esc: list = []
         self.counts: dict = {}
+        self.pending: list = []  # (counter, tensor) pairs not read yet
         self.t1 = self.e0 = self.e1 = self.l0 = self.l1 = None
         self.device_ms = self.own_esc = None
         if counters:
@@ -374,14 +380,21 @@ def end(sp) -> None:
             return
 
 
-def count(name: str, n: int) -> None:
+def count(name: str, n) -> None:
     """Add ``n`` to the counter ``name`` of this thread's innermost open
     span (``cov_entries``: entries times sets of a general-nu Matern
-    evaluation, kept with its ``pymra.cov`` span)."""
+    evaluation, kept with its ``pymra.cov`` span). ``n`` may be a
+    one-element integer tensor that a kernel fills (the Matern kernel's
+    ``cov_fallback_entries``, beside ``cov_entries``): it is kept as it is
+    and added when the spans are read, once the card has finished (no wait
+    here)."""
     stack = getattr(_tls, "open", None)
     if stack:
-        counts = stack[-1].counts
-        counts[name] = counts.get(name, 0) + int(n)
+        sp = stack[-1]
+        if torch.is_tensor(n):
+            sp.pending.append((name, n))
+        else:
+            sp.counts[name] = sp.counts.get(name, 0) + int(n)
 
 
 def current_call():
@@ -531,8 +544,11 @@ def clear() -> None:
 
 
 def _resolve(sp: _Span) -> None:
-    """Device milliseconds and own escalated members of a closed span,
-    once (after the caller synchronized the card)."""
+    """Device milliseconds, own escalated members and tensor counters of a
+    closed span, once (after the caller synchronized the card)."""
+    for name, t in sp.pending:
+        sp.counts[name] = sp.counts.get(name, 0) + int(t)
+    sp.pending = []
     if sp.device_ms is None:
         if sp.e1 is not None:
             sp.device_ms = sp.e0.elapsed_time(sp.e1)

@@ -36,7 +36,7 @@ import types
 import numpy as np
 import pytest
 import torch
-from scipy.special import kv
+from scipy.special import kv, kve
 
 import chip_smoke
 from portbench import harness
@@ -44,7 +44,7 @@ from portbench.datasets import grid_field, matern_field
 from portbench.reference import mra_matern
 from portbench.reference.planner import plan_tree
 from portbench.traffic import value_and_grad
-from pymra_torch import Kernel, MRAModel, PlanConfig
+from pymra_torch import Kernel, MRAModel, PlanConfig, kernels
 from pymra_torch.ops import linalg, special
 from pymra_torch.ops.cuda import build, launch
 from pymra_torch.utils import profiling
@@ -58,6 +58,7 @@ STOP = 1e-9
 _HOST_CUDA = """#pragma once
 #include <math.h>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -69,51 +70,80 @@ inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline double __dsqrt_rn(double a) { return sqrt(a); }
 """
 # the kernels' C entry points, their threads run one entry after another
-# (the pullback's sums land in block 0)
+# (the pullback's sums land in block 0, the forward's count of entries
+# outside the table in the counter), and the lookup alone
 _HOST_MAIN = """#include "matern.cu"
 template <typename T>
 static int fwd(const void* a, const void* b, const void* d, const void* l,
-               const void* s, void* out, double nu, int sets,
-               long long pairs, int p, int q, int dim) {
+               const void* s, void* out, const void* table, void* fallback,
+               double nu, int sets, long long pairs, int p, int q, int dim) {
   const Order o = order_of(nu);
+  long long missed = 0;
   for (long long e = 0; e < pairs; ++e)
-    forward_entry((const T*)a, (const T*)b, (const T*)d, (const T*)l,
-                  (const T*)s, (T*)out, o, sets, pairs, e, p, q, dim);
+    missed += forward_entry((const T*)a, (const T*)b, (const T*)d,
+                            (const T*)l, (const T*)s, (T*)out,
+                            (const double*)table, o, sets, pairs, e, p, q,
+                            dim);
+  if (fallback != nullptr) *(long long*)fallback += missed;
   return 0;
 }
 template <typename T>
 static int pull(const void* a, const void* b, const void* d, const void* l,
-                const void* s, const void* g, double* partial, int blocks,
-                double nu, int sets, long long pairs, int p, int q,
-                int dim) {
+                const void* s, const void* g, const void* table,
+                double* partial, int blocks, double nu, int sets,
+                long long pairs, int p, int q, int dim) {
   const Order o = order_of(nu);
   for (int c = 0; c < sets; ++c) {
+    const SetTerms st = set_terms((const T*)l, (const T*)s, o, c);
     double acc[2] = {0.0, 0.0};
     for (long long e = 0; e < pairs; ++e)
-      pullback_entry((const T*)a, (const T*)b, (const T*)d, (const T*)l,
-                     (const T*)s, (const T*)g, o, c, pairs, e, p, q, dim,
+      pullback_entry((const T*)a, (const T*)b, (const T*)d, (const T*)g,
+                     (const double*)table, o, st, c, pairs, e, p, q, dim,
                      acc);
-    partial[(size_t)c * blocks] = acc[0];
+    partial[(size_t)c * blocks] = acc[0] * st.dl;
     partial[(size_t)(sets + c) * blocks] = acc[1];
   }
   return 0;
 }
 extern "C" int pymra_matern(const void* a, const void* b, const void* d,
-                            const void* l, const void* s, void* out, int f64,
+                            const void* l, const void* s, void* out,
+                            const void* table, void* fallback, int f64,
                             double nu, int sets, long long pairs, int p,
                             int q, int dim, int, void*) {
-  return (f64 ? fwd<double> : fwd<float>)(a, b, d, l, s, out, nu, sets,
-                                          pairs, p, q, dim);
+  return (f64 ? fwd<double> : fwd<float>)(a, b, d, l, s, out, table,
+                                          fallback, nu, sets, pairs, p, q,
+                                          dim);
 }
 extern "C" int pymra_matern_pullback(const void* a, const void* b,
                                      const void* d, const void* l,
                                      const void* s, const void* g,
-                                     void* partial, int blocks, int f64,
-                                     double nu, int sets, long long pairs,
-                                     int p, int q, int dim, int, void*) {
-  return (f64 ? pull<double> : pull<float>)(a, b, d, l, s, g,
+                                     const void* table, void* partial,
+                                     int blocks, int f64, double nu,
+                                     int sets, long long pairs, int p, int q,
+                                     int dim, int, void*) {
+  return (f64 ? pull<double> : pull<float>)(a, b, d, l, s, g, table,
                                             (double*)partial, blocks, nu,
                                             sets, pairs, p, q, dim);
+}
+// out [n, 4]: x^nu (K_nu, K_(nu-1)) as the kernels take them, then the
+// table's e^x x^nu (K_nu, K_(nu-1)) where it covers x (NaN elsewhere);
+// returns how many points the table covered
+extern "C" int matern_pairs(double nu, const double* table, const double* x,
+                            double* out, int n) {
+  const Order o = order_of(nu);
+  int covered = 0;
+  for (int i = 0; i < n; ++i) {
+    double* r = out + 4 * i;
+    covered += pair_at<true>(x[i], table, o, r[0], r[1]);
+    int idx;
+    double t;
+    r[2] = r[3] = NAN;
+    if (locate(x[i], idx, t)) {
+      r[2] = horner(table + idx * kCoefs, t);
+      r[3] = horner(table + kFuncSize + idx * kCoefs, t);
+    }
+  }
+  return covered;
 }
 """
 
@@ -134,11 +164,15 @@ def host_library(tmp_path_factory):
                     str(tmp / "main.cpp"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("pymra_matern", "pymra_matern_pullback"):
+    for name in ("pymra_matern", "pymra_matern_pullback",
+                 "pymra_matern_table"):
         fn = getattr(lib, name)
         fn.argtypes = build._SIGNATURES[name]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    fns["matern_pairs"] = lib.matern_pairs
+    fns["matern_pairs"].argtypes = [ctypes.c_double] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int]
     return types.SimpleNamespace(**fns)
 
 
@@ -150,6 +184,7 @@ def on_host(host_library, monkeypatch):
     monkeypatch.setattr(special, "_where", lambda t: (0, 0))
     monkeypatch.setattr(special.matern_cuda, "launches", 0)
     monkeypatch.setattr(special.matern_cuda, "pullback_launches", 0)
+    monkeypatch.setattr(special, "_TABLES", {})
     return special.matern_cuda
 
 
@@ -180,10 +215,47 @@ def _points(seed):
     return a, b
 
 
+L_SETS = [0.05, 0.11, 0.02, 0.3, 0.07]  # 5 sets: two blocks of the pullback
+SIG_SETS = [1.0, 1.3, 0.7, 2.0, 0.9]
+
+
+def _against_twin(on_host, nu, pts, d):
+    """The host build at the points ``pts`` (None: the distances ``d``,
+    handed over as circular ones) against the twin at ``d``: values within
+    half a float32 ulp (+ STOP relative) of the float64 twin and within
+    chip_smoke's limit of the float32 twin, gradients within 1e-6."""
+    l, sig = L_SETS, SIG_SETS
+    lt = torch.tensor(l, dtype=torch.float32, requires_grad=True)
+    st = torch.tensor(sig, dtype=torch.float32, requires_grad=True)
+    shape = (-1,) + (1,) * d.dim()
+    if pts is None:
+        with pytest.MonkeyPatch.context() as mp:
+            # circular distances go to the kernel as distances
+            mp.setattr(special, "dist", lambda *a, **k: d)
+            got = on_host(torch.zeros(1, 1, 1),
+                          torch.zeros(1, d.shape[-1], 1), lt.reshape(shape),
+                          st.reshape(shape), nu, circular=True)
+    else:
+        got = on_host(*pts, lt.reshape(shape), st.reshape(shape), nu)
+    want, lw, sw = _twin(d, l, sig, nu)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got.double() - want).detach().abs()
+    half_ulp = 0.5 * np.spacing(want.detach().float().abs().numpy())
+    assert (err.numpy() <= half_ulp + STOP * want.detach().abs().numpy()
+            + 2.0 ** -149).all(), err.max()  # (subnormal outputs)
+    low = special.matern_general(d, lt.detach().reshape(shape),
+                                 st.detach().reshape(shape), nu)
+    chip_smoke.compare(f"matern nu={nu}", [got.detach()], [low])
+    g = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        tuple(got.shape)), dtype=torch.float32)
+    (got * g).sum().backward()
+    (want * g.double()).sum().backward()
+    for mine, ref in ((lt.grad, lw.grad), (st.grad, sw.grad)):
+        np.testing.assert_allclose(mine.double(), ref, rtol=1e-6)
+
+
 @pytest.mark.parametrize("nu", NUS)
 def test_host_built_kernel_is_the_twin(on_host, nu):
-    l = [0.05, 0.11, 0.02, 0.3, 0.07]  # 5 sets: two blocks of the pullback
-    sig = [1.0, 1.3, 0.7, 2.0, 0.9]
     root = math.sqrt(2.0 * nu)
     a, b = _points(int(nu * 10))
     # distances of s = 2 at l = 0.05 and next to it, d = 0
@@ -192,34 +264,8 @@ def test_host_built_kernel_is_the_twin(on_host, nu):
                       np.nextafter(d_two, np.float32(0)), 0.0, 1e-4, 0.9],
                      dtype=np.float32)
     dist = torch.as_tensor(extra).reshape(1, 1, -1)
-    for pts, d in (((a, b), _dist(a, b)), (None, dist)):
-        lt = torch.tensor(l, dtype=torch.float32, requires_grad=True)
-        st = torch.tensor(sig, dtype=torch.float32, requires_grad=True)
-        shape = (-1,) + (1,) * d.dim()
-        if pts is None:
-            with pytest.MonkeyPatch.context() as mp:
-                # circular distances go to the kernel as distances
-                mp.setattr(special, "dist", lambda *a, **k: dist)
-                got = on_host(torch.zeros(1, 1, 1), torch.zeros(1, 6, 1),
-                              lt.reshape(shape), st.reshape(shape), nu,
-                              circular=True)
-        else:
-            got = on_host(*pts, lt.reshape(shape), st.reshape(shape), nu)
-        want, lw, sw = _twin(d, l, sig, nu)
-        assert got.shape == want.shape and got.dtype == torch.float32
-        err = (got.double() - want).detach().abs()
-        half_ulp = 0.5 * np.spacing(want.detach().float().abs().numpy())
-        assert (err.numpy() <= half_ulp + STOP * want.detach().abs().numpy()
-                + 2.0 ** -149).all(), err.max()  # (subnormal outputs)
-        low = special.matern_general(d, lt.detach().reshape(shape),
-                                     st.detach().reshape(shape), nu)
-        chip_smoke.compare(f"matern nu={nu}", [got.detach()], [low])
-        g = torch.as_tensor(np.random.default_rng(1).standard_normal(
-            tuple(got.shape)), dtype=torch.float32)
-        (got * g).sum().backward()
-        (want * g.double()).sum().backward()
-        for mine, ref in ((lt.grad, lw.grad), (st.grad, sw.grad)):
-            np.testing.assert_allclose(mine.double(), ref, rtol=1e-6)
+    _against_twin(on_host, nu, (a, b), _dist(a, b))
+    _against_twin(on_host, nu, None, dist)
     # a NaN distance or length scale gives NaN where the twin's is
     a[0, 1, 0] = float("nan")
     lt = torch.tensor([0.05, float("nan")])
@@ -229,6 +275,74 @@ def test_host_built_kernel_is_the_twin(on_host, nu):
     assert torch.isnan(got).any()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert on_host.launches == 3 and on_host.pullback_launches == 2
+
+
+#: the table's interval edges (matern.cu: 4 a octave from 2^-12 to 2^10)
+EDGES = np.array([2.0 ** e * (1 + j / 4) for e in range(-12, 10)
+                  for j in range(4)] + [2.0 ** 10])
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_host_built_kernel_is_the_twin_at_interval_edges(on_host, nu):
+    """Distances whose s at l = 0.05 falls on the table's interval edges
+    from 2^-6 to 2^6, and the float32 distances next to them: each side of
+    an edge reads its own interval's polynomial."""
+    root = math.sqrt(2.0 * nu)
+    edges = EDGES[(EDGES >= 2.0 ** -6) & (EDGES <= 2.0 ** 6)]
+    d = (edges * np.float32(0.05) / root).astype(np.float32)
+    d = np.concatenate([d, np.nextafter(d, np.float32(1)),
+                        np.nextafter(d, np.float32(0))])
+    _against_twin(on_host, nu, None, torch.as_tensor(d).reshape(1, 1, -1))
+
+
+def test_no_table_where_none_holds(on_host):
+    """Above nu ~ 12 no table of the kernel's size holds 1e-10: the
+    kernels get none and every entry takes the series or CF2, still the
+    twin, and the forward counts every entry with s > 0."""
+    nu = 20.0
+    rec = special.matern_table(nu, "cpu")
+    assert rec.table is None and rec.max_err > 1e-10
+    a, b = _points(5)
+    _against_twin(on_host, nu, (a, b), _dist(a, b))
+    profiling.clear()
+    with profiling.tracing(), profiling.trace_annotation("t"):
+        on_host(a, b, torch.tensor([0.05, 0.3]).reshape(-1, 1, 1, 1), 1.0,
+                nu)
+    fell = profiling.spans()[-1]["counts"]["cov_fallback_entries"]
+    assert fell == 2 * int((_dist(a, b) > 0).sum())
+
+
+def _ends():
+    """x_lo, x_hi, 2 and both ends of every interval of the table (its
+    upper end from below)."""
+    return np.concatenate([EDGES, np.nextafter(EDGES, 0.0), [2.0]])
+
+
+@pytest.mark.parametrize("nu", [0.3, 0.5001, 0.8, 1.0, 1.3, 2.2, 3.7])
+def test_table_holds_the_bessel_pair_to_scipy(host_library, nu):
+    """The table ``matern.cu`` builds for nu, read through the kernels'
+    lookup: e^x x^nu K_nu(x) and e^x x^nu K_(nu-1)(x) within 1e-10 of
+    scipy on every interval (the polynomials themselves, up to x_hi), and
+    x^nu (K_nu, K_(nu-1)) as the kernels take them, the series and CF2
+    outside [x_lo, x_hi), where the value has not underflowed."""
+    lib = host_library
+    n = lib.pymra_matern_table(nu, None, 0, None)
+    table, err = np.zeros(n), np.zeros(1)
+    assert lib.pymra_matern_table(nu, table.ctypes.data, n,
+                                  err.ctypes.data) == n
+    assert n * 8 == 14080 and err[0] <= 1e-10
+    x = np.concatenate([np.geomspace(1e-6, 1024.0, 2001), _ends()])
+    out = np.zeros((len(x), 4))
+    covered = lib.matern_pairs(nu, table.ctypes.data, x.ctypes.data,
+                               out.ctypes.data, len(x))
+    inside = (x >= 2.0 ** -12) & (x < 2.0 ** 10)
+    assert covered == inside.sum() and np.isnan(out[~inside, 2:]).all()
+    for k, order in enumerate((nu, nu - 1.0)):
+        scaled = x[inside] ** nu * kve(order, x[inside])
+        np.testing.assert_allclose(out[inside, 2 + k], scaled, rtol=1e-10)
+        want = x ** nu * kv(order, x)
+        live = want > 1e-300
+        np.testing.assert_allclose(out[live, k], want[live], rtol=1e-10)
 
 
 def test_kernel_takes_unbatched_and_float64(on_host):
@@ -295,6 +409,76 @@ def test_sweep_spans_count_the_plans_entries():
     assert not [r for r in profiling.spans() if r["name"] == "pymra.cov"]
 
 
+def test_twin_counts_every_entry_it_evaluates():
+    """On the CPU the twin has no table: under ``tracing()`` a general-nu
+    Matern's ``pymra.cov`` span counts in ``cov_fallback_entries`` every
+    entry times set with s > 0 (the shared point's d = 0 left out), beside
+    all of them in ``cov_entries``; an untraced call opens no span."""
+    a, b = _points(7)
+    l = torch.tensor([0.05, 0.3], dtype=F64).reshape(-1, 1, 1, 1)
+    profiling.clear()
+    with profiling.tracing(), profiling.trace_annotation("t"):
+        kernels.matern(a, b, l=l, sig=1.0, nu=0.8)
+    rec = profiling.spans()[-1]
+    assert rec["name"] == "pymra.cov"
+    d = kernels.dist(a, b)
+    assert int((d == 0).sum()) == 1
+    assert rec["counts"] == {"cov_entries": 2 * d.numel(),
+                             "cov_fallback_entries": 2 * (d.numel() - 1)}
+    profiling.clear()
+    kernels.matern(a, b, l=l, sig=1.0, nu=0.8)
+    assert not profiling.spans()
+
+
+def test_sweep_counts_the_entries_outside_the_table(on_host, host_library,
+                                                   monkeypatch):
+    """A traced CPU sweep whose general-nu Matern runs through the host
+    build: its ``pymra.cov`` spans' ``cov_fallback_entries`` add up to the
+    entries times sets with s > 0 outside [2^-12, 2^10) (points 1e-6 apart
+    at l = 0.05, points over 0.81 apart at l = 0.001, and d = 0); an
+    untraced sweep hands the kernel no counter."""
+    counters = []
+    spy = dict(vars(host_library))
+    spy["pymra_matern"] = lambda *a: (counters.append(a[7]),
+                                      host_library.pymra_matern(*a))[1]
+    monkeypatch.setattr(special.build, "load_library",
+                        lambda: types.SimpleNamespace(**spy))
+    outside = {"below": 0, "above": 0}
+
+    def through_the_kernel(d, l, sig, nu):
+        lc = torch.as_tensor(l, dtype=d.dtype).reshape(-1)
+        sc = torch.as_tensor(sig, dtype=d.dtype).reshape(-1)
+        sc = sc.expand(lc.numel()).contiguous()
+        x = math.sqrt(2.0 * nu) * d[None] / lc.reshape((-1,) + (1,) * d.dim())
+        outside["below"] += int(((x > 0) & (x < 2.0 ** -12)).sum())
+        outside["above"] += int((x >= 2.0 ** 10).sum())
+        out = special._matern_launch(None, None,
+                                     d.reshape((-1,) + d.shape[-2:]), lc,
+                                     sc, nu)
+        return out.reshape((lc.numel(),) + d.shape)
+
+    monkeypatch.setattr(kernels, "matern_general", through_the_kernel)
+    rng = np.random.default_rng(6)
+    locs = rng.random((400, 2))
+    locs[200:220] = locs[:20] + 1e-6
+    y = np.sin(6 * locs[:, 0]) + 0.1 * rng.standard_normal(400)
+    model = MRAModel(locs, r=4, M=2, dtype=F64, device="cpu",
+                     config=PlanConfig(r=4, M=2, kmeans_impl="native"))
+    kern = Kernel("matern", l=torch.tensor([0.05, 0.001], dtype=F64),
+                  nu=0.8)
+    profiling.clear()
+    with profiling.tracing():
+        model.sweep(kern, y, 0.01)
+    cov = [r for r in profiling.spans() if r["name"] == "pymra.cov"]
+    assert outside["below"] > 0 and outside["above"] > 0
+    assert sum(r["counts"]["cov_fallback_entries"] for r in cov) == \
+        outside["below"] + outside["above"]
+    assert len(counters) == len(cov) and None not in counters
+    counters.clear()
+    model.sweep(kern, y, 0.01)
+    assert counters and counters == [None] * len(counters)
+
+
 def test_launch_count_sums_every_modules_counters(monkeypatch):
     """The Matern's counters live in ``special``, K1's in ``linalg``: one
     registry sums both, and ``linalg`` reads nothing of ``special``."""
@@ -338,6 +522,9 @@ def test_chip_smoke_phase_3d_rehearses_on_the_host(on_host, monkeypatch):
     assert rec["forward"]["launches_per_call"] == 1
     assert rec["pullback"]["launches_per_call"] == 1
     assert rec["grad_rel_err"] < 1e-6 and rec["f64_err"] < 1e-6
+    assert rec["tables"][0.8]["bytes"] == 14080
+    assert rec["tables"][0.8]["max_err"] <= 1e-10
+    assert rec["fallback_entries"] > 0
     real = special._matern_pullback
 
     def dropped(*args):
